@@ -1,0 +1,209 @@
+"""Configuration dataclasses for the PyTorch/CUDA port of quest-tpu.
+
+Counterpart of ``quest_tpu/config.py``: the same three frozen
+dataclasses, the same defaults and checks, with dtypes as
+``torch.dtype``. The port runs the exact top-k only, so the serving
+configuration maps ``approx`` and ``exact_fast`` to ``exact``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeConfig:
+    """Rotary position embedding settings: plain (``scaling=None``),
+    linear position interpolation (``"linear"``), Llama-3.1 frequency
+    bands (``"llama3"``) or YaRN (``"yarn"``)."""
+
+    theta: float = 10000.0
+    scaling: Optional[str] = None  # None | "linear" | "llama3" | "yarn"
+    factor: float = 1.0
+    # llama3-specific
+    low_freq_factor: float = 1.0
+    high_freq_factor: float = 4.0
+    original_max_position_embeddings: int = 8192
+    # yarn-specific
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture of a Llama/Mistral-family decoder-only transformer."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int = 128
+    rms_norm_eps: float = 1e-5
+    rope: RopeConfig = dataclasses.field(default_factory=RopeConfig)
+    tie_word_embeddings: bool = False
+    max_position_embeddings: int = 32768
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def num_groups(self) -> int:
+        assert self.num_heads % self.num_kv_heads == 0
+        return self.num_heads // self.num_kv_heads
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class QuestConfig:
+    """Engine (KV sparsity) settings; defaults are the paper protocol:
+    page 16, 2048-token budget, bf16 KV and metadata, exact top-k,
+    per-KV-head selection, first two layers dense."""
+
+    page_size: int = 16
+    token_budget: int = 2048
+    max_seq_len: int = 32768
+    skip_layers: int = 2          # first N layers always run dense
+    group_agg: str = "sum"        # GQA score combine: "sum" | "max"
+    selection: str = "per_kv_head"  # | "per_q_head"
+    kv_dtype: torch.dtype = torch.bfloat16
+    # Storage dtype of the per-page min/max-Key metadata; None = kv_dtype.
+    meta_dtype: Optional[torch.dtype] = None
+    # The port runs exact top-k; "approx"/"exact_fast" (the JAX
+    # package's TPU-only methods) are accepted and run exact.
+    topk_method: str = "exact"
+    # The fused estimate->top-k->decode kernel is not ported yet; the
+    # model raises NotImplementedError when this is set.
+    fused_decode: bool = False
+    # Physical-pool allocation granularity, in pages (kv/paged_kv.py).
+    block_pages: int = 64
+
+    def __post_init__(self):
+        for name, value, allowed in (
+                ("group_agg", self.group_agg, ("sum", "max")),
+                ("selection", self.selection, ("per_kv_head", "per_q_head")),
+                ("topk_method", self.topk_method,
+                 ("exact", "approx", "exact_fast"))):
+            if value not in allowed:
+                raise ValueError(f"{name}={value!r}; expected one of {allowed}")
+        meta = self.meta_dtype if self.meta_dtype is not None else self.kv_dtype
+        if self.fused_decode and _itemsize(meta) < 2:
+            raise ValueError(
+                "fused_decode=True with sub-bf16 (fp8) metadata is a "
+                "refused configuration: use the unfused pipeline with fp8 "
+                "metadata, or bf16 metadata with the fused kernel.")
+        if self.fused_decode and _itemsize(self.kv_dtype) < 2:
+            raise ValueError(
+                "fused_decode=True does not support fp8 KV pages; use the "
+                "unfused pipeline.")
+        if self.token_budget < self.page_size:
+            raise ValueError(
+                f"token_budget={self.token_budget} below one page "
+                f"({self.page_size}); the budget must cover at least "
+                "the always-kept current page.")
+
+    @property
+    def resolved_meta_dtype(self) -> torch.dtype:
+        return self.meta_dtype if self.meta_dtype is not None else self.kv_dtype
+
+    @property
+    def page_budget(self) -> int:
+        """Number of top-K page slots (includes the always-kept last page)."""
+        return max(1, self.token_budget // self.page_size)
+
+    @property
+    def max_pages(self) -> int:
+        """Per-sequence logical page-table size, rounded up to a multiple
+        of the allocation block (and of 64)."""
+        p = (self.max_seq_len + self.page_size - 1) // self.page_size
+        m = max(64, self.block_pages)
+        return ((p + m - 1) // m) * m
+
+
+def serving_quest_config(max_seq_len: int, token_budget: int = 2048,
+                         **overrides) -> QuestConfig:
+    """The serving configuration of ``quest_tpu``: page 32, fp8 e4m3
+    metadata, and the selection method of ``ops.topk.serving_method``
+    (which the port runs as exact top-k)."""
+    from quest_tpu_torch.ops.topk import serving_method
+
+    page = overrides.pop("page_size", 32)
+    probe = QuestConfig(page_size=page, token_budget=token_budget,
+                        max_seq_len=max_seq_len)
+    return dataclasses.replace(
+        probe,
+        meta_dtype=overrides.pop("meta_dtype", torch.float8_e4m3fn),
+        topk_method=overrides.pop(
+            "topk_method",
+            serving_method(probe.max_pages, probe.page_budget)),
+        **overrides)
+
+
+# ---------------------------------------------------------------------------
+# Presets.
+# ---------------------------------------------------------------------------
+
+def longchat_7b_v15_32k() -> ModelConfig:
+    return ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+        num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128,
+        rms_norm_eps=1e-5, max_position_embeddings=32768,
+        rope=RopeConfig(theta=10000.0, scaling="linear", factor=8.0),
+    )
+
+
+def yarn_llama2_7b_128k() -> ModelConfig:
+    return ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+        num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128,
+        rms_norm_eps=1e-5, max_position_embeddings=131072,
+        rope=RopeConfig(theta=10000.0, scaling="yarn", factor=32.0,
+                        original_max_position_embeddings=4096),
+    )
+
+
+def llama31_8b() -> ModelConfig:
+    return ModelConfig(
+        vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+        rms_norm_eps=1e-5, max_position_embeddings=131072,
+        rope=RopeConfig(theta=500000.0, scaling="llama3", factor=8.0,
+                        low_freq_factor=1.0, high_freq_factor=4.0,
+                        original_max_position_embeddings=8192),
+    )
+
+
+def mistral_7b_v03() -> ModelConfig:
+    return ModelConfig(
+        vocab_size=32768, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+        rms_norm_eps=1e-5, max_position_embeddings=32768,
+        rope=RopeConfig(theta=1000000.0),
+    )
+
+
+def tiny_test_model(num_kv_heads: int = 4) -> ModelConfig:
+    """Small config for unit tests (CPU-runnable)."""
+    return ModelConfig(
+        vocab_size=256, hidden_size=128, intermediate_size=352,
+        num_layers=4, num_heads=4, num_kv_heads=num_kv_heads, head_dim=32,
+        rms_norm_eps=1e-5, max_position_embeddings=4096,
+        rope=RopeConfig(theta=10000.0),
+    )
+
+
+def small_tpu_model() -> ModelConfig:
+    """Small config with head_dim 128 (the width the CUDA kernels take):
+    smoke runs of the full stack on the card."""
+    return ModelConfig(
+        vocab_size=2048, hidden_size=256, intermediate_size=512,
+        num_layers=2, num_heads=2, num_kv_heads=2, head_dim=128,
+        rms_norm_eps=1e-5, max_position_embeddings=8192,
+        rope=RopeConfig(theta=10000.0),
+    )

@@ -1,0 +1,35 @@
+// Sparse paged flash-decode attention over the selected pages.
+//
+// Replaces quest_tpu/ops/sparse_decode.py:sparse_decode_attention (the
+// Pallas kernels _kernel and _kernel_1blk, pallas_call at line 498).
+// For each (batch row, selection head) it reads the S selected LOGICAL
+// pages, maps each through the block table to its physical page
+// (tab[b, p / bpp] * bpp + p % bpp), and attends the G query heads of
+// the group over those S * page tokens. Slots >= num_valid are junk
+// (select_pages leaves them all on page P-1) and are masked by slot;
+// the current page's tail is masked by token position (< seq_len), so
+// the kernel needs no "last slot" search. In per-query-head mode the
+// selection head is a query head (G = 1) that reads KV head h / kvdiv.
+//
+// Bound on the H100: bytes. Each selected page is read once per
+// selection head (2 * page * D * 2 bytes in bf16, 8 KB at page 16),
+// about 8.4 MB for one row of Llama-3.1-8B at S = 128, against
+// 3.35 TB/s. The G query heads share every page read. The design
+// splits the slots across CTAs (8 slots a CTA, ops/sparse_decode.py
+// SPLIT_SLOTS) so that one row fills 16 x Hkv = 128 SMs instead of 8,
+// keeps 16-byte loads per thread, and merges the splits by log-sum-exp
+// in a second small kernel (one CTA per query head).
+#include "decode_common.cuh"
+
+extern "C" int sparse_decode_launch(
+    const void* q, const void* kv, const int* tab, const int* seq_lens,
+    const int* indices, const int* num_valid, float* part_o, float* part_ml,
+    float* out, int B, int Hsel, int G, int kvdiv, int NP, int page, int NB,
+    int bpp, int S, int nsplit, int per_split, int is_bf16, float sm_scale,
+    int q_bf16, void* stream) {
+  qt::DecodeArgs a{q,      kv,      tab,   seq_lens, indices, num_valid,
+                   part_o, part_ml, Hsel,  kvdiv,    NP,      page,
+                   NB,     bpp,     S,     nsplit,   per_split,
+                   sm_scale, q_bf16};
+  return qt::dispatch_decode<true>(a, out, B, G, is_bf16, stream);
+}

@@ -1,0 +1,235 @@
+"""Paged KV cache with per-page min/max Key metadata (counterpart of
+``quest_tpu/kv/paged_kv.py``).
+
+Layouts are the JAX package's:
+  * ``kv_pages [L, Hkv, NP, 2, page, D]`` — one shared physical pool;
+    axis -3 is 0=K, 1=V, so a page's K and V are one contiguous block;
+  * ``k_max / k_min [L, Hkv, NPB, bpp, D]`` — metadata keyed by PHYSICAL
+    page, blocked like the pool (NPB * bpp == NP);
+  * ``block_tab [B, NB]`` — physical block of each logical block of a
+    slot: physical page of logical page p is
+    ``block_tab[b, p // bpp] * bpp + p % bpp``. Physical block 0 is
+    scratch: masked writes (inactive decode rows, empty prefill rows)
+    land there and never touch another sequence's pages;
+  * ``seq_lens [B]`` — tokens stored per slot.
+
+Unlike JAX, which rebuilt the arrays functionally (in place only under
+buffer donation), the port updates the cache IN PLACE: every append
+writes the touched pool rows and metadata rows of the existing tensors
+and returns nothing.
+
+Invariant: the pool never holds a non-finite value. A masked lane
+contributes ``0 x V`` to attention and ``0 x NaN = NaN``, so every
+append routes K/V through :func:`_finite` (non-finite -> 0); the pool
+starts zeroed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from quest_tpu_torch.config import ModelConfig, QuestConfig
+from quest_tpu_torch.ops.utils import resolve_device
+
+K, V = 0, 1      # kv_pages axis -3
+
+
+def _finite(x: torch.Tensor) -> torch.Tensor:
+    """Zero out non-finite lanes (see module invariant)."""
+    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+
+@dataclasses.dataclass
+class LayerKV:
+    """Per-slot view of one layer (tests and oracles, not serving)."""
+
+    kv_pages: torch.Tensor  # [B, Hkv, P, 2, page, D]
+    k_max: torch.Tensor     # [B, Hkv, P, D]
+    k_min: torch.Tensor     # [B, Hkv, P, D]
+    seq_lens: torch.Tensor  # [B]
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Whole-model paged KV state, mutated in place by the appends."""
+
+    kv_pages: torch.Tensor   # [L, Hkv, NP, 2, page, D]
+    k_max: torch.Tensor      # [L, Hkv, NPB, bpp, D]
+    k_min: torch.Tensor      # [L, Hkv, NPB, bpp, D]
+    block_tab: torch.Tensor  # [B, NB] int32
+    seq_lens: torch.Tensor   # [B] int32
+
+    @property
+    def page_size(self) -> int:
+        return self.kv_pages.shape[-2]
+
+    @property
+    def max_pages(self) -> int:
+        """Logical pages per slot."""
+        return self.block_tab.shape[1] * self.block_pages
+
+    @property
+    def block_pages(self) -> int:
+        return self.k_max.shape[3]
+
+    @property
+    def batch_size(self) -> int:
+        return self.block_tab.shape[0]
+
+    def layer(self, l: int) -> LayerKV:
+        """Materialized per-slot view [B, Hkv, P, ...] of one layer
+        (gathers through the block table — a copy)."""
+        bpp = self.block_pages
+        B = self.batch_size
+        dev = self.kv_pages.device
+        phys = (self.block_tab.long()[:, :, None] * bpp
+                + torch.arange(bpp, device=dev)[None, None, :]).reshape(B, -1)
+        kv = self.kv_pages[l][:, phys]                 # [Hkv, B, P, 2, page, D]
+        Hkv, D = self.k_max.shape[1], self.k_max.shape[-1]
+        tab = self.block_tab.long()
+        kmax = self.k_max[l][:, tab].reshape(Hkv, B, -1, D)
+        kmin = self.k_min[l][:, tab].reshape(Hkv, B, -1, D)
+        return LayerKV(kv.transpose(0, 1), kmax.transpose(0, 1),
+                       kmin.transpose(0, 1), self.seq_lens)
+
+
+def init_cache(model: ModelConfig, quest: QuestConfig, batch_size: int = 1,
+               num_layers: int | None = None,
+               total_pages: int | None = None,
+               device="cuda") -> PagedKVCache:
+    """Allocate the zeroed pool up front on ``device``.
+
+    ``total_pages``: physical pool size (default: one scratch block plus
+    ``batch_size * max_pages``). The default block table gives slot b
+    the contiguous block range ``[1 + b*NB, 1 + (b+1)*NB)``; rows that do
+    not fit start out on scratch. (The JAX package's ``dp`` pool
+    replicas are not ported.)
+    """
+    dev = resolve_device(device)
+    L = num_layers if num_layers is not None else model.num_layers
+    B, H, D = batch_size, model.num_kv_heads, model.head_dim
+    P, page = quest.max_pages, quest.page_size
+    bpp = min(quest.block_pages, P)
+    assert P % bpp == 0
+    NB = P // bpp
+    if total_pages is None:
+        total_pages = bpp + B * P        # scratch block + full reservation
+    NP = -(-total_pages // bpp) * bpp
+    rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    row_fits = (rows + 1) * NB + 1 <= NP // bpp
+    btab = torch.where(row_fits,
+                       1 + rows * NB + torch.arange(NB, dtype=torch.int32,
+                                                    device=dev),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    mdt = quest.resolved_meta_dtype
+    return PagedKVCache(
+        kv_pages=torch.zeros((L, H, NP, 2, page, D), dtype=quest.kv_dtype,
+                             device=dev),
+        k_max=torch.zeros((L, H, NP // bpp, bpp, D), dtype=mdt, device=dev),
+        k_min=torch.zeros((L, H, NP // bpp, bpp, D), dtype=mdt, device=dev),
+        block_tab=btab,
+        seq_lens=torch.zeros((B,), dtype=torch.int32, device=dev),
+    )
+
+
+def append_decode_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
+                     v_new: torch.Tensor,
+                     active: torch.Tensor | None = None) -> None:
+    """Write one token per sequence into layer ``layer``, in place.
+
+    ``k_new, v_new``: [B, Hkv, D]; written at ``seq_lens[b]``. Slots with
+    ``active=False`` are routed to the scratch block and their metadata
+    fold is a no-op. Does not advance ``seq_lens``.
+    """
+    kv, kmax, kmin = cache.kv_pages[layer], cache.k_max[layer], cache.k_min[layer]
+    page = kv.shape[-2]
+    bpp = cache.block_pages
+    NB = cache.block_tab.shape[1]
+    B = k_new.shape[0]
+    kq = _finite(k_new).to(kv.dtype)
+    vq = _finite(v_new).to(kv.dtype)
+    pos = cache.seq_lens.long()
+    p_log = pos // page
+    e_idx = pos % page
+    tab = cache.block_tab.long()
+    if active is not None:
+        tab = torch.where(active[:, None], tab, torch.zeros_like(tab))
+    row = torch.arange(B, device=kv.device)
+    blk = tab[row, (p_log // bpp).clamp(max=NB - 1)]     # [B] phys block
+    off = p_log % bpp
+    p_phys = blk * bpp + off
+
+    kv[:, p_phys, K, e_idx] = kq.transpose(0, 1)
+    kv[:, p_phys, V, e_idx] = vq.transpose(0, 1)
+
+    old_max = kmax[:, blk, off].float()                  # [Hkv, B, D]
+    old_min = kmin[:, blk, off].float()
+    kf = kq.float().transpose(0, 1)
+    first = (e_idx == 0)[None, :, None]
+    new_max = torch.where(first, kf, torch.maximum(old_max, kf))
+    new_min = torch.where(first, kf, torch.minimum(old_min, kf))
+    if active is not None:
+        act = active[None, :, None]
+        new_max = torch.where(act, new_max, old_max)
+        new_min = torch.where(act, new_min, old_min)
+    kmax[:, blk, off] = new_max.to(kmax.dtype)
+    kmin[:, blk, off] = new_min.to(kmin.dtype)
+
+
+def append_prefill_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
+                      v_new: torch.Tensor,
+                      new_lens: torch.Tensor | None = None) -> None:
+    """Write ``T`` tokens per sequence into layer ``layer`` starting at
+    ``seq_lens[b]``, in place, and recompute the min/max metadata of the
+    touched page window.
+
+    ``k_new, v_new``: [B, T, Hkv, D]; ``new_lens`` [B] real tokens per
+    row (default T). Rows with ``new_lens == 0`` are routed to scratch
+    and skip metadata. The window of W = min(P, T // page + 2) pages
+    starts at ``p0 = min(offset // page, P - W)``, and the write start
+    inside it is clamped so the T tokens fit, as JAX's
+    ``dynamic_update_slice`` clamps.
+    """
+    kv, kmax, kmin = cache.kv_pages[layer], cache.k_max[layer], cache.k_min[layer]
+    B, T, H, D = k_new.shape
+    page = kv.shape[-2]
+    P = cache.max_pages
+    bpp = cache.block_pages
+    dev = kv.device
+    if new_lens is None:
+        new_lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    new_lens = new_lens.long()
+    W = min(P, T // page + 2)
+    active = new_lens > 0
+    tab = cache.block_tab.long()
+    tab = torch.where(active[:, None], tab, torch.zeros_like(tab))
+    row = torch.arange(B, device=dev)
+
+    offset = cache.seq_lens.long()
+    p0 = torch.clamp(offset // page, max=P - W)
+    local = (offset - p0 * page).clamp(0, W * page - T)     # DUS clamp
+    tok = p0[:, None] * page + local[:, None] + torch.arange(T, device=dev)
+    t_page = tok // page                                     # [B, T] logical
+    t_phys = tab[row[:, None], t_page // bpp] * bpp + t_page % bpp
+    t_ent = tok % page
+    kv[:, t_phys, K, t_ent] = _finite(k_new).to(kv.dtype).permute(2, 0, 1, 3)
+    kv[:, t_phys, V, t_ent] = _finite(v_new).to(kv.dtype).permute(2, 0, 1, 3)
+
+    # Recompute min/max over the touched window, keyed by the physical
+    # (block, page) the data write targeted.
+    wpages = p0[:, None] + torch.arange(W, device=dev)[None, :]   # [B, W]
+    wblk = tab[row[:, None], wpages // bpp]                       # [B, W]
+    woff = wpages % bpp
+    wkf = kv[:, wblk * bpp + woff, K].float()          # [Hkv, B, W, page, D]
+    tok_ids = wpages[:, :, None] * page + torch.arange(page, device=dev)
+    valid = (tok_ids < (offset + new_lens)[:, None, None])[None, ..., None]
+    big = 3.0e38
+    wmax = torch.where(valid, wkf, -big).amax(dim=3)    # [Hkv, B, W, D]
+    wmin = torch.where(valid, wkf, big).amin(dim=3)
+    write = valid.any(dim=3) & active[None, :, None, None]
+    old_max = kmax[:, wblk, woff].float()
+    old_min = kmin[:, wblk, woff].float()
+    kmax[:, wblk, woff] = torch.where(write, wmax, old_max).to(kmax.dtype)
+    kmin[:, wblk, woff] = torch.where(write, wmin, old_min).to(kmin.dtype)

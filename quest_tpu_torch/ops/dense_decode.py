@@ -1,0 +1,103 @@
+"""Dense paged flash-decode attention (counterpart of
+``quest_tpu/ops/dense_decode.py``).
+
+Used by the first ``skip_layers`` layers of every decode step. On a CUDA
+tensor :func:`dense_decode_attention` launches the hand-written kernel
+``csrc/dense_decode.cu``; on a CPU tensor it runs
+:func:`dense_decode_attention_plain`, the same function in eager
+PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quest_tpu_torch.ops import _build
+from quest_tpu_torch.ops.utils import (MASK_VALUE, check_pool_dtype,
+                                      kernel_query, scaled_query)
+
+# Tokens per CTA split (32 pages at page 16).
+SPLIT_TOKENS = 512
+
+
+def dense_decode_attention_plain(q, kv_pages, seq_lens, *, sm_scale: float,
+                                 layer: int, block_tab, block_pages: int):
+    """Eager version: gather every logical page of each slot through the
+    block table, mask tokens >= seq_len, one-pass softmax in f32, p cast
+    to the pool dtype before PV. q [B, Hq, D] -> [B, Hq, D] f32."""
+    B, Hq, D = q.shape
+    kvl = kv_pages[layer]                            # [Hkv, NP, 2, page, D]
+    Hkv, page = kvl.shape[0], kvl.shape[-2]
+    G = Hq // Hkv
+    bpp = block_pages
+    P = block_tab.shape[1] * bpp
+    dev = q.device
+    qs = scaled_query(q, sm_scale, kvl.dtype).float().reshape(B, Hkv, G, D)
+    lp = torch.arange(P, device=dev)
+    phys = block_tab.long()[:, lp // bpp] * bpp + lp % bpp     # [B, P]
+    sel = kvl[:, phys]                               # [Hkv, B, P, 2, page, D]
+    k = sel[:, :, :, 0].reshape(Hkv, B, P * page, D).transpose(0, 1)
+    v = sel[:, :, :, 1].reshape(Hkv, B, P * page, D).transpose(0, 1)
+    s = torch.einsum("bkgd,bktd->bkgt", qs, k.float())
+    valid = (torch.arange(P * page, device=dev)[None, :]
+             < seq_lens.long()[:, None])[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, MASK_VALUE))
+    p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)),
+                    torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgt,bktd->bkgd", p.to(v.dtype).float(), v.float())
+    o = torch.where(l > 0, o / l, torch.zeros_like(o))
+    return o.reshape(B, Hq, D)
+
+
+def dense_decode_attention(q, kv_pages, seq_lens, *, sm_scale: float,
+                           layer: int, block_tab, block_pages: int):
+    """Decode attention over every cached token of each slot.
+
+    q: [B, Hq, D] un-scaled query; kv_pages: the whole-model shared pool
+    [L, Hkv, NP, 2, page, D] (bf16 or f32), read at ``layer``;
+    seq_lens: [B] tokens per slot including the current one; block_tab
+    [B, NB] int32; block_pages: pages per allocation block.
+    Returns [B, Hq, D] f32.
+    """
+    check_pool_dtype(kv_pages.dtype)
+    if not q.is_cuda:
+        return dense_decode_attention_plain(
+            q, kv_pages, seq_lens, sm_scale=sm_scale, layer=layer,
+            block_tab=block_tab, block_pages=block_pages)
+    B, Hq, D = q.shape
+    _, Hkv, NP, _, page, Dk = kv_pages.shape
+    G = Hq // Hkv
+    if D != 128 or Dk != 128:
+        raise NotImplementedError("the CUDA decode kernels take head_dim 128")
+    if G not in (1, 2, 4, 8) or G * Hkv != Hq:
+        raise NotImplementedError(f"GQA group {Hq}/{Hkv} not supported")
+    for t in (kv_pages, block_tab, seq_lens):
+        if t.device != q.device:
+            raise ValueError("all operands must be on the query's device")
+    if not kv_pages.is_contiguous():
+        raise ValueError("kv_pages must be contiguous")
+    NB = block_tab.shape[1]
+    per_split = max(1, SPLIT_TOKENS // page)
+    nsplit = -(-NB * block_pages // per_split)
+    qk = kernel_query(q)
+    tab = block_tab.to(torch.int32).contiguous()
+    lens = seq_lens.to(torch.int32).contiguous()
+    part_o = torch.empty((B, Hkv, nsplit, G, D), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((B, Hkv, nsplit, G, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    lib = _build.load("dense_decode")
+    code = lib.dense_decode_launch(
+        _build.ptr(qk), _build.ptr(kv_pages[layer]), _build.ptr(tab),
+        _build.ptr(lens), _build.ptr(part_o), _build.ptr(part_ml),
+        _build.ptr(out), B, Hkv, G, NP, page, NB, block_pages, nsplit,
+        per_split, int(kv_pages.dtype == torch.bfloat16), sm_scale,
+        int(qk.dtype == torch.bfloat16), _build.stream_of(q))
+    _build.check(lib, code, "dense_decode")
+    dense_decode_attention.launches += 1
+    return out
+
+
+dense_decode_attention.launches = 0

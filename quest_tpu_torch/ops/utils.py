@@ -1,0 +1,47 @@
+"""Helpers shared by the port's ops."""
+
+from __future__ import annotations
+
+import torch
+
+MASK_VALUE = -1e30  # finite so exp(m_prev - m_new) never hits inf-inf
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. ``"cuda"`` (the default of
+    every entry point) raises when no card is present: the CPU is used
+    only when the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+def scaled_query(q: torch.Tensor, sm_scale: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """q arrives un-scaled: scale in f32, then cast to the pool dtype
+    before QK, as the JAX kernels do."""
+    return (q.float() * sm_scale).to(dtype)
+
+
+def kernel_query(q: torch.Tensor) -> torch.Tensor:
+    """The query as the CUDA kernels read it: bf16 or f32, contiguous,
+    un-scaled (the kernels scale it in f32 and round it to the pool
+    dtype, as :func:`scaled_query` does)."""
+    return (q if q.dtype == torch.bfloat16 else q.float()).contiguous()
+
+
+def check_pool_dtype(dtype: torch.dtype) -> None:
+    """The kernels take bf16 or f32 pools; fp8 comes with the fp8 slice."""
+    if dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        raise NotImplementedError(
+            "fp8 KV pools are not ported yet (they need the upcast_fp8 "
+            "device helper)")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"unsupported KV pool dtype {dtype}")
