@@ -10,10 +10,13 @@ Phases, each fatal on failure:
   3. each kernel against its plain PyTorch version at the serving
      path's shapes (Llama-3.1-8B attention: 32 query heads, 8 KV heads,
      head dim 128, page 16, bf16, 64-page allocation blocks, a shuffled
-     block table), timed with CUDA events beside its bound, its plain
-     version and one PyTorch library call;
+     block table, a bf16 query as the serving path gives it; once more
+     with an f32 query), timed with CUDA events beside its bound, its
+     plain version and one PyTorch library call;
   4. the port's slice end to end against its plain CPU path on a small
-     model with the sparse path live;
+     4-layer model with the sparse path live: in bf16 (the serving
+     path's dtypes) the greedy tokens agree at every step; in f32 (f32
+     model and KV pool) they agree and the logits are within 2e-3;
   5. the full-width Llama-3.1-8B (32 layers, random bf16 weights from a
      seed) served by QuestEngine: ``generate`` on two prompts, then
      ``clear()`` and ``generate_ondevice`` on two more, with the kernel
@@ -39,6 +42,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 REL_TOL = 2e-2                   # bf16 kernel vs plain, max|d| / max|plain|
+F32_TOL = 2e-3                   # f32 4-layer logits, card vs CPU
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"  # logs
 
 
@@ -118,6 +122,16 @@ def build_phase():
 # Phase 3: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
+def f32_query_check(label, kernel, plain, q, *args, **kw):
+    """The kernel's f32-query branch (an f32 model's path) against its
+    plain version on the same pool; returns the relative error."""
+    q32 = q.float()
+    err = rel_err(kernel(q32, *args, **kw), plain(q32, *args, **kw))
+    log(f"{label}[f32 query]: rel err {err:.2e}")
+    assert err <= REL_TOL, f"{label} kernel disagrees on an f32 query: {err}"
+    return err
+
+
 def make_pool(max_seq_len, B, gen, L=1):
     """A Llama-3.1-8B-geometry pool filled with random bf16 K/V, its
     page metadata, and a shuffled (non-identity) block table."""
@@ -159,7 +173,7 @@ def sparse_cases(timer, gen):
     seq = torch.tensor([32768, 7001], dtype=torch.int32, device="cuda")
     B, Hq, D, page = 2, cfg.num_heads, cfg.head_dim, quest.page_size
     S = quest.page_budget
-    q = torch.randn((B, Hq, D), generator=gen, device="cuda")
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
     scores = page_scores_physical(q, cache.k_max[0], cache.k_min[0],
                                   cache.block_tab, group_agg=quest.group_agg)
     sel_idx, sel_nv = select_pages(scores, seq, page, S)
@@ -203,7 +217,7 @@ def sparse_cases(timer, gen):
         ms = timer(lambda: sparse_decode_attention(q, cache.kv_pages, idx, nv,
                                                    seq, **kw))
         plain = timer(lambda: sparse_decode_attention_plain(
-            q, cache.kv_pages, idx, nv, seq, **kw), iters=5)
+            q, cache.kv_pages, idx, nv, seq, **kw))
         n_pages = int(nv.sum()) * cfg.num_kv_heads
         nbytes = (n_pages * 2 * page * D * 2 + idx.numel() * 4
                   + q.numel() * (2 + 4))
@@ -215,6 +229,9 @@ def sparse_cases(timer, gen):
             f"(bound {cases[-1]['bound_ms'] * 1e3:.1f} us, plain "
             f"{plain * 1e3:.1f} us, SDPA {lib * 1e3:.1f} us)")
         assert err <= REL_TOL, f"sparse kernel disagrees: {err}"
+    cases[0]["f32_query_rel_err"] = f32_query_check(
+        "sparse", sparse_decode_attention, sparse_decode_attention_plain, q,
+        cache.kv_pages, sel_idx, sel_nv, seq, **kw)
     del cache
     return cases
 
@@ -225,7 +242,7 @@ def dense_cases(timer, gen):
     cfg, quest, cache = make_pool(32768, 2, gen)
     seq = torch.tensor([32768, 5003], dtype=torch.int32, device="cuda")
     B, Hq, D = 2, cfg.num_heads, cfg.head_dim
-    q = torch.randn((B, Hq, D), generator=gen, device="cuda")
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
     kw = dict(sm_scale=1.0 / math.sqrt(D), layer=0,
               block_tab=cache.block_tab, block_pages=cache.block_pages)
     got = dense_decode_attention(q, cache.kv_pages, seq, **kw)
@@ -241,7 +258,7 @@ def dense_cases(timer, gen):
     lib = timer(lambda: sdpa(qs, K, V, attn_mask=mask, scale=1.0))
     ms = timer(lambda: dense_decode_attention(q, cache.kv_pages, seq, **kw))
     plain = timer(lambda: dense_decode_attention_plain(q, cache.kv_pages,
-                                                       seq, **kw), iters=5)
+                                                       seq, **kw))
     nbytes = (int(seq.sum()) * cfg.num_kv_heads * 2 * D * 2
               + q.numel() * (2 + 4) + cache.block_tab.numel() * 4)
     case = dict(case="32768+5003", max_abs_err=float((got - want).abs().max()),
@@ -251,6 +268,9 @@ def dense_cases(timer, gen):
         f"{case['bound_ms'] * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
         f"SDPA {lib * 1e3:.1f} us)")
     assert err <= REL_TOL, f"dense kernel disagrees: {err}"
+    case["f32_query_rel_err"] = f32_query_check(
+        "dense", dense_decode_attention, dense_decode_attention_plain, q,
+        cache.kv_pages, seq, **kw)
     return [case]
 
 
@@ -261,7 +281,8 @@ def prefill_cases(timer, gen):
     Hq, D, T = cfg.num_heads, cfg.head_dim, 2048
     cases = []
     for offset in (0, 4096):
-        q = torch.randn((1, T, Hq, D), generator=gen, device="cuda")
+        q = torch.randn((1, T, Hq, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
         off = torch.tensor([offset], dtype=torch.int32, device="cuda")
         kvl = off + T
         kw = dict(sm_scale=1.0 / math.sqrt(D), layer=0,
@@ -283,7 +304,7 @@ def prefill_cases(timer, gen):
         ms = timer(lambda: prefill_attention(q, cache.kv_pages, off, kvl,
                                              **kw))
         plain = timer(lambda: prefill_attention_plain(
-            q, cache.kv_pages, off, kvl, **kw), iters=3, warmup=1)
+            q, cache.kv_pages, off, kvl, **kw))
         pairs = T * offset + T * (T + 1) // 2          # causal (q, k) pairs
         flops = 4 * Hq * D * pairs
         nbytes = ((offset + T) * cfg.num_kv_heads * 2 * D * 2
@@ -298,6 +319,9 @@ def prefill_cases(timer, gen):
             f"({flops / ms / 1e9:.1f} TFLOP/s; bound {bound:.3f} ms, plain "
             f"{plain:.3f} ms, SDPA {lib:.3f} ms)")
         assert err <= REL_TOL, f"prefill kernel disagrees: {err}"
+        cases[-1]["f32_query_rel_err"] = f32_query_check(
+            f"prefill[offset {offset}]", prefill_attention,
+            prefill_attention_plain, q, cache.kv_pages, off, kvl, **kw)
     return cases
 
 
@@ -305,13 +329,22 @@ def prefill_cases(timer, gen):
 # Phase 4: the slice against its plain CPU path on a small model.
 # ---------------------------------------------------------------------------
 
-def small_reference_phase():
+def small_reference_phase(dtype, tol=None, steps=8):
+    """A 4-layer model with GQA group 4 and head dim 128, its weights
+    and KV pool in ``dtype``, served on the card and on the CPU's plain
+    path from the same weights and prompts, both fed the CPU's greedy
+    tokens. The greedy tokens must agree at every step; the logits must
+    agree within ``tol`` where one is given. In bf16 none is: the CPU's
+    and cuBLAS's bf16 matrix products round differently, and over four
+    layers that alone moves the logits by more than the kernels' own
+    2e-2 (held in phase 3)."""
     from quest_tpu_torch.config import QuestConfig, small_tpu_model
     from quest_tpu_torch.engine.engine import QuestEngine
     from quest_tpu_torch.models.llama import init_params
-    cfg = dataclasses.replace(small_tpu_model(), num_layers=4,
-                              dtype=torch.float32)
-    quest = QuestConfig(page_size=16, token_budget=64, max_seq_len=1024)
+    cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
+                              num_kv_heads=2, dtype=dtype)
+    quest = QuestConfig(page_size=16, token_budget=64, max_seq_len=1024,
+                        kv_dtype=dtype)
     params = init_params(cfg, torch.Generator().manual_seed(5),
                          device="cpu")
     rng = np.random.default_rng(5)
@@ -319,17 +352,25 @@ def small_reference_phase():
                for n in (300, 170)]
     gpu = QuestEngine(cfg, quest, params, batch_size=2, device="cuda")
     cpu = QuestEngine(cfg, quest, params, batch_size=2, device="cpu")
-    want = cpu.prefill(prompts)
-    worst = rel_err(torch.from_numpy(gpu.prefill(prompts)),
-                    torch.from_numpy(want))
-    tok = np.argmax(want, axis=-1)
-    for _ in range(4):          # both rows are past the 4-page budget
-        g, c = gpu.decode(tok), cpu.decode(tok)
-        worst = max(worst, rel_err(torch.from_numpy(g), torch.from_numpy(c)))
+    g, c = gpu.prefill(prompts), cpu.prefill(prompts)
+    errs, same = [], []
+    for step in range(steps + 1):   # both rows are past the 4-page budget
+        assert np.isfinite(g).all(), "non-finite logits on the card"
+        errs.append(rel_err(torch.from_numpy(g), torch.from_numpy(c)))
         tok = np.argmax(c, axis=-1)
-    log(f"reference: 4-layer model on the card vs the plain CPU path, "
-        f"max logits rel err {worst:.2e} over prefill + 4 sparse decode steps")
-    assert worst <= REL_TOL, f"card path disagrees with the CPU path: {worst}"
+        same.append(bool((np.argmax(g, axis=-1) == tok).all()))
+        if step < steps:
+            g, c = gpu.decode(tok), cpu.decode(tok)
+    name = str(dtype).split(".")[-1]
+    log(f"reference[{name}]: 4-layer model on the card vs the plain CPU "
+        f"path over prefill + {steps} sparse decode steps: greedy tokens "
+        f"agree at {sum(same)} of {len(same)} steps, max logits rel err "
+        f"{max(errs):.2e} (limit {tol if tol else 'none'}; per step "
+        f"{' '.join(f'{e:.1e}' for e in errs)})")
+    assert all(same), f"greedy tokens differ from the CPU path ({name})"
+    assert tol is None or max(errs) <= tol, (
+        f"card path disagrees with the CPU path: {max(errs)}")
+    return max(errs)
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +511,8 @@ def main():
                "prefill": prefill_cases(timer, gen)}
     del timer
     torch.cuda.empty_cache()
-    small_reference_phase()
+    reference = {"bf16": small_reference_phase(torch.bfloat16),
+                 "f32": small_reference_phase(torch.float32, F32_TOL)}
     launches, serving = serving_phase()
 
     meta = {
@@ -492,7 +534,8 @@ def main():
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], cases=cases))
-    log(json.dumps({"device": name, "nvidia_smi": smi, "serving": serving}))
+    log(json.dumps({"device": name, "nvidia_smi": smi, "serving": serving,
+                    "reference_rel_err": reference}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,10 @@
 // Tiles past the causal bound of the CTA's last row are never loaded.
 // Left for later: wgmma/TMA, and sharing a K/V tile across the G query
 // heads of a group.
+//
+// f32 pools (off the serving path, which keeps bf16 KV) take a plain
+// FMA kernel, prefill_f32_kernel: the contract there is f32 products
+// throughout, which bf16 tensor cores cannot keep.
 #include "common.cuh"
 
 namespace {
@@ -295,19 +299,151 @@ prefill_kernel(const void* __restrict__ q, const bf16* __restrict__ kv,
   }
 }
 
+// f32 pools: one CTA takes kRF query rows of one head; 32-token K/V
+// tiles go through shared memory, each thread computes scores of
+// (row, token) pairs with FMAs, one warp runs the online softmax of a
+// row, and thread t accumulates output dim t of every row.
+constexpr int kRF = 16;              // query rows per CTA
+constexpr int kTF = 32;              // tokens per K/V tile (one per lane)
+constexpr int kKStrF = kD + 4;       // padded K row: float4 reads of 8
+                                     // consecutive rows hit distinct banks
+
+__global__ void __launch_bounds__(kThreads)
+prefill_f32_kernel(const void* __restrict__ q, const float* __restrict__ kv,
+                   const int* __restrict__ tab,
+                   const int* __restrict__ q_offsets,
+                   const int* __restrict__ kv_lens, float* __restrict__ out,
+                   int T, int Hq, int G, int NP, int page, int NB, int bpp,
+                   float sm_scale, int q_bf16) {
+  __shared__ __align__(16) float qs[kRF][kD];
+  __shared__ __align__(16) float ks[kTF][kKStrF];
+  __shared__ __align__(16) float vs[kTF][kD];
+  __shared__ float ps[kRF][kTF];
+  __shared__ float m_s[kRF], l_s[kRF], alpha_s[kRF];
+
+  const int i0 = blockIdx.x * kRF, hq = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h_kv = hq / G;
+  const int offset = q_offsets[b];
+  const int kv_len = kv_lens[b];
+  const int hi = min(min(offset + i0 + kRF, kv_len), NB * bpp * page);
+
+  // The scaled query rows (rows past T are zeros and are not written).
+  for (int i = tid; i < kRF * kD; i += kThreads) {
+    const int r = i / kD, d = i % kD;
+    float x = 0.f;
+    if (i0 + r < T) {
+      const int64_t at = ((static_cast<int64_t>(b) * T + i0 + r) * Hq + hq) *
+                         kD + d;
+      x = q_bf16 ? __bfloat162float(static_cast<const bf16*>(q)[at])
+                 : static_cast<const float*>(q)[at];
+    }
+    qs[r][d] = x * sm_scale;
+  }
+  if (tid < kRF) {
+    m_s[tid] = QT_MASK_VALUE;
+    l_s[tid] = 0.f;
+  }
+  float acc[kRF];
+#pragma unroll
+  for (int r = 0; r < kRF; ++r) acc[r] = 0.f;
+  __syncthreads();
+
+  for (int t0 = 0; t0 < hi; t0 += kTF) {
+    // K and V rows, one float4 a thread and step; rows past hi are zeros.
+    for (int c = tid; c < kTF * (kD / 4); c += kThreads) {
+      const int r = c / (kD / 4), cc = c % (kD / 4);
+      const int t = t0 + r;
+      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+      if (t < hi) {
+        const int64_t off = kv_row(h_kv, phys_page(tab, b, NB, bpp, t / page),
+                                   t % page, NP, page, kD);
+        kk = __ldg(reinterpret_cast<const float4*>(kv + off) + cc);
+        vv = __ldg(reinterpret_cast<const float4*>(kv + off + page * kD) + cc);
+      }
+      *reinterpret_cast<float4*>(&ks[r][cc * 4]) = kk;
+      *reinterpret_cast<float4*>(&vs[r][cc * 4]) = vv;
+    }
+    __syncthreads();
+
+    // Scores with the causal and length mask.
+    for (int i = tid; i < kRF * kTF; i += kThreads) {
+      const int r = i / kTF, j = i % kTF;
+      float s = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < kD / 4; ++c) {
+        const float4 k4 = *reinterpret_cast<const float4*>(&ks[j][c * 4]);
+        const float4 q4 = *reinterpret_cast<const float4*>(&qs[r][c * 4]);
+        s = fmaf(q4.x, k4.x, s);
+        s = fmaf(q4.y, k4.y, s);
+        s = fmaf(q4.z, k4.z, s);
+        s = fmaf(q4.w, k4.w, s);
+      }
+      const int k_pos = t0 + j;
+      const bool ok = k_pos <= offset + i0 + r && k_pos < kv_len;
+      ps[r][j] = ok ? s : QT_MASK_VALUE;
+    }
+    __syncthreads();
+
+    // Online softmax, one warp per row, one token per lane.
+    for (int r = warp; r < kRF; r += kThreads / 32) {
+      const float s = ps[r][lane];
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, warp_max(s));
+      // Masked lanes hold exactly the mask value; they contribute 0.
+      const float p = s == QT_MASK_VALUE ? 0.f : expf(s - m_new);
+      ps[r][lane] = p;
+      const float sum = warp_sum(p);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        alpha_s[r] = alpha;
+        l_s[r] = alpha * l_s[r] + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // O += P V: thread tid owns output dim tid of every row.
+#pragma unroll
+    for (int r = 0; r < kRF; ++r) acc[r] *= alpha_s[r];
+    for (int j = 0; j < kTF; ++j) {
+      const float v = vs[j][tid];
+#pragma unroll
+      for (int r = 0; r < kRF; ++r) acc[r] = fmaf(ps[r][j], v, acc[r]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRF; ++r) {
+    const int i = i0 + r;
+    if (i >= T) continue;
+    out[((static_cast<int64_t>(b) * T + i) * Hq + hq) * kD + tid] =
+        l_s[r] > 0.f ? acc[r] / l_s[r] : 0.f;
+  }
+}
+
 }  // namespace
 
 extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
                               const int* q_offsets, const int* kv_lens,
                               float* out, int B, int T, int Hq, int Hkv,
-                              int NP, int page, int NB, int bpp,
+                              int NP, int page, int NB, int bpp, int is_bf16,
                               float sm_scale, int q_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    dim3 grid((T + kRF - 1) / kRF, Hq, B);
+    prefill_f32_kernel<<<grid, kThreads, 0, s>>>(
+        q, static_cast<const float*>(kv), tab, q_offsets, kv_lens, out, T, Hq,
+        Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaError_t err = cudaFuncSetAttribute(
       prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((T + kBQ - 1) / kBQ, Hq, B);
-  prefill_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+  prefill_kernel<<<grid, kThreads, kSmem, s>>>(
       q, static_cast<const bf16*>(kv), tab, q_offsets, kv_lens, out, T, Hq,
       Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
   return static_cast<int>(cudaGetLastError());

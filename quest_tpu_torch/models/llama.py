@@ -85,12 +85,19 @@ class QuestModel(nn.Module):
     ``models.convert.params_from_numpy``; its tensors become buffers.
     The f32 ``lm_head`` product of the JAX model is kept by casting the
     head to f32 once here (the bf16 copy is not kept).
+
+    On the card, building the model switches TF32 off for CUDA matrix
+    products (``torch.backends.cuda.matmul.allow_tf32 = False``, for the
+    whole process): the page estimate and the f32 ``lm_head`` are full
+    f32 products, as in the JAX model.
     """
 
     def __init__(self, cfg: ModelConfig, quest: QuestConfig, params: Params):
         super().__init__()
         self.cfg = cfg
         self.quest = quest
+        if params["embed"].is_cuda:
+            torch.backends.cuda.matmul.allow_tf32 = False
         self.register_buffer("embed", params["embed"])
         for k in LAYER_KEYS:
             self.register_buffer(k, params["layers"][k])

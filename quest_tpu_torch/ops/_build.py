@@ -35,7 +35,7 @@ SIGNATURES = {
     "sparse_decode": ("sparse_decode_launch",
                       [_P] * 9 + [_I] * 12 + [_F, _I, _P]),
     "dense_decode": ("dense_decode_launch", [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
-    "prefill": ("prefill_launch", [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
+    "prefill": ("prefill_launch", [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -7,9 +7,10 @@ sign of q into ``relu(q) @ maxK^T + min(q, 0) @ minK^T``: two plain
 matrix products, as XLA ran them in the JAX package. GQA scores are
 combined over the group (max or sum) so selection is per KV head.
 
-The products are f32 at full precision: TF32 is switched off for CUDA
-matrix products (``torch.backends.cuda.matmul.allow_tf32 = False``)
-whenever these functions run on the card.
+The products are f32 at full precision as long as CUDA matrix products
+do not use TF32 (``torch.backends.cuda.matmul.allow_tf32``, False by
+default); ``QuestModel`` switches it off once when it is built on the
+card.
 """
 
 from __future__ import annotations
@@ -17,15 +18,9 @@ from __future__ import annotations
 import torch
 
 
-def _full_precision(x: torch.Tensor) -> None:
-    if x.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def _group_scores(q: torch.Tensor, k_max: torch.Tensor,
                   k_min: torch.Tensor) -> torch.Tensor:
     """[B, Hq, D] x 2x[B, Hkv, P, D] -> [B, Hkv, G, P] f32."""
-    _full_precision(q)
     B, Hq, D = q.shape
     Hkv = k_max.shape[1]
     qf = q.float().reshape(B, Hkv, Hq // Hkv, D)
@@ -71,7 +66,6 @@ def page_scores_physical(q: torch.Tensor, k_max_l: torch.Tensor,
     layer); block_tab: [B, NB]. Returns [B, Hkv, P] f32 ([B, Hq, P]
     when ``per_q_head``), P = NB * bpp.
     """
-    _full_precision(q)
     Hkv, NPB, bpp, D = k_max_l.shape
     B, Hq, _ = q.shape
     km = k_max_l.reshape(Hkv, NPB * bpp, D).float()

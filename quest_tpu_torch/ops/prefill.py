@@ -2,7 +2,8 @@
 ``quest_tpu/ops/prefill.py``).
 
 On a CUDA tensor :func:`prefill_attention` launches the hand-written
-kernel ``csrc/prefill.cu`` (bf16 pools); on a CPU tensor it runs
+kernel ``csrc/prefill.cu`` (tensor-core MMA for bf16 pools, FMA for f32
+pools); on a CPU tensor it runs
 :func:`prefill_attention_plain`, the same function in eager PyTorch.
 """
 
@@ -69,8 +70,6 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
         return prefill_attention_plain(
             q, kv_pages, q_offsets, kv_lens, sm_scale=sm_scale, layer=layer,
             block_tab=block_tab, block_pages=block_pages)
-    if kv_pages.dtype != torch.bfloat16:
-        raise NotImplementedError("the CUDA prefill kernel takes bf16 pools")
     B, T, Hq, D = q.shape
     _, Hkv, NP, _, page, Dk = kv_pages.shape
     if D != 128 or Dk != 128:
@@ -91,7 +90,8 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
     code = lib.prefill_launch(
         _build.ptr(qk), _build.ptr(kv_pages[layer]), _build.ptr(tab),
         _build.ptr(offs), _build.ptr(lens), _build.ptr(out), B, T, Hq, Hkv,
-        NP, page, tab.shape[1], block_pages, sm_scale,
+        NP, page, tab.shape[1], block_pages,
+        int(kv_pages.dtype == torch.bfloat16), sm_scale,
         int(qk.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(lib, code, "prefill")
     prefill_attention.launches += 1

@@ -183,18 +183,24 @@ def card_pool(seed, B, Hkv, NB, dtype, page=16, bpp=8, D=128):
 CARD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 
 
+# The serving path hands the kernels a bf16 query (rope casts back to the
+# model dtype); an f32 model hands them f32.
+Q_DTYPES = [torch.bfloat16, torch.float32]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("Hq,Hkv,per_q_head,inject", [
     (32, 8, False, False), (8, 8, False, False), (64, 8, False, True),
     (32, 8, True, False)])
-def test_sparse_kernel_matches_plain(cuda, dtype, Hq, Hkv, per_q_head,
-                                     inject):
+def test_sparse_kernel_matches_plain(cuda, q_dtype, dtype, Hq, Hkv,
+                                     per_q_head, inject):
     B, NB, bpp, page, budget = 3, 6, 8, 16, 20
     g, pool, tab = card_pool(11, B, Hkv, NB, dtype)
     seq = torch.tensor([700, 95, 16], dtype=torch.int32, device=cuda)
     Hsel = Hq if per_q_head else Hkv
-    q = torch.randn((B, Hq, 128), generator=g, device=cuda)
+    q = torch.randn((B, Hq, 128), generator=g, device=cuda).to(q_dtype)
     if inject:
         # Shuffled distinct pages per head; row 2 has one page only.
         idx = torch.zeros((B, Hsel, 6), dtype=torch.int32, device=cuda)
@@ -216,13 +222,14 @@ def test_sparse_kernel_matches_plain(cuda, dtype, Hq, Hkv, per_q_head,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("Hq,Hkv", [(32, 8), (8, 8), (16, 2)])
-def test_dense_kernel_matches_plain(cuda, dtype, Hq, Hkv):
+def test_dense_kernel_matches_plain(cuda, q_dtype, dtype, Hq, Hkv):
     B, NB, bpp = 3, 8, 8
     g, pool, tab = card_pool(12, B, Hkv, NB, dtype)
     seq = torch.tensor([1021, 1, 500], dtype=torch.int32, device=cuda)
-    q = torch.randn((B, Hq, 128), generator=g, device=cuda)
+    q = torch.randn((B, Hq, 128), generator=g, device=cuda).to(q_dtype)
     kw = dict(sm_scale=128 ** -0.5, layer=LAYER, block_tab=tab,
               block_pages=bpp)
     got = dense_decode_attention(q, pool, seq, **kw)
@@ -233,15 +240,18 @@ def test_dense_kernel_matches_plain(cuda, dtype, Hq, Hkv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("T,offs,kv_lens,Hq,Hkv", [
     (100, [0, 0], [100, 37], 32, 8),
     (64, [300, 17], [364, 50], 8, 8),
     (130, [64, 0], [194, 0], 16, 2),
 ])
-def test_prefill_kernel_matches_plain(cuda, T, offs, kv_lens, Hq, Hkv):
+def test_prefill_kernel_matches_plain(cuda, q_dtype, dtype, T, offs, kv_lens,
+                                      Hq, Hkv):
     B, NB, bpp = 2, 4, 8
-    g, pool, tab = card_pool(13, B, Hkv, NB, torch.bfloat16)
-    q = torch.randn((B, T, Hq, 128), generator=g, device=cuda)
+    g, pool, tab = card_pool(13, B, Hkv, NB, dtype)
+    q = torch.randn((B, T, Hq, 128), generator=g, device=cuda).to(q_dtype)
     off = torch.tensor(offs, dtype=torch.int32, device=cuda)
     kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
     kw = dict(sm_scale=128 ** -0.5, layer=LAYER, block_tab=tab,
@@ -250,4 +260,6 @@ def test_prefill_kernel_matches_plain(cuda, T, offs, kv_lens, Hq, Hkv):
     want = prefill_attention_plain(q, pool, off, kvl, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    assert rel_err(got, want) <= CARD_TOL[torch.bfloat16]
+    assert rel_err(got, want) <= CARD_TOL[dtype]
+    # A slot with no key at all gives zeros.
+    assert torch.all(got[kvl == 0] == 0)
