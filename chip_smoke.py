@@ -5,22 +5,30 @@
 
 Phases, each fatal on failure:
   1. the card: torch's device name and nvidia-smi's name and power limit;
-  2. build every CUDA kernel of the serving path (one nvcc per source,
-     all started together);
+  2. build every CUDA kernel of the two serving paths (one nvcc per
+     source, all started together);
   3. each kernel against its plain PyTorch version at the serving
      path's shapes (Llama-3.1-8B attention: 32 query heads, 8 KV heads,
      head dim 128, page 16, bf16, 64-page allocation blocks, a shuffled
      block table, a bf16 query as the serving path gives it; once more
      with an f32 query), timed with CUDA events beside its bound, its
      plain version and one PyTorch library call;
-  4. the port's slice end to end against its plain CPU path on a small
-     4-layer model with the sparse path live: in bf16 (the serving
-     path's dtypes) the greedy tokens agree at every step; in f32 (f32
-     model and KV pool) they agree and the logits are within 2e-3;
+     The fused path's kernels are held the same way: the streaming
+     estimate within 1e-5, the select's ids bit for bit (random rows
+     and boundary ties), the fused decode within 2e-2 with every
+     selected id that differs from the plain selection inside a 1e-5
+     band around the K-th score, timed beside the unfused pipeline;
+  4. the port's slices end to end against their plain CPU path on a
+     small 4-layer model with the sparse path live, unfused and fused:
+     in bf16 (the serving path's dtypes) the greedy tokens agree at
+     every step; in f32 (f32 model and KV pool) they agree and the
+     logits are within 2e-3;
   5. the full-width Llama-3.1-8B (32 layers, random bf16 weights from a
-     seed) served by QuestEngine: ``generate`` on two prompts, then
-     ``clear()`` and ``generate_ondevice`` on two more, with the kernel
-     launch counts of each run checked against the path.
+     seed) served by two QuestEngines, unfused and ``fused_decode=True``:
+     ``generate`` on two prompts, then ``clear()`` and
+     ``generate_ondevice`` on two more, with the kernel launch counts of
+     each run checked against its path; the two decode steps timed in
+     turns and profiled.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this script, it exits non-zero and prints
@@ -325,11 +333,169 @@ def prefill_cases(timer, gen):
     return cases
 
 
+def tie_rows():
+    """The boundary-tie rows of the JAX select's tests (scores, K,
+    seq_len at page 16): all-equal scores, a 190-way tie band across the
+    boundary, negative ties and zeros, a single-page row."""
+    s2 = torch.zeros(256)
+    s2[:10] = 7.0
+    s2[10:200] = 3.25
+    s3 = torch.cat([torch.full((128,), -2.5), torch.zeros(128)])
+    return [(torch.full((256,), 1.5), 40, 256 * 16), (s2, 64, 256 * 16),
+            (s3, 130, 256 * 16 - 3), (torch.linspace(0, 1, 128), 8, 5)]
+
+
+def fused_slice_cases(timer, gen):
+    """The fused path's three kernels at the sparse case's shapes
+    (B=2, 32768 + 7001 tokens in a 32768-token pool, shuffled block
+    table, bf16 query): the streaming estimate over the rows' logical
+    metadata, the select over [2, 8, 2048] random scores and the tie
+    rows, and the fused decode with its selected ids."""
+    from quest_tpu_torch.ops.estimate import (page_scores_kernel,
+                                              page_scores_kernel_plain,
+                                              page_scores_physical)
+    from quest_tpu_torch.ops.fused_decode import (
+        exact_topk_select, exact_topk_select_plain, fused_sparse_decode,
+        fused_sparse_decode_plain, slot_page_scores)
+    from quest_tpu_torch.ops.reference import selection_flips
+    from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
+    from quest_tpu_torch.ops.topk import select_pages
+    cfg, quest, cache = make_pool(32768, 2, gen)
+    seq = torch.tensor([32768, 7001], dtype=torch.int32, device="cuda")
+    B, Hq, Hkv, D = 2, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G, page, K, agg = Hq // Hkv, quest.page_size, quest.page_budget, \
+        quest.group_agg
+    P = cache.max_pages
+    n = (seq.long() + page - 1) // page                      # [B] pages
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+
+    # Streaming estimate over each row's logical metadata [B, Hkv, P, D].
+    phys = (cache.block_tab.long()[:, :, None] * cache.block_pages
+            + torch.arange(cache.block_pages, device="cuda")).reshape(B, P)
+    km = cache.k_max[0].reshape(Hkv, -1, D)[:, phys].transpose(0, 1).contiguous()
+    kn = cache.k_min[0].reshape(Hkv, -1, D)[:, phys].transpose(0, 1).contiguous()
+    errs = {}
+    for qd in (torch.float32, torch.bfloat16):
+        qq = q.to(qd)
+        got = page_scores_kernel(qq, km, kn, agg)
+        want = page_scores_kernel_plain(qq, km, kn, agg)
+        torch.cuda.synchronize()
+        errs[qd] = (rel_err(got, want), float((got - want).abs().max()))
+        assert errs[qd][0] <= 1e-5, f"estimate kernel disagrees: {errs[qd]}"
+    # Library yardstick: one bmm over operands concatenated beforehand.
+    qc = torch.cat([q.float().clamp(min=0), q.float().clamp(max=0)],
+                   dim=-1).to(torch.bfloat16).reshape(B * Hkv, G, 2 * D)
+    mc = torch.cat([km, kn], dim=-1).reshape(B * Hkv, P, 2 * D).transpose(
+        1, 2).contiguous()
+    lib = timer(lambda: torch.bmm(qc, mc))
+    ms = timer(lambda: page_scores_kernel(q, km, kn, agg))
+    plain = timer(lambda: page_scores_kernel_plain(q, km, kn, agg))
+    nbytes = 2 * km.numel() * 2 + q.numel() * 2 + B * Hkv * P * 4
+    flops = 2 * 2 * B * Hq * P * D
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    out["estimate"] = [dict(
+        case="B=2, 2048 pages, bf16 metadata", max_abs_err=errs[torch.bfloat16][1],
+        max_rel_err=max(e[0] for e in errs.values()), ms=ms, plain_ms=plain,
+        library_ms=lib, bound_ms=bound, bound_by="bytes",
+        f32_query_rel_err=errs[torch.float32][0])]
+    log(f"estimate: rel err {errs[torch.float32][0]:.2e} (f32 query), "
+        f"{errs[torch.bfloat16][0]:.2e} (bf16 query), {ms * 1e3:.1f} us "
+        f"(bound {bound * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bmm "
+        f"{lib * 1e3:.1f} us)")
+    del km, kn, mc
+
+    # Select: random scores of every (row, head), then the tie rows.
+    scores = torch.randn((B * Hkv, P), generator=gen, device="cuda")
+    npr = n.repeat_interleave(Hkv)
+    ids, nv = exact_topk_select(scores, npr, K)
+    want, want_nv = exact_topk_select_plain(scores, npr, K)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, want) and torch.equal(nv, want_nv), \
+        "select kernel ids differ from the plain version"
+    for s, k, sl in tie_rows():
+        s, m = s.cuda()[None], torch.tensor([(sl + 15) // 16], device="cuda")
+        got, want_t = exact_topk_select(s, m, k), exact_topk_select_plain(s, m, k)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want_t)), \
+            f"select kernel differs on a tie row (K={k})"
+    lib = timer(lambda: torch.topk(scores, K, dim=-1))
+    ms = timer(lambda: exact_topk_select(scores, npr, K))
+    plain = timer(lambda: exact_topk_select_plain(scores, npr, K))
+    nbytes = scores.numel() * 4 + ids.numel() * 4 + 2 * npr.numel() * 4
+    out["topk_select"] = [dict(
+        case="[16, 2048] random scores + 4 tie rows, K=128",
+        max_abs_err=0.0, max_rel_err=0.0, bitwise_equal=True, ms=ms,
+        plain_ms=plain, library_ms=lib,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")]
+    log(f"topk_select: ids bitwise equal (random rows and 4 tie rows), "
+        f"{ms * 1e3:.1f} us (bound {out['topk_select'][0]['bound_ms'] * 1e3:.2f}"
+        f" us, plain {plain * 1e3:.1f} us, torch.topk {lib * 1e3:.1f} us)")
+
+    # Fused decode, and the unfused pipeline on the same inputs.
+    kw = dict(sm_scale=1.0 / math.sqrt(D), budget_pages=K, group_agg=agg,
+              layer=0, block_tab=cache.block_tab,
+              block_pages=cache.block_pages)
+    args = (cache.kv_pages, cache.k_max, cache.k_min, seq)
+    got, got_ids = fused_sparse_decode(q, *args, return_ids=True, **kw)
+    want, want_ids = fused_sparse_decode_plain(q, *args, return_ids=True, **kw)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    plain_scores = slot_page_scores(q, cache.k_max, cache.k_min, layer=0,
+                                    block_tab=cache.block_tab,
+                                    block_pages=cache.block_pages,
+                                    group_agg=agg)
+    flips, gap = selection_flips(got_ids.reshape(B * Hkv, K),
+                                 want_ids.reshape(B * Hkv, K),
+                                 plain_scores.reshape(B * Hkv, P), npr)
+    log(f"fused: rel err {err:.2e}; {flips} selected ids differ from the "
+        f"plain selection (largest distance from the K-th score "
+        f"{gap:.1e} relative, limit 1e-5)")
+    assert err <= REL_TOL, f"fused kernel disagrees: {err}"
+    assert flips == 0 or gap <= 1e-5, f"fused selection differs: {flips}, {gap}"
+    f32_err = f32_query_check("fused", fused_sparse_decode,
+                              fused_sparse_decode_plain, q, *args, **kw)
+
+    def unfused():
+        s = page_scores_physical(q, cache.k_max[0], cache.k_min[0],
+                                 cache.block_tab, group_agg=agg)
+        idx, nvv = select_pages(s, seq, page, K)
+        return sparse_decode_attention(q, cache.kv_pages, idx, nvv, seq,
+                                       sm_scale=kw["sm_scale"], layer=0,
+                                       block_tab=cache.block_tab,
+                                       block_pages=cache.block_pages)
+
+    ms = timer(lambda: fused_sparse_decode(q, *args, **kw))
+    # The same call at an 8-page budget: scoring and select at full cost,
+    # 1/16 of the attention; the difference is the attention's share.
+    ms8 = timer(lambda: fused_sparse_decode(q, *args, **dict(
+        kw, budget_pages=8)))
+    pipe = timer(unfused)
+    plain = timer(lambda: fused_sparse_decode_plain(q, *args, **kw))
+    nbytes = (Hkv * int(n.sum()) * 2 * D * 2
+              + Hkv * int(n.clamp(max=K).sum()) * 2 * page * D * 2
+              + q.numel() * 2 + B * Hq * D * 4 + cache.block_tab.numel() * 4)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    out["fused_decode"] = [dict(
+        case="B=2, 32768+7001 tokens, 128 pages", max_abs_err=float(
+            (got - want).abs().max()), max_rel_err=err, ms=ms, plain_ms=plain,
+        library_ms=None, unfused_pipeline_ms=pipe, budget8_ms=ms8,
+        bound_ms=bound,
+        bound_by="bytes", flipped_ids=flips, flip_max_rel_gap=gap,
+        f32_query_rel_err=f32_err)]
+    log(f"fused: {ms * 1e3:.1f} us (bound {bound * 1e3:.1f} us, plain "
+        f"{plain * 1e3:.1f} us, unfused pipeline {pipe * 1e3:.1f} us; no "
+        f"single library call computes it); at an 8-page budget "
+        f"{ms8 * 1e3:.1f} us")
+    del cache
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the slice against its plain CPU path on a small model.
 # ---------------------------------------------------------------------------
 
-def small_reference_phase(dtype, tol=None, steps=8):
+def small_reference_phase(dtype, tol=None, steps=8, fused=False):
     """A 4-layer model with GQA group 4 and head dim 128, its weights
     and KV pool in ``dtype``, served on the card and on the CPU's plain
     path from the same weights and prompts, both fed the CPU's greedy
@@ -337,14 +503,19 @@ def small_reference_phase(dtype, tol=None, steps=8):
     agree within ``tol`` where one is given. In bf16 none is: the CPU's
     and cuBLAS's bf16 matrix products round differently, and over four
     layers that alone moves the logits by more than the kernels' own
-    2e-2 (held in phase 3)."""
+    2e-2 (held in phase 3). With ``fused`` the sparse layers take the
+    fused kernel: the pool grows to 2048 tokens (128 pages, where the
+    model's gate opens), and the card's fused launches must be 2 a
+    step."""
     from quest_tpu_torch.config import QuestConfig, small_tpu_model
     from quest_tpu_torch.engine.engine import QuestEngine
     from quest_tpu_torch.models.llama import init_params
+    from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
     cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
                               num_kv_heads=2, dtype=dtype)
-    quest = QuestConfig(page_size=16, token_budget=64, max_seq_len=1024,
-                        kv_dtype=dtype)
+    quest = QuestConfig(page_size=16, token_budget=64,
+                        max_seq_len=2048 if fused else 1024, kv_dtype=dtype,
+                        fused_decode=fused)
     params = init_params(cfg, torch.Generator().manual_seed(5),
                          device="cpu")
     rng = np.random.default_rng(5)
@@ -352,6 +523,7 @@ def small_reference_phase(dtype, tol=None, steps=8):
                for n in (300, 170)]
     gpu = QuestEngine(cfg, quest, params, batch_size=2, device="cuda")
     cpu = QuestEngine(cfg, quest, params, batch_size=2, device="cpu")
+    fused_sparse_decode.launches = 0
     g, c = gpu.prefill(prompts), cpu.prefill(prompts)
     errs, same = [], []
     for step in range(steps + 1):   # both rows are past the 4-page budget
@@ -361,12 +533,16 @@ def small_reference_phase(dtype, tol=None, steps=8):
         same.append(bool((np.argmax(g, axis=-1) == tok).all()))
         if step < steps:
             g, c = gpu.decode(tok), cpu.decode(tok)
-    name = str(dtype).split(".")[-1]
+    torch.cuda.synchronize()
+    launches = fused_sparse_decode.launches
+    name = str(dtype).split(".")[-1] + ("/fused" if fused else "")
     log(f"reference[{name}]: 4-layer model on the card vs the plain CPU "
         f"path over prefill + {steps} sparse decode steps: greedy tokens "
         f"agree at {sum(same)} of {len(same)} steps, max logits rel err "
         f"{max(errs):.2e} (limit {tol if tol else 'none'}; per step "
-        f"{' '.join(f'{e:.1e}' for e in errs)})")
+        f"{' '.join(f'{e:.1e}' for e in errs)}); fused launches {launches}")
+    want = steps * (cfg.num_layers - quest.skip_layers) if fused else 0
+    assert launches == want, f"fused launches {launches} != path {want}"
     assert all(same), f"greedy tokens differ from the CPU path ({name})"
     assert tol is None or max(errs) <= tol, (
         f"card path disagrees with the CPU path: {max(errs)}")
@@ -377,33 +553,37 @@ def small_reference_phase(dtype, tol=None, steps=8):
 # Phase 5: full-width Llama-3.1-8B served end to end.
 # ---------------------------------------------------------------------------
 
-def serving_phase():
+def serving_phase(kernels):
+    """Two engines over one set of random weights: the unfused pipeline
+    (``QuestConfig`` default) and ``fused_decode=True``. Each serves
+    ``generate`` and ``generate_ondevice``, the kernel launches of every
+    run checked against its path; then the decode step of both is timed
+    in turns (unfused, fused, fused, unfused) and one step of each is
+    profiled. ``kernels``: each kernel's wrapper by name."""
     from quest_tpu_torch.config import QuestConfig, llama31_8b
     from quest_tpu_torch.engine.engine import QuestEngine
     from quest_tpu_torch.models.llama import init_params
-    from quest_tpu_torch.ops.dense_decode import dense_decode_attention
-    from quest_tpu_torch.ops.prefill import prefill_attention
-    from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
-    kernels = {"prefill": prefill_attention, "dense_decode":
-               dense_decode_attention, "sparse_decode": sparse_decode_attention}
 
     cfg = llama31_8b()
-    quest = QuestConfig(max_seq_len=16384)
     t0 = time.time()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
-    engine = QuestEngine(cfg, quest, params, batch_size=2, device="cuda")
+    engines = {path: QuestEngine(cfg, QuestConfig(
+        max_seq_len=16384, fused_decode=path == "fused"), params,
+        batch_size=2, device="cuda") for path in ("unfused", "fused")}
     del params
+    quest = engines["unfused"].quest
     torch.cuda.synchronize()
     log(f"serving: Llama-3.1-8B, {cfg.num_layers} layers, random bf16 "
-        f"weights, pool {engine.cache.kv_pages.numel() * 2 / 2**30:.2f} GiB, "
-        f"set up in {time.time() - t0:.1f} s, "
+        f"weights shared by an unfused and a fused engine, pool "
+        f"{engines['fused'].cache.kv_pages.numel() * 2 / 2**30:.2f} GiB "
+        f"each, set up in {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     rng = np.random.default_rng(0)
     L, skip, N = cfg.num_layers, quest.skip_layers, 32
-    counts = []
+    counts, outs, totals = {}, {}, {}
 
-    def run(label, fn, prompts):
+    def run(path, label, fn, prompts):
         for k in kernels.values():
             k.launches = 0
         torch.cuda.synchronize()
@@ -412,57 +592,76 @@ def serving_phase():
         torch.cuda.synchronize()
         dt = time.time() - t
         got = {n: k.launches for n, k in kernels.items()}
-        chunks = -(-max(map(len, prompts)) // engine.prefill_chunk)
-        want = {"prefill": L * chunks, "dense_decode": skip * (N - 1),
-                "sparse_decode": (L - skip) * (N - 1)}
-        log(f"serving[{label}]: prompts {[len(p) for p in prompts]}, {N} "
-            f"tokens each in {dt:.2f} s; launches {got}")
+        chunks = -(-max(map(len, prompts)) // engines[path].prefill_chunk)
+        sparse = (L - skip) * (N - 1)
+        want = dict.fromkeys(kernels, 0)
+        want.update(prefill=L * chunks, dense_decode=skip * (N - 1))
+        want["fused_decode" if path == "fused" else "sparse_decode"] = sparse
+        log(f"serving[{path}, {label}]: prompts {[len(p) for p in prompts]}, "
+            f"{N} tokens each in {dt:.2f} s; launches {got}")
         assert got == want, f"launch counts {got} != path {want}"
         assert all(len(r) == N and all(0 <= t < cfg.vocab_size for t in r)
                    for r in out), "tokens out of range"
-        counts.append(got)
+        counts[(path, label)], outs[(path, label)] = got, out
         return dt
 
     p1 = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (6000, 3000)]
     p2 = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (5000, 2500)]
     # Both rows of both pairs hold more pages than the 128-page budget.
     assert min(map(len, p1 + p2)) > quest.page_budget * quest.page_size
-    run("generate", engine.generate, p1)
-    engine.clear()
-    t_total = run("generate_ondevice", engine.generate_ondevice, p2)
+    for path, engine in engines.items():
+        run(path, "generate", engine.generate, p1)
+        engine.clear()
+        totals[path] = run(path, "generate_ondevice", engine.generate_ondevice,
+                           p2)
+    same = [np.mean(np.array(outs[("unfused", lb)]) == np.array(
+        outs[("fused", lb)])) for lb in ("generate", "generate_ondevice")]
+    log(f"serving: fused and unfused greedy tokens agree at "
+        f"{100 * same[0]:.1f}% / {100 * same[1]:.1f}% of positions "
+        f"(generate / generate_ondevice; random bf16 weights)")
 
-    # Timing split of the second pair: prefill alone, then decode steps.
-    engine.clear()
-    torch.cuda.synchronize()
-    t = time.time()
-    logits = engine.prefill(p2)
-    t_prefill = time.time() - t
-    assert np.isfinite(logits).all(), "non-finite prefill logits"
-    logits = engine.decode(np.argmax(logits, axis=-1))
-    assert np.isfinite(logits).all(), "non-finite decode logits"
-    tok = torch.as_tensor(np.argmax(logits, axis=-1).astype(np.int32),
-                          device="cuda")
-    torch.cuda.synchronize()
-    t = time.time()
-    for _ in range(N):
-        tok = engine.model.decode_token_step(engine.cache, tok)
-    torch.cuda.synchronize()
-    decode_ms = (time.time() - t) / N * 1e3
+    # Prefill of the second pair, then decode steps, in turns.
+    steps, decode_ms, prefill_s, tok = 16, {}, {}, {}
+    for path in ("unfused", "fused", "fused", "unfused"):
+        engine = engines[path]
+        engine.clear()
+        torch.cuda.synchronize()
+        t = time.time()
+        logits = engine.prefill(p2)
+        prefill_s.setdefault(path, []).append(time.time() - t)
+        assert np.isfinite(logits).all(), "non-finite prefill logits"
+        logits = engine.decode(np.argmax(logits, axis=-1))
+        assert np.isfinite(logits).all(), "non-finite decode logits"
+        tk = torch.as_tensor(np.argmax(logits, axis=-1).astype(np.int32),
+                             device="cuda")
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(steps):
+            tk = engine.model.decode_token_step(engine.cache, tk)
+        torch.cuda.synchronize()
+        decode_ms.setdefault(path, []).append((time.time() - t) / steps * 1e3)
+        tok[path] = tk
     n_prompt = sum(map(len, p2))
-    log(f"serving: prefill {n_prompt} tokens in {t_prefill:.3f} s "
-        f"({n_prompt / t_prefill:.0f} tokens/s); decode {decode_ms:.2f} "
-        f"ms/step at B=2 (generate_ondevice total {t_total:.2f} s)")
-    profile = profile_decode(engine, tok)
-    return counts[0], dict(prefill_tokens_per_s=n_prompt / t_prefill,
-                           decode_ms_per_step=decode_ms,
-                           generate_ondevice_s=t_total, **profile)
+    serving = {}
+    for path in ("unfused", "fused"):
+        tps = [n_prompt / t for t in prefill_s[path]]
+        log(f"serving[{path}]: prefill {n_prompt} tokens at "
+            f"{' / '.join(f'{x:.0f}' for x in tps)} tokens/s; decode "
+            f"{' / '.join(f'{x:.2f}' for x in decode_ms[path])} ms/step at "
+            f"B=2 (generate_ondevice total {totals[path]:.2f} s)")
+        serving[path] = dict(prefill_tokens_per_s=tps,
+                             decode_ms_per_step=decode_ms[path],
+                             generate_ondevice_s=totals[path],
+                             **profile_decode(engines[path], tok[path], path))
+    serving["token_agreement"] = same
+    return counts, serving
 
 
-def profile_decode(engine, tok, steps=2):
+def profile_decode(engine, tok, label, steps=2):
     """Where a decode step's time goes: torch.profiler over ``steps``
     on-device greedy steps. Prints device time by kernel and the
     device's busy share of the wall time; the trace goes to
-    build/chip_smoke/decode_trace.json."""
+    build/chip_smoke/decode_trace_<label>.json."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -473,14 +672,14 @@ def profile_decode(engine, tok, steps=2):
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(OUT_DIR / "decode_trace.json"))
+    prof.export_chrome_trace(str(OUT_DIR / f"decode_trace_{label}.json"))
     from torch.autograd import DeviceType
     events = [e for e in prof.key_averages()      # kernels, memcpys, memsets
               if e.device_type == DeviceType.CUDA]
     events.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     n_launch = sum(e.count for e in events)
-    log(f"profile: {steps} decode steps, wall {wall_ms:.1f} ms, device busy "
+    log(f"profile[{label}]: {steps} decode steps, wall {wall_ms:.1f} ms, device busy "
         f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
         f"{n_launch / steps:.0f} device ops a step; top device time:")
     top = []
@@ -492,6 +691,40 @@ def profile_decode(engine, tok, steps=2):
     return dict(profile_wall_ms_per_step=wall_ms / steps,
                 profile_device_ms_per_step=device_ms / steps,
                 device_ops_per_step=n_launch / steps, profile_top=top)
+
+
+# name: (source, the TPU kernel it replaces, the serving path whose run
+# gives its launch count; None where no serving path launches it)
+KERNEL_META = {
+    "sparse_decode": ("quest_tpu_torch/csrc/sparse_decode.cu",
+                      "quest_tpu/ops/sparse_decode.py:498", "unfused"),
+    "dense_decode": ("quest_tpu_torch/csrc/dense_decode.cu",
+                     "quest_tpu/ops/dense_decode.py:181", "unfused"),
+    "prefill": ("quest_tpu_torch/csrc/prefill.cu",
+                "quest_tpu/ops/prefill.py:245", "unfused"),
+    "estimate": ("quest_tpu_torch/csrc/estimate.cu",
+                 "quest_tpu/ops/estimate.py:229", None),
+    "topk_select": ("quest_tpu_torch/csrc/topk_select.cu",
+                    "exp/select_compile.py:48", None),
+    "fused_decode": ("quest_tpu_torch/csrc/fused_decode.cu",
+                     "quest_tpu/ops/fused_decode.py:606", "fused"),
+}
+
+
+def kernel_wrappers():
+    """Each kernel's wrapper, which counts its launches."""
+    from quest_tpu_torch.ops.dense_decode import dense_decode_attention
+    from quest_tpu_torch.ops.estimate import page_scores_kernel
+    from quest_tpu_torch.ops.fused_decode import (exact_topk_select,
+                                                  fused_sparse_decode)
+    from quest_tpu_torch.ops.prefill import prefill_attention
+    from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
+    return {"sparse_decode": sparse_decode_attention,
+            "dense_decode": dense_decode_attention,
+            "prefill": prefill_attention, "estimate": page_scores_kernel,
+            "topk_select": exact_topk_select,
+            "fused_decode": fused_sparse_decode}
+
 
 
 def main():
@@ -508,28 +741,27 @@ def main():
     timer = Timer()
     results = {"sparse_decode": sparse_cases(timer, gen),
                "dense_decode": dense_cases(timer, gen),
-               "prefill": prefill_cases(timer, gen)}
+               "prefill": prefill_cases(timer, gen),
+               **fused_slice_cases(timer, gen)}
     del timer
     torch.cuda.empty_cache()
     reference = {"bf16": small_reference_phase(torch.bfloat16),
-                 "f32": small_reference_phase(torch.float32, F32_TOL)}
-    launches, serving = serving_phase()
+                 "f32": small_reference_phase(torch.float32, F32_TOL),
+                 "bf16_fused": small_reference_phase(torch.bfloat16,
+                                                     fused=True),
+                 "f32_fused": small_reference_phase(torch.float32, F32_TOL,
+                                                    fused=True)}
+    counts, serving = serving_phase(kernel_wrappers())
 
-    meta = {
-        "sparse_decode": ("quest_tpu_torch/csrc/sparse_decode.cu",
-                          "quest_tpu/ops/sparse_decode.py:498"),
-        "dense_decode": ("quest_tpu_torch/csrc/dense_decode.cu",
-                         "quest_tpu/ops/dense_decode.py:181"),
-        "prefill": ("quest_tpu_torch/csrc/prefill.cu",
-                    "quest_tpu/ops/prefill.py:245"),
-    }
     kernels = []
-    for kname, cases in results.items():
-        src, rep = meta[kname]
+    for kname, (src, rep, path) in KERNEL_META.items():
+        cases = results[kname]
         head = cases[0]
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=rep,
-            launches=launches[kname], max_abs_err=head["max_abs_err"],
+            launches=counts[(path or "fused", "generate")][kname],
+            main_path=path or "none: its device code runs inside "
+            "fused_decode", max_abs_err=head["max_abs_err"],
             max_rel_err=max(c["max_rel_err"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],

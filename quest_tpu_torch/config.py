@@ -3,7 +3,10 @@
 Counterpart of ``quest_tpu/config.py``: the same three frozen
 dataclasses, the same defaults and checks, with dtypes as
 ``torch.dtype``. The port runs the exact top-k only, so the serving
-configuration maps ``approx`` and ``exact_fast`` to ``exact``.
+configuration maps ``approx`` and ``exact_fast`` to ``exact``. The JAX
+fused kernel's ring and tiling knobs (``fused_select_group``,
+``fused_block_p``, ``fused_gather_slots``) have no counterpart: the CUDA
+kernel has no such pipeline, and passing them raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -78,8 +81,10 @@ class QuestConfig:
     # The port runs exact top-k; "approx"/"exact_fast" (the JAX
     # package's TPU-only methods) are accepted and run exact.
     topk_method: str = "exact"
-    # The fused estimate->top-k->decode kernel is not ported yet; the
-    # model raises NotImplementedError when this is set.
+    # Run each sparse layer's decode attention as ONE fused launch
+    # (ops/fused_decode.py: estimate -> exact top-k -> decode) instead of
+    # the three-call pipeline, where the model's gate allows it
+    # (models/llama.py:fused_gate; elsewhere the pipeline runs).
     fused_decode: bool = False
     # Physical-pool allocation granularity, in pages (kv/paged_kv.py).
     block_pages: int = 64

@@ -6,8 +6,9 @@ weights as buffers. Each layer runs RMSNorm, the q/k/v projections,
 rope, then either the prefill path (append the chunk, causal prefill
 attention) or the decode path (append one token; the first
 ``skip_layers`` layers attend densely, the others run estimate ->
-top-k -> sparse attention), then the o-projection and the SwiGLU MLP.
-The cache is updated in place.
+top-k -> sparse attention, or the fused kernel where :func:`fused_gate`
+allows it), then the o-projection and the SwiGLU MLP. The cache is
+updated in place.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from quest_tpu_torch.kv.paged_kv import (PagedKVCache, append_decode_at,
                                          append_prefill_at)
 from quest_tpu_torch.ops.dense_decode import dense_decode_attention
 from quest_tpu_torch.ops.estimate import page_scores_physical
+from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
 from quest_tpu_torch.ops.prefill import prefill_attention
 from quest_tpu_torch.ops.rms_norm import rms_norm
 from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
@@ -78,6 +80,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+def fused_gate(quest: QuestConfig, max_pages: int, block_pages: int) -> bool:
+    """Whether a sparse layer runs the fused kernel: the JAX model's
+    gate, condition for condition (per-KV-head selection; a pool of at
+    least 128 pages that is a multiple, at least twice over, of
+    max(64, block_pages); block_pages compatible with the 64-page
+    quantum; at most 256 selection slots). Elsewhere the three-call
+    pipeline runs, as in JAX."""
+    fq = max(64, block_pages)
+    return (quest.fused_decode
+            and quest.selection == "per_kv_head"
+            and max_pages >= 128
+            and (64 % block_pages == 0 or block_pages % 64 == 0)
+            and max_pages % fq == 0
+            and max_pages >= 2 * fq
+            and quest.page_budget <= 256)
+
+
 class QuestModel(nn.Module):
     """The decoder bound to its configuration and weights.
 
@@ -114,10 +133,13 @@ class QuestModel(nn.Module):
         [B, Hq, D] f32."""
         cfg, quest = self.cfg, self.quest
         sm = 1.0 / math.sqrt(cfg.head_dim)
-        if use_sparse and quest.fused_decode:
-            raise NotImplementedError(
-                "fused_decode: the fused estimate/top-k/decode kernel is not "
-                "ported yet; use QuestConfig(fused_decode=False)")
+        if use_sparse and fused_gate(quest, cache.max_pages,
+                                     cache.block_pages):
+            return fused_sparse_decode(
+                q, cache.kv_pages, cache.k_max, cache.k_min, seq_lens,
+                sm_scale=sm, budget_pages=quest.page_budget,
+                group_agg=quest.group_agg, layer=layer,
+                block_tab=cache.block_tab, block_pages=cache.block_pages)
         if use_sparse:
             per_q = quest.selection == "per_q_head"
             scores = page_scores_physical(

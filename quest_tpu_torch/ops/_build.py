@@ -36,6 +36,9 @@ SIGNATURES = {
                       [_P] * 9 + [_I] * 12 + [_F, _I, _P]),
     "dense_decode": ("dense_decode_launch", [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
     "prefill": ("prefill_launch", [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
+    "estimate": ("estimate_launch", [_P] * 4 + [_I] * 7 + [_P]),
+    "topk_select": ("topk_select_launch", [_P] * 4 + [_I] * 3 + [_P]),
+    "fused_decode": ("fused_decode_launch", [_P] * 8 + [_I] * 12 + [_F, _P]),
 }
 KERNELS = tuple(SIGNATURES)
 
@@ -124,7 +127,8 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device pointer; NULL for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream_of(t) -> ctypes.c_void_p:

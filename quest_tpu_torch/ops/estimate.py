@@ -11,11 +11,21 @@ The products are f32 at full precision as long as CUDA matrix products
 do not use TF32 (``torch.backends.cuda.matmul.allow_tf32``, False by
 default); ``QuestModel`` switches it off once when it is built on the
 card.
+
+:func:`page_scores_kernel` is the streaming estimate (the JAX package's
+Pallas ``page_scores_kernel``): on a CUDA tensor it launches
+``csrc/estimate.cu``, whose scoring code the fused decode kernel shares;
+on a CPU tensor it runs :func:`page_scores_kernel_plain`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from quest_tpu_torch.ops import _build
+from quest_tpu_torch.ops.utils import (check_kernel_operands,
+                                      check_pool_dtype, kernel_query,
+                                      meta_compute_dtype)
 
 
 def _group_scores(q: torch.Tensor, k_max: torch.Tensor,
@@ -79,3 +89,64 @@ def page_scores_physical(q: torch.Tensor, k_max_l: torch.Tensor,
     idx = block_tab.long()[:, None, :, None].expand(B, H, NB, bpp)
     return torch.gather(s.reshape(B, H, NPB, bpp), 2, idx).reshape(
         B, H, NB * bpp)
+
+
+def split_query(q: torch.Tensor, Hkv: int, dtype: torch.dtype):
+    """relu(q) and min(q, 0) of ``q`` [B, Hq, D], taken in f32 and each
+    rounded to ``dtype``, as two [B, Hkv, G, D] f32 tensors."""
+    B, Hq, D = q.shape
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, D)
+    return (qf.clamp(min=0.0).to(dtype).float(),
+            qf.clamp(max=0.0).to(dtype).float())
+
+
+def page_scores_kernel_plain(q: torch.Tensor, k_max: torch.Tensor,
+                             k_min: torch.Tensor, group_agg: str = "max",
+                             layer=None) -> torch.Tensor:
+    """Eager version of the streaming estimate. It differs from
+    :func:`page_scores` in one place: relu(q) and min(q, 0) are rounded
+    to the metadata dtype (bf16 for bf16 or fp8 metadata, f32 for f32)
+    before the products, as the JAX kernel casts them, where
+    :func:`page_scores` keeps q in f32. Products accumulate in f32."""
+    if layer is not None:
+        k_max, k_min = k_max[layer], k_min[layer]
+    qp, qn = split_query(q, k_max.shape[1], meta_compute_dtype(k_max.dtype))
+    s = (torch.einsum("bkgd,bkpd->bkgp", qp, k_max.float())
+         + torch.einsum("bkgd,bkpd->bkgp", qn, k_min.float()))
+    return _aggregate(s, group_agg)
+
+
+def page_scores_kernel(q: torch.Tensor, k_max: torch.Tensor,
+                       k_min: torch.Tensor, group_agg: str = "max",
+                       layer=None) -> torch.Tensor:
+    """Criticality scores over logical ``[B, Hkv, P, D]`` metadata, or
+    stacked ``[L, B, Hkv, P, D]`` metadata read at ``layer``, with the
+    streaming kernel's q cast (:func:`page_scores_kernel_plain`).
+
+    q: [B, Hq, D] un-scaled. Returns [B, Hkv, P] f32.
+    """
+    if group_agg not in ("max", "sum"):
+        raise ValueError(f"unknown group_agg {group_agg!r}")
+    if not q.is_cuda:
+        return page_scores_kernel_plain(q, k_max, k_min, group_agg, layer)
+    if layer is not None:
+        k_max, k_min = k_max[layer], k_min[layer]
+    check_pool_dtype(k_max.dtype, "page metadata")
+    if k_min.dtype != k_max.dtype or k_min.shape != k_max.shape:
+        raise ValueError("k_max and k_min must share dtype and shape")
+    B, Hkv, P, _ = k_max.shape
+    G = check_kernel_operands(q, Hkv, k_max, k_min)
+    qk = kernel_query(q)
+    out = torch.empty((B, Hkv, P), dtype=torch.float32, device=q.device)
+    lib = _build.load("estimate")
+    code = lib.estimate_launch(
+        _build.ptr(qk), _build.ptr(k_max), _build.ptr(k_min), _build.ptr(out),
+        B, Hkv, G, P, int(k_max.dtype == torch.bfloat16),
+        int(group_agg == "sum"), int(qk.dtype == torch.bfloat16),
+        _build.stream_of(q))
+    _build.check(lib, code, "estimate")
+    page_scores_kernel.launches += 1
+    return out
+
+
+page_scores_kernel.launches = 0

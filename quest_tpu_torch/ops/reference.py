@@ -97,3 +97,28 @@ def estimate_reference(q, k_min, k_max) -> torch.Tensor:
     prod_max = qf * k_max.float()[:, :, None]
     prod_min = qf * k_min.float()[:, :, None]
     return torch.maximum(prod_max, prod_min).sum(-1).reshape(B, Hq, -1)
+
+
+def selection_flips(ids, want_ids, scores, num_pages):
+    """Compare a selection with the plain version's, per row of [R, K]
+    ids: returns (the number of selected ids in one selection and not
+    the other, the largest relative distance of such a page's score from
+    the K-th score). ``scores`` [R, P] are the plain scores, ``num_pages``
+    [R] the rows' pages; the K-th score is the lowest the plain version
+    selected apart from the always-kept last page."""
+    ids, want_ids = ids.cpu().long(), want_ids.cpu().long()
+    scores, num_pages = scores.cpu().float(), num_pages.cpu().long()
+    count, worst = 0, 0.0
+    for r in range(ids.shape[0]):
+        n = int(num_pages[r])
+        nv = min(ids.shape[1], n)
+        got, want = set(ids[r, :nv].tolist()), set(want_ids[r, :nv].tolist())
+        diff = sorted(got ^ want)
+        if not diff:
+            continue
+        kth = float(scores[r, sorted(want - {n - 1})].min())
+        count += len(diff)
+        for p in diff:
+            worst = max(worst, abs(float(scores[r, p]) - kth)
+                        / max(abs(kth), 1e-30))
+    return count, worst

@@ -177,7 +177,8 @@ def test_decode_token_step_is_decode_step_argmax(setup):
 def test_port_imports_no_jax():
     code = ("import sys, quest_tpu_torch, quest_tpu_torch.config, "
             "quest_tpu_torch.kv, quest_tpu_torch.ops, quest_tpu_torch.models, "
-            "quest_tpu_torch.engine, quest_tpu_torch.ops._build; "
+            "quest_tpu_torch.engine, quest_tpu_torch.ops._build, "
+            "quest_tpu_torch.ops.estimate, quest_tpu_torch.ops.fused_decode; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'quest_tpu.'))]; "
             "assert not bad, bad")
