@@ -5,8 +5,8 @@
 
 Phases, each fatal on failure:
   1. the card: torch's device name and nvidia-smi's name and power limit;
-  2. build every CUDA kernel of the two serving paths (one nvcc per
-     source, all started together);
+  2. build every CUDA kernel of the port (one nvcc per source, all
+     started together);
   3. each kernel against its plain PyTorch version at the serving
      path's shapes (Llama-3.1-8B attention: 32 query heads, 8 KV heads,
      head dim 128, page 16, bf16, 64-page allocation blocks, a shuffled
@@ -18,17 +18,27 @@ Phases, each fatal on failure:
      and boundary ties), the fused decode within 2e-2 with every
      selected id that differs from the plain selection inside a 1e-5
      band around the K-th score, timed beside the unfused pipeline;
-  4. the port's slices end to end against their plain CPU path on a
+     then the fp8 e4m3 branches of the sparse, dense, prefill and
+     estimate kernels (fp8 pool and metadata) at page 16 and at page 32,
+     each also timed beside its bf16 branch on the same values;
+  4. the probe path: the copy probe (exp/gather_ab, exp/dma_probe) over
+     256 MB, contig and gather at pages of 8, 16 and 32 KB, against its
+     plain version, timed in turns; no reading may pass 3.35 TB/s; the
+     seven select pieces (exp/select_compile2) against theirs;
+  5. the port's slices end to end against their plain CPU path on a
      small 4-layer model with the sparse path live, unfused and fused:
      in bf16 (the serving path's dtypes) the greedy tokens agree at
      every step; in f32 (f32 model and KV pool) they agree and the
-     logits are within 2e-3;
-  5. the full-width Llama-3.1-8B (32 layers, random bf16 weights from a
-     seed) served by two QuestEngines, unfused and ``fused_decode=True``:
+     logits are within 2e-3; then the serving configuration (page 32,
+     fp8 metadata) with a bf16 and with an fp8 KV pool, f32 model: the
+     greedy tokens agree at every step;
+  6. the full-width Llama-3.1-8B (32 layers, random bf16 weights from a
+     seed) served by four QuestEngines: unfused, ``fused_decode=True``,
+     and ``serving_quest_config`` with bf16 and with fp8 KV: each runs
      ``generate`` on two prompts, then ``clear()`` and
      ``generate_ondevice`` on two more, with the kernel launch counts of
-     each run checked against its path; the two decode steps timed in
-     turns and profiled.
+     each run checked against its path; the decode steps timed in turns
+     and profiled.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this script, it exits non-zero and prints
@@ -61,32 +71,6 @@ def log(*args):
 def rel_err(got, want):
     return float((got.float() - want.float()).abs().max()
                  / want.float().abs().max())
-
-
-class Timer:
-    """Median of per-launch CUDA-event times of the device work of
-    ``fn``. All launches are queued behind a sleep kernel, so the host's
-    enqueue time does not enter the events; the 50 MB L2 is flushed
-    between launches, as a decode step finds each layer's pages cold."""
-
-    def __init__(self):
-        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn, iters=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        events = [(torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True))
-                  for _ in range(iters)]
-        torch.cuda._sleep(100_000_000)   # ~50 ms: the host queues ahead
-        for start, end in events:
-            self.flush.zero_()
-            start.record()
-            fn()
-            end.record()
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def sdpa(q, k, v, **kw):
@@ -140,13 +124,14 @@ def f32_query_check(label, kernel, plain, q, *args, **kw):
     return err
 
 
-def make_pool(max_seq_len, B, gen, L=1):
-    """A Llama-3.1-8B-geometry pool filled with random bf16 K/V, its
-    page metadata, and a shuffled (non-identity) block table."""
+def make_pool(max_seq_len, B, gen, L=1, **quest_kw):
+    """A Llama-3.1-8B-geometry pool filled with random K/V (bf16 unless
+    ``quest_kw`` says otherwise), its page metadata, and a shuffled
+    (non-identity) block table."""
     from quest_tpu_torch.config import QuestConfig, llama31_8b
     from quest_tpu_torch.kv.paged_kv import init_cache
     cfg = llama31_8b()
-    quest = QuestConfig(max_seq_len=max_seq_len)
+    quest = QuestConfig(max_seq_len=max_seq_len, **quest_kw)
     cache = init_cache(cfg, quest, batch_size=B, num_layers=L, device="cuda")
     cache.kv_pages.copy_(torch.randn(cache.kv_pages.shape, generator=gen,
                                      device="cuda"))
@@ -160,16 +145,41 @@ def make_pool(max_seq_len, B, gen, L=1):
     return cfg, quest, cache
 
 
-def gather_tokens(cache, b, n_tok, layer=0):
-    """Row b's first n_tok tokens as dense K, V [Hkv, n_tok, D]."""
+def gather_tokens(cache, b, n_tok, layer=0, kv_pages=None):
+    """Row b's first n_tok tokens as dense K, V [Hkv, n_tok, D], from
+    ``kv_pages`` (default: the cache's pool)."""
     page, bpp = cache.page_size, cache.block_pages
+    kv_pages = cache.kv_pages if kv_pages is None else kv_pages
     lp = torch.arange((n_tok + page - 1) // page, device="cuda")
     phys = cache.block_tab[b].long()[lp // bpp] * bpp + lp % bpp
-    sel = cache.kv_pages[layer][:, phys]              # [Hkv, n, 2, page, D]
+    sel = kv_pages[layer][:, phys]                    # [Hkv, n, 2, page, D]
     Hkv, D = sel.shape[0], sel.shape[-1]
     k = sel[:, :, 0].reshape(Hkv, -1, D)[:, :n_tok]
     v = sel[:, :, 1].reshape(Hkv, -1, D)[:, :n_tok]
     return k, v
+
+
+def sparse_sdpa(cache, q, idx, nv, seq, kv_pages=None):
+    """Library yardstick of a sparse decode: one SDPA call over the same
+    selected tokens of a bf16 pool, gathered densely beforehand."""
+    B, Hq, D = q.shape
+    page, Hkv = cache.page_size, cache.kv_pages.shape[1]
+    S = idx.shape[-1]
+    Ks, Vs, masks = [], [], []
+    slot = torch.arange(S, device="cuda").repeat_interleave(page)
+    for b in range(B):
+        k, v = gather_tokens(cache, b, cache.max_pages * page,
+                             kv_pages=kv_pages)
+        tok = (idx[b].long()[:, :, None] * page
+               + torch.arange(page, device="cuda")).reshape(Hkv, -1)
+        Ks.append(torch.gather(k, 1, tok[..., None].expand(-1, -1, D)))
+        Vs.append(torch.gather(v, 1, tok[..., None].expand(-1, -1, D)))
+        masks.append((slot < nv[b]) & (tok < seq[b]))
+    K, V = torch.stack(Ks), torch.stack(Vs)           # [B, Hkv, S*page, D]
+    mask = torch.stack(masks)                          # [B, Hkv, S*page]
+    mask = mask.repeat_interleave(Hq // Hkv, 1)[:, :, None, :]  # [B,Hq,1,T]
+    qs = (q.float() / math.sqrt(D)).to(torch.bfloat16)[:, :, None]
+    return lambda: sdpa(qs, K, V, attn_mask=mask, scale=1.0)
 
 
 def sparse_cases(timer, gen):
@@ -205,23 +215,7 @@ def sparse_cases(timer, gen):
                                              **kw)
         torch.cuda.synchronize()
         err = rel_err(got, want)
-        # Library yardstick: SDPA over the same selected tokens, gathered.
-        Ks, Vs, masks = [], [], []
-        slot = torch.arange(S, device="cuda").repeat_interleave(page)
-        for b in range(B):
-            k, v = gather_tokens(cache, b, cache.max_pages * page)
-            tok = (idx[b].long()[:, :, None] * page
-                   + torch.arange(page, device="cuda")).reshape(
-                       cfg.num_kv_heads, -1)           # [Hkv, S*page]
-            Ks.append(torch.gather(k, 1, tok[..., None].expand(-1, -1, D)))
-            Vs.append(torch.gather(v, 1, tok[..., None].expand(-1, -1, D)))
-            masks.append((slot < nv[b]) & (tok < seq[b]))
-        K, V = torch.stack(Ks), torch.stack(Vs)           # [B, Hkv, S*page, D]
-        mask = torch.stack(masks)                          # [B, Hkv, S*page]
-        G = Hq // cfg.num_kv_heads
-        mask = mask.repeat_interleave(G, 1)[:, :, None, :]  # [B, Hq, 1, T]
-        qs = (q.float() / math.sqrt(D)).to(torch.bfloat16)[:, :, None]
-        lib = timer(lambda: sdpa(qs, K, V, attn_mask=mask, scale=1.0))
+        lib = timer(sparse_sdpa(cache, q, idx, nv, seq))
         ms = timer(lambda: sparse_decode_attention(q, cache.kv_pages, idx, nv,
                                                    seq, **kw))
         plain = timer(lambda: sparse_decode_attention_plain(
@@ -491,11 +485,273 @@ def fused_slice_cases(timer, gen):
     return out
 
 
+def fp8_cases(timer, gen):
+    """The fp8 e4m3 branches of the four attention kernels at the
+    serving configuration's shapes (Llama-3.1-8B attention, B=2, 32768 +
+    7001 tokens in a 32768-token pool, shuffled block table, bf16 query,
+    fp8 pool and fp8 metadata), once at page 16 and once at page 32. Each
+    is held against its plain version and timed beside its bound (the
+    KV bytes at one byte an element), its plain version, its bf16 branch
+    over the same values (the pool read through upcast_fp8) and the
+    library call over those bf16 values."""
+    from quest_tpu_torch.ops.dense_decode import (
+        dense_decode_attention, dense_decode_attention_plain)
+    from quest_tpu_torch.ops.estimate import (page_scores_kernel,
+                                              page_scores_kernel_plain,
+                                              page_scores_physical)
+    from quest_tpu_torch.ops.prefill import (prefill_attention,
+                                             prefill_attention_plain)
+    from quest_tpu_torch.ops.sparse_decode import (
+        sparse_decode_attention, sparse_decode_attention_plain)
+    from quest_tpu_torch.ops.topk import select_pages
+    from quest_tpu_torch.ops.utils import upcast_fp8
+    fp8 = torch.float8_e4m3fn
+    out = {k: [] for k in ("sparse_decode", "dense_decode", "prefill",
+                           "estimate")}
+
+    def record(kname, label, got, want, tol, ms, plain, bf16_ms, lib,
+               nbytes, flops=0):
+        err = rel_err(got, want)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        by = "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S \
+            else "bytes"
+        out[kname].append(dict(
+            case=label, max_abs_err=float((got - want).abs().max()),
+            max_rel_err=err, ms=ms, plain_ms=plain, bf16_ms=bf16_ms,
+            library_ms=lib, bound_ms=bound, bound_by=by))
+        log(f"{kname}[{label}]: rel err {err:.2e}, {ms * 1e3:.1f} us (bound "
+            f"{bound * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bf16 branch "
+            f"{bf16_ms * 1e3:.1f} us, library {lib * 1e3:.1f} us)")
+        assert err <= tol, f"{kname} fp8 branch disagrees ({label}): {err}"
+
+    for page in (16, 32):
+        cfg, quest, cache = make_pool(32768, 2, gen, page_size=page,
+                                      kv_dtype=fp8)
+        B, Hq, Hkv, D = 2, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        G, P, agg = Hq // Hkv, cache.max_pages, quest.group_agg
+        seq = torch.tensor([32768, 7001], dtype=torch.int32, device="cuda")
+        q = torch.randn((B, Hq, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        pool16 = upcast_fp8(cache.kv_pages)           # the same values
+        kw = dict(sm_scale=1.0 / math.sqrt(D), layer=0,
+                  block_tab=cache.block_tab, block_pages=cache.block_pages)
+        tag = f"fp8 page {page}"
+
+        # Sparse: the serving path's selection over the fp8 metadata.
+        scores = page_scores_physical(q, cache.k_max[0], cache.k_min[0],
+                                      cache.block_tab, group_agg=agg)
+        idx, nv = select_pages(scores, seq, page, quest.page_budget)
+        args = (idx, nv, seq)
+        got = sparse_decode_attention(q, cache.kv_pages, *args, **kw)
+        want = sparse_decode_attention_plain(q, cache.kv_pages, *args, **kw)
+        torch.cuda.synchronize()
+        n_pages = int(nv.sum()) * Hkv
+        record("sparse_decode", tag, got, want, REL_TOL,
+               timer(lambda: sparse_decode_attention(q, cache.kv_pages, *args,
+                                                     **kw)),
+               timer(lambda: sparse_decode_attention_plain(
+                   q, cache.kv_pages, *args, **kw)),
+               timer(lambda: sparse_decode_attention(q, pool16, *args, **kw)),
+               timer(sparse_sdpa(cache, q, idx, nv, seq, kv_pages=pool16)),
+               n_pages * 2 * page * D + idx.numel() * 4 + q.numel() * 6)
+
+        # Dense over every token of both rows.
+        got = dense_decode_attention(q, cache.kv_pages, seq, **kw)
+        want = dense_decode_attention_plain(q, cache.kv_pages, seq, **kw)
+        torch.cuda.synchronize()
+        n_max = int(seq.max())
+        kv = [gather_tokens(cache, b, n_max, kv_pages=pool16)
+              for b in range(B)]
+        K, V = torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+        mask = (torch.arange(n_max, device="cuda")[None, :]
+                < seq[:, None])[:, None, None, :]
+        qs = (q.float() / math.sqrt(D)).to(torch.bfloat16)[:, :, None]
+        record("dense_decode", tag, got, want, REL_TOL,
+               timer(lambda: dense_decode_attention(q, cache.kv_pages, seq,
+                                                    **kw)),
+               timer(lambda: dense_decode_attention_plain(q, cache.kv_pages,
+                                                          seq, **kw)),
+               timer(lambda: dense_decode_attention(q, pool16, seq, **kw)),
+               timer(lambda: sdpa(qs, K, V, attn_mask=mask, scale=1.0)),
+               int(seq.sum()) * Hkv * 2 * D + q.numel() * 6
+               + cache.block_tab.numel() * 4)
+        del K, V, kv
+
+        # Prefill: a 2048-token chunk of row 0 after 4096 cached tokens.
+        T, offset = 2048, 4096
+        qp = torch.randn((1, T, Hq, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        off = torch.tensor([offset], dtype=torch.int32, device="cuda")
+        kvl = off + T
+        kwp = dict(kw, block_tab=cache.block_tab[:1])
+        got = prefill_attention(qp, cache.kv_pages, off, kvl, **kwp)
+        want = prefill_attention_plain(qp, cache.kv_pages, off, kvl, **kwp)
+        torch.cuda.synchronize()
+        K, V = gather_tokens(cache, 0, offset + T, kv_pages=pool16)
+        qps = (qp.float() / math.sqrt(D)).to(torch.bfloat16).transpose(1, 2)
+        pmask = (torch.arange(offset + T, device="cuda")[None, :]
+                 <= offset + torch.arange(T, device="cuda")[:, None])
+        record("prefill", tag, got, want, REL_TOL,
+               timer(lambda: prefill_attention(qp, cache.kv_pages, off, kvl,
+                                               **kwp)),
+               timer(lambda: prefill_attention_plain(qp, cache.kv_pages, off,
+                                                     kvl, **kwp)),
+               timer(lambda: prefill_attention(qp, pool16, off, kvl, **kwp)),
+               timer(lambda: sdpa(qps, K[None], V[None], attn_mask=pmask,
+                                  scale=1.0)),
+               (offset + T) * Hkv * 2 * D + qp.numel() * 6,
+               4 * Hq * D * (T * offset + T * (T + 1) // 2))
+        del K, V, pool16
+
+        # Streaming estimate over each row's logical fp8 metadata.
+        phys = (cache.block_tab.long()[:, :, None] * cache.block_pages
+                + torch.arange(cache.block_pages, device="cuda")).reshape(B, P)
+        km = cache.k_max[0].reshape(Hkv, -1, D)[:, phys].transpose(
+            0, 1).contiguous()
+        kn = cache.k_min[0].reshape(Hkv, -1, D)[:, phys].transpose(
+            0, 1).contiguous()
+        km16, kn16 = upcast_fp8(km), upcast_fp8(kn)
+        got = page_scores_kernel(q, km, kn, agg)
+        want = page_scores_kernel_plain(q, km, kn, agg)
+        torch.cuda.synchronize()
+        qc = torch.cat([q.float().clamp(min=0), q.float().clamp(max=0)],
+                       dim=-1).to(torch.bfloat16).reshape(B * Hkv, G, 2 * D)
+        mc = torch.cat([km16, kn16], dim=-1).reshape(B * Hkv, P, 2 * D
+                                                     ).transpose(1, 2
+                                                                 ).contiguous()
+        record("estimate", tag, got, want, 1e-5,
+               timer(lambda: page_scores_kernel(q, km, kn, agg)),
+               timer(lambda: page_scores_kernel_plain(q, km, kn, agg)),
+               timer(lambda: page_scores_kernel(q, km16, kn16, agg)),
+               timer(lambda: torch.bmm(qc, mc)),
+               2 * km.numel() + q.numel() * 2 + B * Hkv * P * 4,
+               2 * 2 * B * Hq * P * D)
+        del cache, km, kn, km16, kn16, mc
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the slice against its plain CPU path on a small model.
+# Phase 4: the probe path (the copy probe and the select pieces).
 # ---------------------------------------------------------------------------
 
-def small_reference_phase(dtype, tol=None, steps=8, fused=False):
+COPY_PAGES_KB = (8, 16, 32)    # one bf16 K+V page at page 16, 32, 64
+COPY_TOTAL_MB = 256            # five times the 50 MB L2
+SELECT_SG = 16                 # one [16, 128] band a (row, KV head) of
+                               # a 2048-page row at B=2, 8 KV heads
+
+
+def probe_phase(timer):
+    """The probe entry points on the card. The copy probe
+    (quest_tpu_torch.exp.gather_ab / dma_probe) over 256 MB: contig and
+    gather at pages of 8, 16 and 32 KB, each against its plain version,
+    then timed in turns over three rounds, and a gather_hi run on a
+    high-priority stream; a reading above the card's 3.35 TB/s fails the
+    phase (copies were dropped). The seven select pieces
+    (quest_tpu_torch.exp.select_compile2) at SG=16. Returns each kernel's
+    cases, the launches of each kernel's probe run, and the GB/s
+    table."""
+    from quest_tpu_torch.exp import dma_probe, gather_ab, select_compile2
+    from quest_tpu_torch.ops.copy_probe import (copy_probe, copy_probe_plain,
+                                                stage_plan)
+    from quest_tpu_torch.ops.select_pieces import (STAGES, select_pieces,
+                                                   select_pieces_plain)
+    nslot, rounds = 3, 3
+    runs = gather_ab.build_runs(COPY_TOTAL_MB, COPY_PAGES_KB, "cuda",
+                                modes=("gather", "contig"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for pk in COPY_PAGES_KB:
+        page_bytes, ppc = pk << 10, gather_ab.CHUNK_KB // pk
+        plan = stage_plan((COPY_TOTAL_MB << 20) // page_bytes, page_bytes,
+                          ppc, nslot, 1, sms)
+        log(f"copy_probe[{pk} KB pages]: {plan.describe(page_bytes, ppc)}")
+    errs = gather_ab.check(runs, nslot)
+    log(f"copy_probe vs plain, max rel err {max(errs.values()):.2e} over "
+        f"{len(errs)} runs")
+    assert max(errs.values()) <= 1e-5, f"copy probe disagrees: {errs}"
+
+    copy_probe.launches = 0
+    times = gather_ab.measure(runs, nslot, rounds, timer, log=log)
+    hi = dma_probe.probe("gather_hi", gather_ab.CHUNK_KB, nslot,
+                         COPY_TOTAL_MB, 1, 16, timer=timer)
+    copy_launches = copy_probe.launches
+    log(f"dma_probe: {hi['label']} {hi['us']:.1f} us {hi['gbps']:.0f} GB/s")
+    assert hi["ok"], "gather_hi output disagrees with the formula"
+    gbps = {f"{m} {pk}KB": [COPY_TOTAL_MB * 2**20 / (t * 1e-3) / 1e9
+                            for t in ts] for (m, pk), ts in times.items()}
+    gbps["gather_hi 16KB"] = [hi["gbps"]]
+    top = max(max(v) for v in gbps.values())
+    assert top <= HBM_BYTES_PER_S / 1e9, (
+        f"a copy-probe reading of {top:.0f} GB/s exceeds the card's "
+        f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s: copies were dropped")
+
+    copy_cases = []
+    for run in runs:
+        q = torch.zeros((8, 128), dtype=torch.float32, device="cuda")
+        key = (run.mode, run.page_kb)
+        nbytes = run.xp.numel() * 2 + run.idx.numel() * 4 + 2 * q.numel() * 4
+        got, want = run(q, nslot), copy_probe_plain(run.idx, q, run.xp,
+                                                    run.ppc)
+        copy_cases.append(dict(
+            case=f"{run.mode} {run.page_kb} KB pages, {COPY_TOTAL_MB} MB",
+            max_abs_err=float((got - want).abs().max()),
+            max_rel_err=errs[key], ms=statistics.median(times[key]),
+            plain_ms=timer(lambda: copy_probe_plain(run.idx, q, run.xp,
+                                                    run.ppc)),
+            # Yardstick: the same pages read in the same order by one
+            # gather, which also writes them back out.
+            library_ms=timer(lambda: torch.index_select(run.xp, 0,
+                                                        run.idx.long())),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            gbps=gbps[f"{run.mode} {run.page_kb}KB"]))
+    # The head case: the page-32 gather (16 KB pages).
+    copy_cases.sort(key=lambda c: c["case"] != f"gather 16 KB pages, "
+                                               f"{COPY_TOTAL_MB} MB")
+
+    # Select pieces: each stage against its plain version, then the
+    # script's own run of every stage (which launches and checks it).
+    sel_cases = []
+    for stage in STAGES:
+        s = torch.from_numpy(select_compile2.make_input(stage, SELECT_SG)
+                             ).cuda()
+        got, want = select_pieces(s, stage), select_pieces_plain(s, stage)
+        torch.cuda.synchronize()
+        bad = select_compile2.mismatch(got, want, stage)
+        assert bad == 0, f"select piece {stage} disagrees: {bad}"
+        flat = s.view(SELECT_SG, -1)
+        sel_cases.append(dict(
+            case=f"{stage}, SG={SELECT_SG}",
+            max_abs_err=float((got - want).abs().max()),
+            max_rel_err=rel_err(got, want) if stage in
+            select_compile2.SUM_STAGES else 0.0,
+            ms=timer(lambda: select_pieces(s, stage)),
+            plain_ms=timer(lambda: select_pieces_plain(s, stage)),
+            library_ms=timer(lambda: torch.cumsum(flat, dim=1))
+            if stage == "cumsum" else None,
+            bound_ms=2 * s.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes"))
+    sel_cases.sort(key=lambda c: not c["case"].startswith("cumsum"))
+    select_pieces.launches = 0
+    for stage in STAGES:
+        assert select_compile2.main([stage, str(SELECT_SG)]) == 0, stage
+    sel_launches = select_pieces.launches
+    log(f"select_pieces: 7 stages match their plain versions; "
+        + ", ".join(f"{c['case'].split(',')[0]} {c['ms'] * 1e3:.1f} us"
+                    for c in sel_cases))
+    for name, n in (("copy_probe", copy_launches),
+                    ("select_pieces", sel_launches)):
+        assert n > 0, f"the probe path launched no {name} kernel"
+    return ({"copy_probe": copy_cases, "select_pieces": sel_cases},
+            {"copy_probe": copy_launches, "select_pieces": sel_launches},
+            gbps)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the slice against its plain CPU path on a small model.
+# ---------------------------------------------------------------------------
+
+def small_reference_phase(dtype, tol=None, steps=8, fused=False,
+                          serving_kv=None):
     """A 4-layer model with GQA group 4 and head dim 128, its weights
     and KV pool in ``dtype``, served on the card and on the CPU's plain
     path from the same weights and prompts, both fed the CPU's greedy
@@ -506,16 +762,23 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False):
     2e-2 (held in phase 3). With ``fused`` the sparse layers take the
     fused kernel: the pool grows to 2048 tokens (128 pages, where the
     model's gate opens), and the card's fused launches must be 2 a
-    step."""
-    from quest_tpu_torch.config import QuestConfig, small_tpu_model
+    step. With ``serving_kv`` (a KV dtype) the engines run the serving
+    configuration instead: page 32, fp8 e4m3 metadata, a 4-page budget,
+    that KV dtype."""
+    from quest_tpu_torch.config import (QuestConfig, serving_quest_config,
+                                        small_tpu_model)
     from quest_tpu_torch.engine.engine import QuestEngine
     from quest_tpu_torch.models.llama import init_params
     from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
     cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
                               num_kv_heads=2, dtype=dtype)
-    quest = QuestConfig(page_size=16, token_budget=64,
-                        max_seq_len=2048 if fused else 1024, kv_dtype=dtype,
-                        fused_decode=fused)
+    if serving_kv is not None:
+        quest = serving_quest_config(1024, token_budget=128,
+                                     kv_dtype=serving_kv)
+    else:
+        quest = QuestConfig(page_size=16, token_budget=64,
+                            max_seq_len=2048 if fused else 1024,
+                            kv_dtype=dtype, fused_decode=fused)
     params = init_params(cfg, torch.Generator().manual_seed(5),
                          device="cpu")
     rng = np.random.default_rng(5)
@@ -526,7 +789,9 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False):
     fused_sparse_decode.launches = 0
     g, c = gpu.prefill(prompts), cpu.prefill(prompts)
     errs, same = [], []
-    for step in range(steps + 1):   # both rows are past the 4-page budget
+    assert all(-(-len(p) // quest.page_size) > quest.page_budget
+               for p in prompts), "the sparse path is not live"
+    for step in range(steps + 1):
         assert np.isfinite(g).all(), "non-finite logits on the card"
         errs.append(rel_err(torch.from_numpy(g), torch.from_numpy(c)))
         tok = np.argmax(c, axis=-1)
@@ -535,7 +800,9 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False):
             g, c = gpu.decode(tok), cpu.decode(tok)
     torch.cuda.synchronize()
     launches = fused_sparse_decode.launches
-    name = str(dtype).split(".")[-1] + ("/fused" if fused else "")
+    name = str(dtype).split(".")[-1] + ("/fused" if fused else "") + (
+        f"/serving {str(serving_kv).split('.')[-1]} KV" if serving_kv
+        else "")
     log(f"reference[{name}]: 4-layer model on the card vs the plain CPU "
         f"path over prefill + {steps} sparse decode steps: greedy tokens "
         f"agree at {sum(same)} of {len(same)} steps, max logits rel err "
@@ -550,17 +817,36 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: full-width Llama-3.1-8B served end to end.
+# Phase 6: full-width Llama-3.1-8B served end to end.
 # ---------------------------------------------------------------------------
 
+def cache_bytes(cache):
+    return sum(t.numel() * t.element_size()
+               for t in (cache.kv_pages, cache.k_max, cache.k_min))
+
+
+# Engine name: its QuestConfig (max_seq_len 16384) by keyword arguments.
+SERVING_PATHS = ("unfused", "fused", "serving", "serving_fp8")
+
+
+def serving_quest(path):
+    from quest_tpu_torch.config import QuestConfig, serving_quest_config
+    if path.startswith("serving"):
+        kv = torch.float8_e4m3fn if path == "serving_fp8" else torch.bfloat16
+        return serving_quest_config(16384, kv_dtype=kv)
+    return QuestConfig(max_seq_len=16384, fused_decode=path == "fused")
+
+
 def serving_phase(kernels):
-    """Two engines over one set of random weights: the unfused pipeline
-    (``QuestConfig`` default) and ``fused_decode=True``. Each serves
-    ``generate`` and ``generate_ondevice``, the kernel launches of every
-    run checked against its path; then the decode step of both is timed
-    in turns (unfused, fused, fused, unfused) and one step of each is
+    """Four engines over one set of random weights: the unfused pipeline
+    (``QuestConfig`` default), ``fused_decode=True``, and the serving
+    configuration (``serving_quest_config``: page 32, fp8 e4m3 metadata)
+    with a bf16 and with an fp8 e4m3 KV pool. Each serves ``generate``
+    and ``generate_ondevice``, the kernel launches of every run checked
+    against its path; then the decode steps are timed in turns (each
+    path, then each again in reverse order) and two steps of each are
     profiled. ``kernels``: each kernel's wrapper by name."""
-    from quest_tpu_torch.config import QuestConfig, llama31_8b
+    from quest_tpu_torch.config import llama31_8b
     from quest_tpu_torch.engine.engine import QuestEngine
     from quest_tpu_torch.models.llama import init_params
 
@@ -568,19 +854,24 @@ def serving_phase(kernels):
     t0 = time.time()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
-    engines = {path: QuestEngine(cfg, QuestConfig(
-        max_seq_len=16384, fused_decode=path == "fused"), params,
-        batch_size=2, device="cuda") for path in ("unfused", "fused")}
+    engines = {path: QuestEngine(cfg, serving_quest(path), params,
+                                 batch_size=2, device="cuda")
+               for path in SERVING_PATHS}
     del params
-    quest = engines["unfused"].quest
     torch.cuda.synchronize()
+    pools = {path: cache_bytes(e.cache) for path, e in engines.items()}
     log(f"serving: Llama-3.1-8B, {cfg.num_layers} layers, random bf16 "
-        f"weights shared by an unfused and a fused engine, pool "
-        f"{engines['fused'].cache.kv_pages.numel() * 2 / 2**30:.2f} GiB "
-        f"each, set up in {time.time() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        f"weights shared by {len(engines)} engines, set up in "
+        f"{time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; pool + "
+        f"metadata bytes: " + ", ".join(
+            f"{p} {pools[p] / 2**30:.3f} GiB (page "
+            f"{engines[p].quest.page_size}, KV "
+            f"{str(engines[p].quest.kv_dtype).split('.')[-1]}, metadata "
+            f"{str(engines[p].quest.resolved_meta_dtype).split('.')[-1]})"
+            for p in SERVING_PATHS))
     rng = np.random.default_rng(0)
-    L, skip, N = cfg.num_layers, quest.skip_layers, 32
+    L, skip, N = cfg.num_layers, engines["unfused"].quest.skip_layers, 32
     counts, outs, totals = {}, {}, {}
 
     def run(path, label, fn, prompts):
@@ -607,8 +898,10 @@ def serving_phase(kernels):
 
     p1 = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (6000, 3000)]
     p2 = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (5000, 2500)]
-    # Both rows of both pairs hold more pages than the 128-page budget.
-    assert min(map(len, p1 + p2)) > quest.page_budget * quest.page_size
+    # Both rows of both pairs hold more pages than every engine's budget
+    # (128 pages of 16 tokens, 64 of 32).
+    assert all(min(map(len, p1 + p2)) > e.quest.page_budget
+               * e.quest.page_size for e in engines.values())
     for path, engine in engines.items():
         run(path, "generate", engine.generate, p1)
         engine.clear()
@@ -622,7 +915,7 @@ def serving_phase(kernels):
 
     # Prefill of the second pair, then decode steps, in turns.
     steps, decode_ms, prefill_s, tok = 16, {}, {}, {}
-    for path in ("unfused", "fused", "fused", "unfused"):
+    for path in SERVING_PATHS + SERVING_PATHS[::-1]:
         engine = engines[path]
         engine.clear()
         torch.cuda.synchronize()
@@ -643,13 +936,14 @@ def serving_phase(kernels):
         tok[path] = tk
     n_prompt = sum(map(len, p2))
     serving = {}
-    for path in ("unfused", "fused"):
+    for path in SERVING_PATHS:
         tps = [n_prompt / t for t in prefill_s[path]]
         log(f"serving[{path}]: prefill {n_prompt} tokens at "
             f"{' / '.join(f'{x:.0f}' for x in tps)} tokens/s; decode "
             f"{' / '.join(f'{x:.2f}' for x in decode_ms[path])} ms/step at "
             f"B=2 (generate_ondevice total {totals[path]:.2f} s)")
-        serving[path] = dict(prefill_tokens_per_s=tps,
+        serving[path] = dict(pool_bytes=pools[path],
+                             prefill_tokens_per_s=tps,
                              decode_ms_per_step=decode_ms[path],
                              generate_ondevice_s=totals[path],
                              **profile_decode(engines[path], tok[path], path))
@@ -693,8 +987,9 @@ def profile_decode(engine, tok, label, steps=2):
                 device_ops_per_step=n_launch / steps, profile_top=top)
 
 
-# name: (source, the TPU kernel it replaces, the serving path whose run
-# gives its launch count; None where no serving path launches it)
+# name: (source, the TPU kernel it replaces, the path whose run gives its
+# launch count: a serving engine, "probe" for the probe path, None where
+# no path launches it)
 KERNEL_META = {
     "sparse_decode": ("quest_tpu_torch/csrc/sparse_decode.cu",
                       "quest_tpu/ops/sparse_decode.py:498", "unfused"),
@@ -708,23 +1003,31 @@ KERNEL_META = {
                     "exp/select_compile.py:48", None),
     "fused_decode": ("quest_tpu_torch/csrc/fused_decode.cu",
                      "quest_tpu/ops/fused_decode.py:606", "fused"),
+    "copy_probe": ("quest_tpu_torch/csrc/copy_probe.cu",
+                   "exp/gather_ab.py:88", "probe"),
+    "select_pieces": ("quest_tpu_torch/csrc/select_pieces.cu",
+                      "exp/select_compile2.py:73", "probe"),
 }
+# A second TPU kernel that the same CUDA kernel replaces.
+ALSO_REPLACES = {"copy_probe": "exp/dma_probe.py:111"}
 
 
 def kernel_wrappers():
     """Each kernel's wrapper, which counts its launches."""
+    from quest_tpu_torch.ops.copy_probe import copy_probe
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_kernel
     from quest_tpu_torch.ops.fused_decode import (exact_topk_select,
                                                   fused_sparse_decode)
     from quest_tpu_torch.ops.prefill import prefill_attention
+    from quest_tpu_torch.ops.select_pieces import select_pieces
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return {"sparse_decode": sparse_decode_attention,
             "dense_decode": dense_decode_attention,
             "prefill": prefill_attention, "estimate": page_scores_kernel,
             "topk_select": exact_topk_select,
-            "fused_decode": fused_sparse_decode}
-
+            "fused_decode": fused_sparse_decode,
+            "copy_probe": copy_probe, "select_pieces": select_pieces}
 
 
 def main():
@@ -733,6 +1036,7 @@ def main():
               "False); this script runs only on the card", file=sys.stderr)
         return 1
     import quest_tpu_torch  # noqa: F401  (fails outside the checkout)
+    from quest_tpu_torch.utils.benchmarking import Timer
 
     name, smi = device_phase()
     build_phase()
@@ -743,6 +1047,10 @@ def main():
                "dense_decode": dense_cases(timer, gen),
                "prefill": prefill_cases(timer, gen),
                **fused_slice_cases(timer, gen)}
+    for kname, cases in fp8_cases(timer, gen).items():
+        results[kname] += cases
+    probe_results, probe_launches, copy_gbps = probe_phase(timer)
+    results.update(probe_results)
     del timer
     torch.cuda.empty_cache()
     reference = {"bf16": small_reference_phase(torch.bfloat16),
@@ -750,16 +1058,25 @@ def main():
                  "bf16_fused": small_reference_phase(torch.bfloat16,
                                                      fused=True),
                  "f32_fused": small_reference_phase(torch.float32, F32_TOL,
-                                                    fused=True)}
+                                                    fused=True),
+                 "serving_bf16_kv": small_reference_phase(
+                     torch.float32, serving_kv=torch.bfloat16),
+                 "serving_fp8_kv": small_reference_phase(
+                     torch.float32, serving_kv=torch.float8_e4m3fn)}
     counts, serving = serving_phase(kernel_wrappers())
 
     kernels = []
     for kname, (src, rep, path) in KERNEL_META.items():
         cases = results[kname]
         head = cases[0]
+        launches = (probe_launches[kname] if path == "probe"
+                    else counts[(path or "fused", "generate")][kname])
+        by_path = {p: counts[(p, "generate")][kname] for p in SERVING_PATHS}
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=rep,
-            launches=counts[(path or "fused", "generate")][kname],
+            **({"also_replaces": ALSO_REPLACES[kname]}
+               if kname in ALSO_REPLACES else {}),
+            launches=launches, launches_by_serving_path=by_path,
             main_path=path or "none: its device code runs inside "
             "fused_decode", max_abs_err=head["max_abs_err"],
             max_rel_err=max(c["max_rel_err"] for c in cases),
@@ -767,7 +1084,8 @@ def main():
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], cases=cases))
     log(json.dumps({"device": name, "nvidia_smi": smi, "serving": serving,
-                    "reference_rel_err": reference}))
+                    "reference_rel_err": reference,
+                    "copy_probe_gbps": copy_gbps}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

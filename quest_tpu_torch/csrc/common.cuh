@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -12,7 +13,8 @@ extern "C" const char* qt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Element traits: 16 bytes of a row hold kPerChunk elements.
+// Element traits: 16 bytes of a row hold kPerChunk elements; ``round``
+// rounds to the dtype q and p take before the products with such rows.
 template <typename T>
 struct Elem;
 
@@ -49,6 +51,96 @@ struct Elem<float> {
     for (int i = 0; i < 4; ++i) f[i] = p[i];
   }
 };
+
+// fp8 e4m3 as the JAX kernels read it (quest_tpu/ops/pallas_utils.py:
+// upcast_fp8, ops/utils.py:upcast_fp8 here): the bf16 bits of code u are
+// sign * 256 + (em < 8 ? 0 : em * 16 + (120 << 7)), em the exponent and
+// mantissa bits. Denormals flush to zero and the NaN codes read as 480;
+// the hardware cvt keeps denormals, so it is not used.
+__device__ __forceinline__ unsigned fp8_e4m3_bf16_bits(unsigned u) {
+  const unsigned em = u & 0x7Fu;
+  return ((u & 0x80u) << 8) | (em < 8u ? 0u : (em << 4) + (120u << 7));
+}
+
+__device__ __forceinline__ float fp8_e4m3_to_float(unsigned u) {
+  return __uint_as_float(fp8_e4m3_bf16_bits(u) << 16);
+}
+
+// fp8 e4m3 pools and metadata. ``round`` goes to bf16, not fp8: the JAX
+// kernels keep q and p at bf16 over an fp8 pool (the upcast pages are
+// bf16, and p is cast to their dtype). Kernels that keep tiles in shared
+// memory widen fp8 to bf16 as they store it (TileElem below).
+template <>
+struct Elem<__nv_fp8_e4m3> {
+  static constexpr int kPerChunk = 16;
+  __device__ __forceinline__ static float round(float x) {
+    return Elem<__nv_bfloat16>::round(x);
+  }
+  __device__ __forceinline__ static void unpack(const uint4& raw, float* f) {
+    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[4 * i + j] = fp8_e4m3_to_float((w[i] >> (8 * j)) & 0xFFu);
+    }
+  }
+};
+
+// 16 fp8 e4m3 values (one 16-byte chunk) as 16 bf16 values by the recipe
+// above: lo holds elements 0..7, hi elements 8..15.
+__device__ __forceinline__ void fp8x16_to_bf16(const uint4& raw, uint4& lo,
+                                               uint4& hi) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+  unsigned h[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const unsigned word = w[k / 2] >> (16 * (k % 2));
+    h[k] = fp8_e4m3_bf16_bits(word & 0xFFu) |
+           (fp8_e4m3_bf16_bits((word >> 8) & 0xFFu) << 16);
+  }
+  lo = make_uint4(h[0], h[1], h[2], h[3]);
+  hi = make_uint4(h[4], h[5], h[6], h[7]);
+}
+
+// The element type a kernel keeps a pool's tiles in, in shared memory:
+// the pool's own, bf16 for fp8 (each tile is widened as it arrives, so
+// the products read bf16 and the recipe runs once an element).
+template <typename T>
+struct TileElem {
+  using type = T;
+};
+template <>
+struct TileElem<__nv_fp8_e4m3> {
+  using type = __nv_bfloat16;
+};
+
+// Stores one 16-byte chunk of pool elements T at dst, a tile of
+// TileElem<T>::type: as it is, or widened to 32 bytes of bf16.
+template <typename T>
+__device__ __forceinline__ void store_tile_chunk(
+    typename TileElem<T>::type* dst, const uint4& raw) {
+  if constexpr (sizeof(T) == 1) {
+    uint4 lo, hi;
+    fp8x16_to_bf16(raw, lo, hi);
+    reinterpret_cast<uint4*>(dst)[0] = lo;
+    reinterpret_cast<uint4*>(dst)[1] = hi;
+  } else {
+    *reinterpret_cast<uint4*>(dst) = raw;
+  }
+}
+
+// Calls f(T{}) for the element type of a dtype code (ops/utils.py
+// DTYPE_CODES: 0 f32, 1 bf16, 2 fp8 e4m3).
+template <typename F>
+cudaError_t with_elem(int code, F&& f) {
+  switch (code) {
+    case 0: return f(float{});
+    case 1: return f(__nv_bfloat16{});
+    case 2: return f(__nv_fp8_e4m3{});
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

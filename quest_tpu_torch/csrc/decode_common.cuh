@@ -7,9 +7,12 @@
 //
 // Numerics follow the JAX kernels: the un-scaled q (bf16 or f32) is
 // multiplied by the softmax scale in f32 and rounded to the pool dtype
-// before QK; scores and the softmax run in f32 with the finite mask
-// value -1e30; p is rounded to the pool dtype before the PV product,
-// which accumulates in f32; the sum l uses the unrounded p.
+// (bf16 for an fp8 pool) before QK; scores and the softmax run in f32
+// with the finite mask value -1e30; p is rounded the same way before the
+// PV product, which accumulates in f32; the sum l uses the unrounded p.
+// fp8 pages are read with the upcast_fp8 recipe (common.cuh), each K/V
+// tile widened to bf16 as it is stored to shared memory, so the products
+// run as over a bf16 pool.
 #pragma once
 
 #include "common.cuh"
@@ -38,13 +41,16 @@ struct DecodeArgs {
 template <typename T, int G, bool kSparse>
 __global__ void __launch_bounds__(kThreads)
 decode_partial(DecodeArgs a) {
-  constexpr int CH = Elem<T>::kPerChunk;             // elements per 16 B
-  constexpr int CPR = kD / CH;                       // chunks per row
-  constexpr int TT = sizeof(T) == 2 ? 64 : 32;       // tokens per tile
+  using S = typename TileElem<T>::type;              // tile element
+  constexpr int GCH = Elem<T>::kPerChunk;            // pool elements per 16 B
+  constexpr int GCPR = kD / GCH;                     // pool chunks per row
+  constexpr int CH = Elem<S>::kPerChunk;             // tile elements per 16 B
+  constexpr int CPR = kD / CH;                       // tile chunks per row
+  constexpr int TT = sizeof(S) == 2 ? 64 : 32;       // tokens per tile
   constexpr int KSTR = kD + CH;                      // padded K row
 
-  __shared__ __align__(16) T ks[TT * KSTR];
-  __shared__ __align__(16) T vs[TT * kD];
+  __shared__ __align__(16) S ks[TT * KSTR];
+  __shared__ __align__(16) S vs[TT * kD];
   __shared__ float qs[G][kD];
   __shared__ float ps[G][TT];
   __shared__ float m_s[G], l_s[G], alpha_s[G];
@@ -68,7 +74,7 @@ decode_partial(DecodeArgs a) {
         a.q_bf16
             ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[qbase + i])
             : static_cast<const float*>(a.q)[qbase + i];
-    qs[i / kD][i % kD] = Elem<T>::round(x * a.sm_scale);
+    qs[i / kD][i % kD] = Elem<S>::round(x * a.sm_scale);
   }
   if (tid < G) {
     m_s[tid] = QT_MASK_VALUE;
@@ -99,29 +105,30 @@ decode_partial(DecodeArgs a) {
     }
     __syncthreads();
 
-    // K and V rows, 16 bytes a thread; rows past the split read zeros.
-    for (int c = tid; c < TT * CPR; c += kThreads) {
-      const int r = c / CPR, cc = c % CPR;
+    // K and V rows, 16 bytes of the pool a thread; rows past the split
+    // read zeros.
+    for (int c = tid; c < TT * GCPR; c += kThreads) {
+      const int r = c / GCPR, cc = c % GCPR;
       const int64_t off = rowoff[r];
       uint4 kk = make_uint4(0, 0, 0, 0), vv = kk;
       if (off >= 0) {
         kk = __ldg(reinterpret_cast<const uint4*>(kv + off) + cc);
         vv = __ldg(reinterpret_cast<const uint4*>(kv + off + page * kD) + cc);
       }
-      *reinterpret_cast<uint4*>(&ks[r * KSTR + cc * CH]) = kk;
-      *reinterpret_cast<uint4*>(&vs[r * kD + cc * CH]) = vv;
+      store_tile_chunk<T>(&ks[r * KSTR + cc * GCH], kk);
+      store_tile_chunk<T>(&vs[r * kD + cc * GCH], vv);
     }
     __syncthreads();
 
     // Scores: one (head, token) pair per thread and step.
     for (int i = tid; i < G * TT; i += kThreads) {
       const int g = i / TT, r = i % TT;
-      const T* krow = &ks[r * KSTR];
+      const S* krow = &ks[r * KSTR];
       float s = 0.f;
 #pragma unroll 4
       for (int c = 0; c < CPR; ++c) {
         float f[CH];
-        Elem<T>::unpack(*reinterpret_cast<const uint4*>(krow + c * CH), f);
+        Elem<S>::unpack(*reinterpret_cast<const uint4*>(krow + c * CH), f);
 #pragma unroll
         for (int j = 0; j < CH; ++j) s = fmaf(qs[g][c * CH + j], f[j], s);
       }
@@ -139,7 +146,7 @@ decode_partial(DecodeArgs a) {
       for (int r = lane; r < TT; r += 32) {
         const float p = valid_s[r] ? expf(ps[g][r] - m_new) : 0.f;
         sum += p;
-        ps[g][r] = Elem<T>::round(p);
+        ps[g][r] = Elem<S>::round(p);
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -155,7 +162,7 @@ decode_partial(DecodeArgs a) {
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[g] *= alpha_s[g];
     for (int r = 0; r < TT; ++r) {
-      const float v = Elem<T>::to_float(vs[r * kD + tid]);
+      const float v = Elem<S>::to_float(vs[r * kD + tid]);
 #pragma unroll
       for (int g = 0; g < G; ++g) acc[g] = fmaf(ps[g][r], v, acc[g]);
     }
@@ -231,16 +238,18 @@ cudaError_t launch_decode(const DecodeArgs& a, float* out, int B,
   return cudaGetLastError();
 }
 
-// Dispatch on the pool dtype and the group size G in {1, 2, 4, 8}.
+// Dispatch on the pool dtype code (common.cuh with_elem) and the group
+// size G in {1, 2, 4, 8}.
 template <bool kSparse>
 int dispatch_decode(const DecodeArgs& a, float* out, int B, int G,
-                    int is_bf16, void* stream) {
+                    int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define QT_CASE(GG)                                                          \
-  case GG:                                                                   \
-    err = is_bf16 ? launch_decode<__nv_bfloat16, GG, kSparse>(a, out, B, s)  \
-                  : launch_decode<float, GG, kSparse>(a, out, B, s);         \
+#define QT_CASE(GG)                                                  \
+  case GG:                                                           \
+    err = with_elem(kv_dtype, [&](auto t) {                          \
+      return launch_decode<decltype(t), GG, kSparse>(a, out, B, s);  \
+    });                                                              \
     break;
   switch (G) {
     QT_CASE(1)

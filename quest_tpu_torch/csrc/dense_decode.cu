@@ -12,7 +12,8 @@
 //
 // Bound on the H100: bytes. Every K and V row of the slot is read once
 // per KV head: 8 heads x 32768 tokens x 512 bytes = 134 MB for one
-// 32K-token row of Llama-3.1-8B in bf16, against 3.35 TB/s. The G query
+// 32K-token row of Llama-3.1-8B in bf16 (half that from an fp8 e4m3
+// pool), against 3.35 TB/s. The G query
 // heads of a group share each row read; the splits put hundreds of CTAs
 // in flight so that the loads of many SMs overlap.
 #include "decode_common.cuh"
@@ -20,11 +21,11 @@
 extern "C" int dense_decode_launch(
     const void* q, const void* kv, const int* tab, const int* seq_lens,
     float* part_o, float* part_ml, float* out, int B, int Hkv, int G, int NP,
-    int page, int NB, int bpp, int nsplit, int per_split, int is_bf16,
+    int page, int NB, int bpp, int nsplit, int per_split, int kv_dtype,
     float sm_scale, int q_bf16, void* stream) {
   qt::DecodeArgs a{q,       kv,       tab, seq_lens, nullptr, nullptr,
                    part_o,  part_ml,  Hkv, 1,        NP,      page,
                    NB,      bpp,      0,   nsplit,   per_split,
                    sm_scale, q_bf16};
-  return qt::dispatch_decode<false>(a, out, B, G, is_bf16, stream);
+  return qt::dispatch_decode<false>(a, out, B, G, kv_dtype, stream);
 }

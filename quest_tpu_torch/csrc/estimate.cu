@@ -4,7 +4,8 @@
 // kernel _est_kernel, pallas_call at line 229): for each (batch row, KV
 // head) and each of its P pages,
 //   score = agg_g( relu(q_g) . k_max + min(q_g, 0) . k_min ),
-// relu(q) and min(q, 0) rounded to the metadata dtype, f32 products, the
+// relu(q) and min(q, 0) rounded to the metadata dtype (bf16 for fp8
+// metadata, read with the upcast_fp8 recipe), f32 products, the
 // G query rows of the group aggregated by max or sum. The scoring device
 // code is the fused decode kernel's (select_common.cuh).
 //
@@ -24,7 +25,9 @@ template <typename M, int G>
 __global__ void __launch_bounds__(kSelThreads)
 estimate_kernel(const void* q, const M* kmax, const M* kmin, float* out,
                 int Hkv, int P, int agg_sum, int q_bf16) {
-  constexpr int U = G >= 8 ? 2 : 8;
+  // Pages a team keeps in flight: fewer for fp8, whose 16-element
+  // chunks double the query registers of a lane.
+  constexpr int U = (G >= 8 ? 2 : 8) / (sizeof(M) == 1 ? 2 : 1);
   const int h = blockIdx.y, b = blockIdx.z;
   const int lo = blockIdx.x * kEstPagesPerCta;
   const int hi = min(P, lo + kEstPagesPerCta);
@@ -52,21 +55,21 @@ cudaError_t launch_estimate(const void* q, const void* kmax, const void* kmin,
 
 }  // namespace qt
 
-// q [B, Hkv*G, 128] bf16/f32; kmax, kmin [B, Hkv, P, 128] bf16/f32;
-// out [B, Hkv, P] f32.
+// q [B, Hkv*G, 128] bf16/f32; kmax, kmin [B, Hkv, P, 128] of dtype code
+// meta_dtype (0 f32, 1 bf16, 2 fp8 e4m3); out [B, Hkv, P] f32.
 extern "C" int estimate_launch(const void* q, const void* kmax,
                                const void* kmin, float* out, int B, int Hkv,
-                               int G, int P, int meta_bf16, int agg_sum,
+                               int G, int P, int meta_dtype, int agg_sum,
                                int q_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define QT_CASE(GG)                                                           \
-  case GG:                                                                    \
-    err = meta_bf16 ? qt::launch_estimate<__nv_bfloat16, GG>(                 \
-                          q, kmax, kmin, out, B, Hkv, P, agg_sum, q_bf16, s)  \
-                    : qt::launch_estimate<float, GG>(q, kmax, kmin, out, B,   \
-                                                     Hkv, P, agg_sum, q_bf16, \
-                                                     s);                      \
+#define QT_CASE(GG)                                                        \
+  case GG:                                                                 \
+    err = with_elem(meta_dtype, [&](auto t) {                              \
+      return qt::launch_estimate<decltype(t), GG>(q, kmax, kmin, out, B,   \
+                                                  Hkv, P, agg_sum, q_bf16, \
+                                                  s);                      \
+    });                                                                    \
     break;
   switch (G) {
     QT_CASE(1)

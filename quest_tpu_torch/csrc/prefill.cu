@@ -32,6 +32,16 @@
 // f32 pools (off the serving path, which keeps bf16 KV) take a plain
 // FMA kernel, prefill_f32_kernel: the contract there is f32 products
 // throughout, which bf16 tensor cores cannot keep.
+//
+// fp8 e4m3 pools (the serving configuration's capacity option) take the
+// MMA kernel too: each fp8 K/V tile arrives by cp.async in one of two
+// staging buffers (half the bytes of a bf16 tile), and the CTA converts
+// it with the upcast_fp8 recipe (common.cuh) into the one bf16 tile the
+// MMA fragments read, before the products. The staging buffers carry the
+// double buffering, so the bf16 tile needs no second copy and the CTA
+// fits in 83 KB of shared memory, two CTAs an SM as in bf16. The JAX
+// kernel upcasts the same way, so q and p stay bf16. Overlapping the
+// conversion with the MMAs is left for later.
 #include "common.cuh"
 
 namespace {
@@ -46,7 +56,17 @@ constexpr int kStride = kD + 8;      // padded smem row: ldmatrix rows of
                                      // one 8x8 matrix hit distinct banks
 constexpr int kCPR = kD / 8;         // 16-byte chunks per row
 constexpr int kTile = kBK * kStride; // elements of one K or V buffer
-constexpr size_t kSmem = (kBQ * kStride + 4 * kTile) * sizeof(bf16);
+constexpr size_t kStage = kBK * kD;  // bytes of one fp8 K or V tile
+
+// Shared memory of the MMA kernel: the Q tile, K and V tiles (two of
+// each for bf16, one each for fp8), and for fp8 two staging buffers of
+// [K tile, V tile].
+template <typename KV>
+constexpr size_t mma_smem() {
+  return sizeof(KV) == 1
+             ? (kBQ * kStride + 2 * kTile) * sizeof(bf16) + 4 * kStage
+             : (kBQ * kStride + 4 * kTile) * sizeof(bf16);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -119,16 +139,24 @@ __device__ __forceinline__ uint4 load_q8(const void* q, int64_t at, int q_bf16,
                     pack_bf16(x[6] * sm_scale, x[7] * sm_scale));
 }
 
+// KV: the pool's element type, bf16 or fp8 e4m3.
+template <typename KV>
 __global__ void __launch_bounds__(kThreads)
-prefill_kernel(const void* __restrict__ q, const bf16* __restrict__ kv,
+prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kv,
                const int* __restrict__ tab, const int* __restrict__ q_offsets,
                const int* __restrict__ kv_lens, float* __restrict__ out,
                int T, int Hq, int G, int NP, int page, int NB, int bpp,
                float sm_scale, int q_bf16) {
+  constexpr bool kFp8 = sizeof(KV) == 1;
+  constexpr int CH = 16 / sizeof(KV);   // pool elements per 16-byte chunk
+  constexpr int CPR = kD / CH;         // chunks per pool row
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + kBQ * kStride;       // two K buffers, then two V buffers
-  bf16* vs = ks + 2 * kTile;
+  constexpr int kBufs = kFp8 ? 1 : 2;  // bf16 K (and V) tiles
+  bf16* vs = ks + kBufs * kTile;
+  // fp8 only: two staging buffers of [K tile, V tile], unpadded rows.
+  unsigned char* stage = reinterpret_cast<unsigned char*>(vs + kBufs * kTile);
 
   // Heaviest (latest) query tiles first: they stream the most K/V.
   const int i0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
@@ -142,32 +170,53 @@ prefill_kernel(const void* __restrict__ q, const bf16* __restrict__ kv,
   const int hi = min(offset + i0 + kBQ, kv_len);
   const int n_tiles = hi > 0 ? (hi + kBK - 1) / kBK : 0;
 
-  // Each thread copies chunk column tid % 16 of rows tid / 16 + 8 * i.
-  const int cc = tid % kCPR, r_base = tid / kCPR;
+  // Each thread copies chunk column tid % CPR of rows tid / CPR + k * i:
+  // bf16 rows straight into the MMA tiles, fp8 rows into staging.
+  const int pc = tid % CPR, pr = tid / CPR;
   auto load_tile = [&](int j, int buf) {
 #pragma unroll
-    for (int i = 0; i < kBK / (kThreads / kCPR); ++i) {
-      const int r = r_base + i * (kThreads / kCPR);
+    for (int i = 0; i < kBK / (kThreads / CPR); ++i) {
+      const int r = pr + i * (kThreads / CPR);
       const int t = j * kBK + r;
       const bool ok = t < max_tok;
       int64_t off = 0;
       if (ok)
         off = kv_row(h_kv, phys_page(tab, b, NB, bpp, t / page), t % page, NP,
                      page, kD);
-      cp_async16(ks + buf * kTile + r * kStride + cc * 8, kv + off + cc * 8,
-                 ok);
-      cp_async16(vs + buf * kTile + r * kStride + cc * 8,
-                 kv + off + page * kD + cc * 8, ok);
+      const KV* src = kv + off + pc * CH;
+      if constexpr (kFp8) {
+        unsigned char* dst = stage + (2 * buf) * kStage + r * kD + pc * CH;
+        cp_async16(dst, src, ok);
+        cp_async16(dst + kStage, src + page * kD, ok);
+      } else {
+        cp_async16(ks + buf * kTile + r * kStride + pc * CH, src, ok);
+        cp_async16(vs + buf * kTile + r * kStride + pc * CH, src + page * kD,
+                   ok);
+      }
+    }
+  };
+  // fp8: the staged tiles of buffer buf as the bf16 MMA tiles, 16 fp8 values
+  // (one 16-byte chunk) a thread and step.
+  auto convert_tile = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2 * kBK / (kThreads / 8); ++i) {
+      const int row = tid / 8 + i * (kThreads / 8);   // 0..127: K, then V
+      const int r = row % kBK, c = tid % 8;
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          stage + (2 * buf + row / kBK) * kStage + r * kD + c * 16);
+      store_tile_chunk<KV>(
+          (row < kBK ? ks : vs) + r * kStride + c * 16, raw);
     }
   };
 
   // The first K/V tile in flight, then the scaled Q tile (rows past T
-  // are zeros).
+  // are zeros); thread tid writes chunk tid % 16 of rows tid / 16 + 8 i.
   if (n_tiles > 0) load_tile(0, 0);
   cp_async_commit();
+  const int cc = tid % kCPR;
 #pragma unroll
   for (int i = 0; i < kBQ / (kThreads / kCPR); ++i) {
-    const int r = r_base + i * (kThreads / kCPR);
+    const int r = tid / kCPR + i * (kThreads / kCPR);
     uint4 val = make_uint4(0, 0, 0, 0);
     if (i0 + r < T)
       val = load_q8(q, ((static_cast<int64_t>(b) * T + i0 + r) * Hq + hq) * kD +
@@ -197,8 +246,12 @@ prefill_kernel(const void* __restrict__ q, const bf16* __restrict__ kv,
     cp_async_commit();
     cp_async_wait<1>();                 // tile j has landed (this thread)
     __syncthreads();                    // ... and every thread's part of it
-    const bf16* kt = ks + buf * kTile;
-    const bf16* vt = vs + buf * kTile;
+    if constexpr (kFp8) {
+      convert_tile(buf);
+      __syncthreads();
+    }
+    const bf16* kt = ks + (kFp8 ? 0 : buf) * kTile;
+    const bf16* vt = vs + (kFp8 ? 0 : buf) * kTile;
 
     // S = Q K^T: 16 rows x 64 tokens as 8 accumulator blocks of 8 tokens.
     float s[kBK / 8][4];
@@ -423,28 +476,47 @@ prefill_f32_kernel(const void* __restrict__ q, const float* __restrict__ kv,
   }
 }
 
+template <typename KV>
+cudaError_t launch_mma(const void* q, const void* kv, const int* tab,
+                       const int* q_offsets, const int* kv_lens, float* out,
+                       int B, int T, int Hq, int Hkv, int NP, int page,
+                       int NB, int bpp, float sm_scale, int q_bf16,
+                       cudaStream_t s) {
+  const size_t smem = mma_smem<KV>();
+  cudaError_t err = cudaFuncSetAttribute(
+      prefill_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + kBQ - 1) / kBQ, Hq, B);
+  prefill_kernel<KV><<<grid, kThreads, smem, s>>>(
+      q, static_cast<const KV*>(kv), tab, q_offsets, kv_lens, out, T, Hq,
+      Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// kv_dtype: 0 f32 (FMA kernel), 1 bf16, 2 fp8 e4m3 (MMA kernel).
 extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
                               const int* q_offsets, const int* kv_lens,
                               float* out, int B, int T, int Hq, int Hkv,
-                              int NP, int page, int NB, int bpp, int is_bf16,
+                              int NP, int page, int NB, int bpp, int kv_dtype,
                               float sm_scale, int q_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) {
+  if (kv_dtype == 0) {
     dim3 grid((T + kRF - 1) / kRF, Hq, B);
     prefill_f32_kernel<<<grid, kThreads, 0, s>>>(
         q, static_cast<const float*>(kv), tab, q_offsets, kv_lens, out, T, Hq,
         Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((T + kBQ - 1) / kBQ, Hq, B);
-  prefill_kernel<<<grid, kThreads, kSmem, s>>>(
-      q, static_cast<const bf16*>(kv), tab, q_offsets, kv_lens, out, T, Hq,
-      Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
-  return static_cast<int>(cudaGetLastError());
+  if (kv_dtype == 1)
+    return static_cast<int>(launch_mma<bf16>(q, kv, tab, q_offsets, kv_lens,
+                                              out, B, T, Hq, Hkv, NP, page, NB,
+                                              bpp, sm_scale, q_bf16, s));
+  if (kv_dtype == 2)
+    return static_cast<int>(launch_mma<__nv_fp8_e4m3>(
+        q, kv, tab, q_offsets, kv_lens, out, B, T, Hq, Hkv, NP, page, NB, bpp,
+        sm_scale, q_bf16, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,10 +6,11 @@
 // quest_tpu/ops/fused_decode.py:_kernel): for a KV head's G query rows,
 //   score[p] = agg_g( relu(q_g) . k_max[p] + min(q_g, 0) . k_min[p] )
 // with relu(q) and min(q, 0) taken in f32 and rounded to the metadata
-// dtype M before the products (as both JAX kernels cast them), products
-// accumulated in f32, agg = max or sum over the G rows. A "team" of lanes
-// reads one page's two metadata rows with one 16-byte load per lane each
-// (16 lanes in bf16, 32 in f32) and reduces by shuffles.
+// dtype M (bf16 for fp8 metadata) before the products (as both JAX
+// kernels cast them), products accumulated in f32, agg = max or sum over
+// the G rows. A "team" of lanes reads one page's two metadata rows with
+// one 16-byte load per lane each (8 lanes in fp8, 16 in bf16, 32 in f32)
+// and reduces by shuffles.
 //
 // Selection (quest_tpu/ops/fused_decode.py:_exact_topk_select and
 // _compact_ids): scores map to order-preserving unsigned keys (the JAX
@@ -33,8 +34,8 @@ constexpr unsigned kKeyPosInf = 0xff800000u;  // order_key(+inf)
 // dims [c * CH, c * CH + CH) of each of the G rows, c = lane % kLanes.
 template <typename M, int G>
 struct SplitQuery {
-  static constexpr int CH = Elem<M>::kPerChunk;  // 8 bf16, 4 f32
-  static constexpr int kLanes = kHeadDim / CH;   // lanes a page: 16 or 32
+  static constexpr int CH = Elem<M>::kPerChunk;  // 16 fp8, 8 bf16, 4 f32
+  static constexpr int kLanes = kHeadDim / CH;   // lanes a page: 8, 16, 32
   float pos[G][CH], neg[G][CH];
 
   // q: [.., G, D] bf16 or f32; base: element offset of the group's row 0.

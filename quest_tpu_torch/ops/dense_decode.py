@@ -14,7 +14,8 @@ import torch
 
 from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops.utils import (MASK_VALUE, check_pool_dtype,
-                                      kernel_query, scaled_query)
+                                      compute_dtype, kernel_query,
+                                      scaled_query, to_f32)
 
 # Tokens per CTA split (32 pages at page 16).
 SPLIT_TOKENS = 512
@@ -23,8 +24,10 @@ SPLIT_TOKENS = 512
 def dense_decode_attention_plain(q, kv_pages, seq_lens, *, sm_scale: float,
                                  layer: int, block_tab, block_pages: int):
     """Eager version: gather every logical page of each slot through the
-    block table, mask tokens >= seq_len, one-pass softmax in f32, p cast
-    to the pool dtype before PV. q [B, Hq, D] -> [B, Hq, D] f32."""
+    block table, mask tokens >= seq_len, one-pass softmax in f32, p
+    rounded to the compute dtype (the pool's, bf16 for an fp8 pool) before
+    PV; fp8 pages are read through ``upcast_fp8``. q [B, Hq, D] ->
+    [B, Hq, D] f32."""
     B, Hq, D = q.shape
     kvl = kv_pages[layer]                            # [Hkv, NP, 2, page, D]
     Hkv, page = kvl.shape[0], kvl.shape[-2]
@@ -38,14 +41,15 @@ def dense_decode_attention_plain(q, kv_pages, seq_lens, *, sm_scale: float,
     sel = kvl[:, phys]                               # [Hkv, B, P, 2, page, D]
     k = sel[:, :, :, 0].reshape(Hkv, B, P * page, D).transpose(0, 1)
     v = sel[:, :, :, 1].reshape(Hkv, B, P * page, D).transpose(0, 1)
-    s = torch.einsum("bkgd,bktd->bkgt", qs, k.float())
+    s = torch.einsum("bkgd,bktd->bkgt", qs, to_f32(k))
     valid = (torch.arange(P * page, device=dev)[None, :]
              < seq_lens.long()[:, None])[:, None, None, :]
     s = torch.where(valid, s, torch.full_like(s, MASK_VALUE))
     p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)),
                     torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bkgt,bktd->bkgd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bkgt,bktd->bkgd", p.to(compute_dtype(v.dtype)).float(),
+                     to_f32(v))
     o = torch.where(l > 0, o / l, torch.zeros_like(o))
     return o.reshape(B, Hq, D)
 
@@ -55,12 +59,12 @@ def dense_decode_attention(q, kv_pages, seq_lens, *, sm_scale: float,
     """Decode attention over every cached token of each slot.
 
     q: [B, Hq, D] un-scaled query; kv_pages: the whole-model shared pool
-    [L, Hkv, NP, 2, page, D] (bf16 or f32), read at ``layer``;
+    [L, Hkv, NP, 2, page, D] (f32, bf16 or fp8 e4m3), read at ``layer``;
     seq_lens: [B] tokens per slot including the current one; block_tab
     [B, NB] int32; block_pages: pages per allocation block.
     Returns [B, Hq, D] f32.
     """
-    check_pool_dtype(kv_pages.dtype)
+    kv_code = check_pool_dtype(kv_pages.dtype)
     if not q.is_cuda:
         return dense_decode_attention_plain(
             q, kv_pages, seq_lens, sm_scale=sm_scale, layer=layer,
@@ -93,7 +97,7 @@ def dense_decode_attention(q, kv_pages, seq_lens, *, sm_scale: float,
         _build.ptr(qk), _build.ptr(kv_pages[layer]), _build.ptr(tab),
         _build.ptr(lens), _build.ptr(part_o), _build.ptr(part_ml),
         _build.ptr(out), B, Hkv, G, NP, page, NB, block_pages, nsplit,
-        per_split, int(kv_pages.dtype == torch.bfloat16), sm_scale,
+        per_split, kv_code, sm_scale,
         int(qk.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(lib, code, "dense_decode")
     dense_decode_attention.launches += 1

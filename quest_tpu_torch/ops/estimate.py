@@ -24,8 +24,8 @@ import torch
 
 from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops.utils import (check_kernel_operands,
-                                      check_pool_dtype, kernel_query,
-                                      meta_compute_dtype)
+                                      check_pool_dtype, compute_dtype,
+                                      kernel_query, to_f32)
 
 
 def _group_scores(q: torch.Tensor, k_max: torch.Tensor,
@@ -107,12 +107,14 @@ def page_scores_kernel_plain(q: torch.Tensor, k_max: torch.Tensor,
     :func:`page_scores` in one place: relu(q) and min(q, 0) are rounded
     to the metadata dtype (bf16 for bf16 or fp8 metadata, f32 for f32)
     before the products, as the JAX kernel casts them, where
-    :func:`page_scores` keeps q in f32. Products accumulate in f32."""
+    :func:`page_scores` keeps q in f32. Products accumulate in f32;
+    fp8 metadata is read through ``upcast_fp8``, as the JAX kernel reads
+    it (denormals flush to zero)."""
     if layer is not None:
         k_max, k_min = k_max[layer], k_min[layer]
-    qp, qn = split_query(q, k_max.shape[1], meta_compute_dtype(k_max.dtype))
-    s = (torch.einsum("bkgd,bkpd->bkgp", qp, k_max.float())
-         + torch.einsum("bkgd,bkpd->bkgp", qn, k_min.float()))
+    qp, qn = split_query(q, k_max.shape[1], compute_dtype(k_max.dtype))
+    s = (torch.einsum("bkgd,bkpd->bkgp", qp, to_f32(k_max))
+         + torch.einsum("bkgd,bkpd->bkgp", qn, to_f32(k_min)))
     return _aggregate(s, group_agg)
 
 
@@ -131,7 +133,7 @@ def page_scores_kernel(q: torch.Tensor, k_max: torch.Tensor,
         return page_scores_kernel_plain(q, k_max, k_min, group_agg, layer)
     if layer is not None:
         k_max, k_min = k_max[layer], k_min[layer]
-    check_pool_dtype(k_max.dtype, "page metadata")
+    meta_code = check_pool_dtype(k_max.dtype, "page metadata")
     if k_min.dtype != k_max.dtype or k_min.shape != k_max.shape:
         raise ValueError("k_max and k_min must share dtype and shape")
     B, Hkv, P, _ = k_max.shape
@@ -141,7 +143,7 @@ def page_scores_kernel(q: torch.Tensor, k_max: torch.Tensor,
     lib = _build.load("estimate")
     code = lib.estimate_launch(
         _build.ptr(qk), _build.ptr(k_max), _build.ptr(k_min), _build.ptr(out),
-        B, Hkv, G, P, int(k_max.dtype == torch.bfloat16),
+        B, Hkv, G, P, meta_code,
         int(group_agg == "sum"), int(qk.dtype == torch.bfloat16),
         _build.stream_of(q))
     _build.check(lib, code, "estimate")

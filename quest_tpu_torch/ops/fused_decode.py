@@ -22,8 +22,8 @@ import torch
 from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops.estimate import page_scores_kernel_plain
 from quest_tpu_torch.ops.utils import (MASK_VALUE, check_kernel_operands,
-                                      check_pool_dtype, kernel_query,
-                                      meta_compute_dtype)
+                                      check_pool_dtype, compute_dtype,
+                                      kernel_query)
 
 # Selection slots the CUDA kernel holds (the model's gate: page_budget
 # <= 256).
@@ -150,7 +150,7 @@ def fused_sparse_decode_plain(q, kv_pages, k_max, k_min, seq_lens, *,
     ids = ids.reshape(B, Hkv, K).long()
     num_valid = num_valid.reshape(B, Hkv)[:, 0].long()
 
-    cdt = meta_compute_dtype(k_max.dtype)
+    cdt = compute_dtype(k_max.dtype)
     qa = q.float().to(cdt).float().reshape(B, Hkv, G, D)
     sel_phys = torch.gather(phys, 1, ids.reshape(B, -1)).reshape(B, Hkv, K)
     sel = kvl[torch.arange(Hkv, device=dev)[None, :, None], sel_phys]
@@ -194,8 +194,11 @@ def fused_sparse_decode(q, kv_pages, k_max, k_min, seq_lens, *,
     if not q.is_cuda:
         return fused_sparse_decode_plain(q, kv_pages, k_max, k_min, seq_lens,
                                          **kw)
-    check_pool_dtype(kv_pages.dtype)
-    check_pool_dtype(k_max.dtype, "page metadata")
+    if max(check_pool_dtype(kv_pages.dtype),
+           check_pool_dtype(k_max.dtype, "page metadata")) > 1:
+        raise NotImplementedError(
+            "the fused kernel takes bf16 or f32 pools and metadata; "
+            "QuestConfig refuses fp8 with fused_decode=True")
     if k_min.dtype != k_max.dtype or k_min.shape != k_max.shape:
         raise ValueError("k_max and k_min must share dtype and shape")
     K = budget_pages

@@ -2,8 +2,8 @@
 ``quest_tpu/ops/prefill.py``).
 
 On a CUDA tensor :func:`prefill_attention` launches the hand-written
-kernel ``csrc/prefill.cu`` (tensor-core MMA for bf16 pools, FMA for f32
-pools); on a CPU tensor it runs
+kernel ``csrc/prefill.cu`` (tensor-core MMA for bf16 and fp8 e4m3
+pools, FMA for f32 pools); on a CPU tensor it runs
 :func:`prefill_attention_plain`, the same function in eager PyTorch.
 """
 
@@ -13,15 +13,18 @@ import torch
 
 from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops.utils import (MASK_VALUE, check_pool_dtype,
-                                      kernel_query, scaled_query)
+                                      compute_dtype, kernel_query,
+                                      scaled_query, to_f32)
 
 
 def prefill_attention_plain(q, kv_pages, q_offsets, kv_lens, *,
                             sm_scale: float, layer: int, block_tab,
                             block_pages: int):
     """Eager version: every logical token of the slot through the block
-    table, causal and length mask, one-pass softmax in f32, p cast to
-    the pool dtype before PV; one KV head at a time to bound memory.
+    table, causal and length mask, one-pass softmax in f32, p rounded to
+    the compute dtype (the pool's, bf16 for an fp8 pool) before PV, fp8
+    pages read through ``upcast_fp8``; one KV head at a time to bound
+    memory.
     A row with no key at all (kv_len == 0) gives zeros."""
     B, T, Hq, D = q.shape
     kvl = kv_pages[layer]                            # [Hkv, NP, 2, page, D]
@@ -44,12 +47,13 @@ def prefill_attention_plain(q, kv_pages, q_offsets, kv_lens, *,
         k = sel[:, :, 0].reshape(B, P * page, D)
         v = sel[:, :, 1].reshape(B, P * page, D)
         qh = qs[:, :, h * G:(h + 1) * G].permute(0, 2, 1, 3)   # [B,G,T,D]
-        s = torch.einsum("bgqd,btd->bgqt", qh, k.float())
+        s = torch.einsum("bgqd,btd->bgqt", qh, to_f32(k))
         s = torch.where(valid, s, torch.full_like(s, MASK_VALUE))
         p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)),
                         torch.zeros_like(s))
         l = p.sum(dim=-1, keepdim=True)
-        o = torch.einsum("bgqt,btd->bgqd", p.to(v.dtype).float(), v.float())
+        o = torch.einsum("bgqt,btd->bgqd",
+                         p.to(compute_dtype(v.dtype)).float(), to_f32(v))
         o = torch.where(l > 0, o / l, torch.zeros_like(o))
         out[:, :, h * G:(h + 1) * G] = o.permute(0, 2, 1, 3)
     return out
@@ -65,7 +69,7 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
     kv_lens: [B] = q_offsets + real new length; block_tab [B, NB].
     Returns [B, T, Hq, D] f32.
     """
-    check_pool_dtype(kv_pages.dtype)
+    kv_code = check_pool_dtype(kv_pages.dtype)
     if not q.is_cuda:
         return prefill_attention_plain(
             q, kv_pages, q_offsets, kv_lens, sm_scale=sm_scale, layer=layer,
@@ -91,7 +95,7 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
         _build.ptr(qk), _build.ptr(kv_pages[layer]), _build.ptr(tab),
         _build.ptr(offs), _build.ptr(lens), _build.ptr(out), B, T, Hq, Hkv,
         NP, page, tab.shape[1], block_pages,
-        int(kv_pages.dtype == torch.bfloat16), sm_scale,
+        kv_code, sm_scale,
         int(qk.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(lib, code, "prefill")
     prefill_attention.launches += 1

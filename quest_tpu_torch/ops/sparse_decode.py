@@ -13,11 +13,13 @@ import torch
 
 from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops.utils import (MASK_VALUE, check_pool_dtype,
-                                      kernel_query, scaled_query)
+                                      compute_dtype, kernel_query,
+                                      scaled_query, to_f32)
 
-# Selection slots per CTA split: 128 tokens at page 16, so the 128-slot
-# selection of Llama-3.1-8B is 2 x 8 x 16 = 256 CTAs at B=2.
-SPLIT_SLOTS = 8
+# Tokens per CTA split: 8 selection slots at page 16 and 4 at page 32,
+# so a 2048-token budget of Llama-3.1-8B is 2 x 8 x 16 = 256 CTAs at B=2
+# at either page size.
+SPLIT_TOKENS = 128
 
 
 def _selection_shape(q, kv_pages, indices, per_q_head: bool):
@@ -39,7 +41,8 @@ def sparse_decode_attention_plain(q, kv_pages, indices, num_valid, seq_lens,
                                   block_pages: int, per_q_head: bool = False):
     """Eager version: gather the selected logical pages through the block
     table, mask slots >= num_valid and tokens >= seq_len, one-pass
-    softmax in f32, p cast to the pool dtype before PV."""
+    softmax in f32, p rounded to the compute dtype (the pool's, bf16 for
+    an fp8 pool) before PV; fp8 pages are read through ``upcast_fp8``."""
     B, Hq, D = q.shape
     kvl = kv_pages[layer]                            # [Hkv, NP, 2, page, D]
     page = kvl.shape[-2]
@@ -55,7 +58,7 @@ def sparse_decode_attention_plain(q, kv_pages, indices, num_valid, seq_lens,
     sel = kvl[hk, phys]                              # [B, Hsel, S, 2, page, D]
     k = sel[:, :, :, 0].reshape(B, Hsel, S * page, D)
     v = sel[:, :, :, 1].reshape(B, Hsel, S * page, D)
-    s = torch.einsum("bhgd,bhtd->bhgt", qs, k.float())
+    s = torch.einsum("bhgd,bhtd->bhgt", qs, to_f32(k))
     slot = torch.arange(S, device=dev)[None, None, :, None]
     entry = torch.arange(page, device=dev)[None, None, None, :]
     valid = ((slot < num_valid.long()[:, None, None, None])
@@ -66,7 +69,8 @@ def sparse_decode_attention_plain(q, kv_pages, indices, num_valid, seq_lens,
     p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)),
                     torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgt,bhtd->bhgd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bhgt,bhtd->bhgd", p.to(compute_dtype(v.dtype)).float(),
+                     to_f32(v))
     o = torch.where(l > 0, o / l, torch.zeros_like(o))
     return o.reshape(B, Hq, D)
 
@@ -77,14 +81,15 @@ def sparse_decode_attention(q, kv_pages, indices, num_valid, seq_lens, *,
     """Decode attention over the selected pages.
 
     q: [B, Hq, D] un-scaled query; kv_pages: the whole-model shared pool
-    [L, Hkv, NP, 2, page, D] (bf16 or f32) read at ``layer``; indices:
+    [L, Hkv, NP, 2, page, D] (f32, bf16 or fp8 e4m3) read at ``layer``;
+    indices:
     [B, Hkv, S] int32 selected LOGICAL page ids ([B, Hq, S] when
     ``per_q_head``), valid slots distinct, slots >= num_valid junk but
     in range (``select_pages`` guarantees both); num_valid: [B];
     seq_lens: [B] including the current token; block_tab [B, NB].
     Returns [B, Hq, D] f32.
     """
-    check_pool_dtype(kv_pages.dtype)
+    kv_code = check_pool_dtype(kv_pages.dtype)
     if not q.is_cuda:
         return sparse_decode_attention_plain(
             q, kv_pages, indices, num_valid, seq_lens, sm_scale=sm_scale,
@@ -104,7 +109,8 @@ def sparse_decode_attention(q, kv_pages, indices, num_valid, seq_lens, *,
         raise ValueError("kv_pages must be contiguous")
     S = indices.shape[-1]
     NB = block_tab.shape[1]
-    nsplit = -(-S // SPLIT_SLOTS)
+    per_split = max(1, SPLIT_TOKENS // page)        # slots a split
+    nsplit = -(-S // per_split)
     qk = kernel_query(q)
     idx = indices.to(torch.int32).contiguous()
     nv = num_valid.to(torch.int32).contiguous()
@@ -121,7 +127,7 @@ def sparse_decode_attention(q, kv_pages, indices, num_valid, seq_lens, *,
         _build.ptr(lens), _build.ptr(idx), _build.ptr(nv),
         _build.ptr(part_o), _build.ptr(part_ml), _build.ptr(out),
         B, Hsel, G, kvdiv, NP, page, NB, block_pages, S, nsplit,
-        SPLIT_SLOTS, int(kv_pages.dtype == torch.bfloat16), sm_scale,
+        per_split, kv_code, sm_scale,
         int(qk.dtype == torch.bfloat16), _build.stream_of(q))
     _build.check(lib, code, "sparse_decode")
     sparse_decode_attention.launches += 1

@@ -23,35 +23,61 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def upcast_fp8(x: torch.Tensor) -> torch.Tensor:
+    """fp8 e4m3 -> bf16 by the JAX kernels' integer recipe
+    (``quest_tpu/ops/pallas_utils.py:upcast_fp8``), bit for bit:
+    ``bf16 bits = sign * 256 + (em < 8 ? 0 : em * 16 + (120 << 7))`` with
+    ``em`` the exponent and mantissa bits. Denormals flush to (signed)
+    zero and the NaN codes map to 480. A plain ``.float()`` keeps e4m3
+    denormals and so differs from the kernels."""
+    u = x.view(torch.uint8).to(torch.int32)
+    em = u & 0x7F
+    # The same bits widened to f32: the mantissa lands at bit 20 and the
+    # exponent is rebiased by 120; the sign is bit 31.
+    bits = (torch.where(em < 8, 0, em * (1 << 20) + (120 << 23))
+            + torch.where(u >= 0x80, -(1 << 31), 0)).to(torch.int32)
+    return bits.view(torch.float32).to(torch.bfloat16)  # exact: 3-bit mantissa
+
+
+def to_f32(x: torch.Tensor) -> torch.Tensor:
+    """Pool or metadata values as the kernels read them, in f32: fp8
+    through :func:`upcast_fp8`, other dtypes by a plain cast."""
+    return (upcast_fp8(x) if x.dtype == torch.float8_e4m3fn else x).float()
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype q and p are rounded to before the products with a pool
+    or metadata of ``dtype``: its own, or bf16 below 16 bits (the JAX
+    kernels never round q or p to fp8)."""
+    return dtype if dtype.itemsize >= 2 else torch.bfloat16
+
+
 def scaled_query(q: torch.Tensor, sm_scale: float,
                  dtype: torch.dtype) -> torch.Tensor:
-    """q arrives un-scaled: scale in f32, then cast to the pool dtype
-    before QK, as the JAX kernels do."""
-    return (q.float() * sm_scale).to(dtype)
+    """q arrives un-scaled: scale in f32, then round to the compute
+    dtype of a pool of ``dtype`` before QK, as the JAX kernels do."""
+    return (q.float() * sm_scale).to(compute_dtype(dtype))
 
 
 def kernel_query(q: torch.Tensor) -> torch.Tensor:
     """The query as the CUDA kernels read it: bf16 or f32, contiguous,
-    un-scaled (the kernels scale it in f32 and round it to the pool
+    un-scaled (the kernels scale it in f32 and round it to the compute
     dtype, as :func:`scaled_query` does)."""
     return (q if q.dtype == torch.bfloat16 else q.float()).contiguous()
 
 
-def check_pool_dtype(dtype: torch.dtype, what: str = "KV pool") -> None:
-    """The kernels take bf16 or f32 pools and metadata; fp8 comes with
-    the fp8 slice."""
-    if dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
-        raise NotImplementedError(
-            f"fp8 {what}s are not ported yet (they need the upcast_fp8 "
-            "device helper)")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"unsupported {what} dtype {dtype}")
+# The element type code the kernels' C entry points take.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 
-def meta_compute_dtype(meta_dtype: torch.dtype) -> torch.dtype:
-    """The dtype the metadata products run in: the metadata's own, or
-    bf16 below 16 bits (the JAX kernels never round q to fp8)."""
-    return meta_dtype if meta_dtype.itemsize >= 2 else torch.bfloat16
+def check_pool_dtype(dtype: torch.dtype, what: str = "KV pool") -> int:
+    """The kernels take f32, bf16 or fp8 e4m3 pools and metadata (fp8
+    read through the :func:`upcast_fp8` recipe, which is e4m3's only).
+    Returns the dtype's code for the C entry points."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"unsupported {what} dtype {dtype} (f32, bf16 or "
+                        "float8_e4m3fn)")
+    return DTYPE_CODES[dtype]
 
 
 def check_kernel_operands(q: torch.Tensor, Hkv: int, *tensors) -> int:

@@ -178,8 +178,12 @@ def test_port_imports_no_jax():
     code = ("import sys, quest_tpu_torch, quest_tpu_torch.config, "
             "quest_tpu_torch.kv, quest_tpu_torch.ops, quest_tpu_torch.models, "
             "quest_tpu_torch.engine, quest_tpu_torch.ops._build, "
-            "quest_tpu_torch.ops.estimate, quest_tpu_torch.ops.fused_decode; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
+            "quest_tpu_torch.ops.estimate, quest_tpu_torch.ops.fused_decode, "
+            "quest_tpu_torch.utils.benchmarking, "
+            "quest_tpu_torch.ops.copy_probe, quest_tpu_torch.ops.select_pieces, "
+            "quest_tpu_torch.exp.dma_probe, quest_tpu_torch.exp.gather_ab, "
+            "quest_tpu_torch.exp.select_compile2; "
+            "bad = [m for m in sys.modules if m in ('jax', 'quest_tpu') or "
             "m.startswith(('jax.', 'quest_tpu.'))]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

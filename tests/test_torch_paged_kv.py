@@ -22,8 +22,13 @@ from quest_tpu_torch.kv import paged_kv as tkv
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
 
-DTYPES = {"f32": (jnp.float32, torch.float32),
-          "bf16": (jnp.bfloat16, torch.bfloat16)}
+# name: (JAX KV dtype, torch KV dtype, metadata dtype name or None).
+# fp8 e4m3 as the serving configuration stores it: fp8 metadata over a
+# bf16 pool, and the fp8 KV option.
+DTYPES = {"f32": (jnp.float32, torch.float32, None),
+          "bf16": (jnp.bfloat16, torch.bfloat16, None),
+          "bf16_fp8meta": (jnp.bfloat16, torch.bfloat16, "float8_e4m3fn"),
+          "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn, None)}
 
 
 def _np(x):
@@ -48,12 +53,14 @@ def _assert_same(jc, tc, bpp):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_append_sequence_matches_jax_bitwise(dtype):
-    jdt, tdt = DTYPES[dtype]
+    jdt, tdt, meta = DTYPES[dtype]
     B, H, D, page, bpp, L = 3, 2, 16, 8, 4, 2      # 32-token blocks
     jquest = JQuestConfig(page_size=page, max_seq_len=256, block_pages=bpp,
-                          kv_dtype=jdt)
+                          kv_dtype=jdt,
+                          meta_dtype=meta and getattr(jnp, meta))
     tquest = QuestConfig(page_size=page, max_seq_len=256, block_pages=bpp,
-                         kv_dtype=tdt)
+                         kv_dtype=tdt,
+                         meta_dtype=meta and getattr(torch, meta))
     jc = jkv.init_cache(JModelConfig(num_kv_heads=H, num_heads=H, head_dim=D),
                         jquest, batch_size=B, num_layers=L)
     tc = tkv.init_cache(ModelConfig(num_kv_heads=H, num_heads=H, head_dim=D),
