@@ -87,20 +87,31 @@ struct Elem<__nv_fp8_e4m3> {
   }
 };
 
+// Four fp8 e4m3 values (one word) as four bf16 values by the recipe above,
+// all four lanes at once: lo holds elements 0, 1, hi elements 2, 3.
+// Bitwise equal to fp8_e4m3_bf16_bits on every code: a byte's em is kept
+// where em + 0x78 carries into bit 7 (em >= 8); each kept lane gets the
+// bias 120 << 7 = 0x3C00 and every lane its sign at bit 15.
+__device__ __forceinline__ void fp8x4_to_bf16(unsigned w, unsigned& lo,
+                                              unsigned& hi) {
+  unsigned em = w & 0x7F7F7F7Fu;
+  const unsigned keep = ((em + 0x78787878u) & 0x80808080u) >> 7;
+  const unsigned mask = keep * 0xFFu;                 // 0xFF per kept byte
+  em &= mask;
+  const unsigned sb = (w & 0x80808080u) | (mask & 0x3C3C3C3Cu);
+  // __byte_perm(x, 0, s): bytes of x (0-3) or zeros (4) into a word.
+  lo = (__byte_perm(em, 0, 0x4140) << 4) + __byte_perm(sb, 0, 0x1404);
+  hi = (__byte_perm(em, 0, 0x4342) << 4) + __byte_perm(sb, 0, 0x3424);
+}
+
 // 16 fp8 e4m3 values (one 16-byte chunk) as 16 bf16 values by the recipe
 // above: lo holds elements 0..7, hi elements 8..15.
 __device__ __forceinline__ void fp8x16_to_bf16(const uint4& raw, uint4& lo,
                                                uint4& hi) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-  unsigned h[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const unsigned word = w[k / 2] >> (16 * (k % 2));
-    h[k] = fp8_e4m3_bf16_bits(word & 0xFFu) |
-           (fp8_e4m3_bf16_bits((word >> 8) & 0xFFu) << 16);
-  }
-  lo = make_uint4(h[0], h[1], h[2], h[3]);
-  hi = make_uint4(h[4], h[5], h[6], h[7]);
+  fp8x4_to_bf16(raw.x, lo.x, lo.y);
+  fp8x4_to_bf16(raw.y, lo.z, lo.w);
+  fp8x4_to_bf16(raw.z, hi.x, hi.y);
+  fp8x4_to_bf16(raw.w, hi.z, hi.w);
 }
 
 // The element type a kernel keeps a pool's tiles in, in shared memory:
@@ -152,6 +163,49 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Shared-memory mbarriers (sm_90).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits for the phase of the given parity; traps (an error the host
+// sees, not a hang) if it has not completed after ~10 s.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
 }
 
 // Element offset of token ``e`` of physical page ``phys`` (K row; the V

@@ -37,40 +37,6 @@ constexpr int kRows = 8 * 128;  // x[page, :8, :], elements
 constexpr int kMaxSlots = 8;
 constexpr int kMaxSem = 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits for the phase of the given parity; traps (an error the host
-// sees, not a hang) if it has not completed after ~10 s.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
 __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
                                          uint32_t bytes, uint64_t* bar) {
   asm volatile(
@@ -121,7 +87,7 @@ __global__ void __launch_bounds__(kThreads) copy_probe_kernel(ProbeArgs a) {
 
   if (tid == 0) {
     for (int i = 0; i < a.nslot * a.nsem; ++i)
-      bar_init(&bars[(i / a.nsem) * kMaxSem + i % a.nsem]);
+      bar_init(&bars[(i / a.nsem) * kMaxSem + i % a.nsem], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();

@@ -13,35 +13,50 @@
 // Bound on the H100: operations. Causal attention of T = 2048 fresh
 // queries of Llama-3.1-8B (32 query heads, D = 128) is about
 // 4 * 32 * 128 * 2048 * 1024 = 34 GFLOP, against 989 TFLOP/s of bf16
-// tensor cores. The un-scaled q (bf16 or f32) is multiplied by the
-// softmax scale in f32 and rounded to bf16 as it is loaded, as the JAX
-// wrapper does before its kernel. The design keeps the tensor cores
-// fed the way FlashAttention-2 does, with warp-level MMA (mma.sync
-// m16n8k16, bf16 in, f32 accumulate): one CTA of 4 warps takes 64
-// query rows of one head (16 a warp, held as MMA fragments in
-// registers); 64-token K/V tiles stream through two shared-memory
-// buffers with cp.async, the next tile loading while the current one
-// is multiplied; S = Q K^T, the online softmax and O += P V all stay in
-// registers (the S accumulators are re-packed as the bf16 A operand of
-// the PV product, which is where p is rounded to bf16 as the JAX kernel
-// rounds it).
-// Tiles past the causal bound of the CTA's last row are never loaded.
-// Left for later: wgmma/TMA, and sharing a K/V tile across the G query
-// heads of a group.
+// tensor cores (NVIDIA H100 SXM data sheet, 700 W).
+//
+// bf16 and fp8 e4m3 pools: prefill_tma_kernel, built for Hopper.
+// - One CTA owns (KV head, batch row, query tile). Its kM = 128 rows are
+//   128 / G query positions x the G query heads of the KV head (row r:
+//   position i0 + r / G, head r % G), so every K/V tile reaches shared
+//   memory once for the whole GQA group. G is 1, 2, 4 or 8.
+// - One producer warp loads each 128-token K/V tile by TMA, one box a
+//   page and 64-column half (128-byte swizzle, as wgmma reads it), from a
+//   tensor map over the layer's pool seen as rows of 128 elements
+//   [Hkv * NP * 2 * page, 128]; lane p reads the block table for page p
+//   of the tile one tile ahead. Pages past the CTA's causal bound or the
+//   block table are loaded from past the map's last row, which TMA fills
+//   with zeros, so no tile holds stale values and no table entry past
+//   NB * bpp is read; keys past the table are masked (kv_len is clamped
+//   to NB * bpp * page). Tiles past the causal bound are never loaded.
+// - Tiles sit in a ring of three stages (two over fp8), with full and
+//   empty mbarriers.
+// - Two consumer warpgroups of 64 rows each (setmaxnreg moves registers
+//   from the producer to them): S = Q K^T by wgmma with both operands in
+//   swizzled shared memory, the online softmax in registers (the causal
+//   and length mask only on the tiles that need it), P re-packed from
+//   the S accumulators as wgmma's register A operand (rounded to bf16
+//   there, as the JAX kernel rounds p), O += P V with V as the
+//   transposed (MN-major) B operand.
+// - q arrives unscaled; each consumer multiplies its 64 rows by the
+//   softmax scale in f32 and rounds them to bf16 as it stores them.
+// - fp8 pools: TMA brings each fp8 tile into one of two staging buffers;
+//   the producer warpgroup widens it with the upcast_fp8 recipe
+//   (fp8x16_to_bf16, common.cuh) into the swizzled bf16 ring, a pipeline
+//   stage of its own, so the widening of tile j + 1 overlaps the products
+//   of tile j. q and p stay bf16 (the JAX contract), so fp8 wgmma is not
+//   used.
+// - Heaviest (latest) query tiles launch first.
+// Left for later: overlapping one warpgroup's softmax with the other's
+// products by explicit scheduling, and a persistent grid.
 //
 // f32 pools (off the serving path, which keeps bf16 KV) take a plain
 // FMA kernel, prefill_f32_kernel: the contract there is f32 products
 // throughout, which bf16 tensor cores cannot keep.
-//
-// fp8 e4m3 pools (the serving configuration's capacity option) take the
-// MMA kernel too: each fp8 K/V tile arrives by cp.async in one of two
-// staging buffers (half the bytes of a bf16 tile), and the CTA converts
-// it with the upcast_fp8 recipe (common.cuh) into the one bf16 tile the
-// MMA fragments read, before the products. The staging buffers carry the
-// double buffering, so the bf16 tile needs no second copy and the CTA
-// fits in 83 KB of shared memory, two CTAs an SM as in bf16. The JAX
-// kernel upcasts the same way, so q and p stay bf16. Overlapping the
-// conversion with the MMAs is left for later.
+#include <cuda.h>  // CUtensorMap and its enums; the driver entry point is
+                   // found at run time (cudaGetDriverEntryPoint), no -lcuda
+#include <string.h>
+
 #include "common.cuh"
 
 namespace {
@@ -49,70 +64,49 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kD = 128;
-constexpr int kBQ = 64;              // query rows per CTA
-constexpr int kBK = 64;              // tokens per K/V tile
-constexpr int kThreads = 128;        // 4 warps x 16 query rows
-constexpr int kStride = kD + 8;      // padded smem row: ldmatrix rows of
-                                     // one 8x8 matrix hit distinct banks
-constexpr int kCPR = kD / 8;         // 16-byte chunks per row
-constexpr int kTile = kBK * kStride; // elements of one K or V buffer
-constexpr size_t kStage = kBK * kD;  // bytes of one fp8 K or V tile
 
-// Shared memory of the MMA kernel: the Q tile, K and V tiles (two of
-// each for bf16, one each for fp8), and for fp8 two staging buffers of
-// [K tile, V tile].
-template <typename KV>
-constexpr size_t mma_smem() {
-  return sizeof(KV) == 1
-             ? (kBQ * kStride + 2 * kTile) * sizeof(bf16) + 4 * kStage
-             : (kBQ * kStride + 4 * kTile) * sizeof(bf16);
+// ---------------------------------------------------------------------------
+// bf16 and fp8 pools: TMA + wgmma.
+// ---------------------------------------------------------------------------
+
+constexpr int kM = 128;                      // query rows a CTA
+constexpr int kBK = 128;                     // tokens a K/V tile
+// K/V ring depth: three bf16 stages (2-4% faster than two on an H100 80GB
+// HBM3 at 700 W, PERF.md); fp8 pools two, beside two fp8 staging buffers
+// (224 KB of shared memory either way).
+__host__ __device__ constexpr int ring_stages(bool fp8) {
+  return fp8 ? 2 : 3;
+}
+constexpr int kConsumers = 2;                // warpgroups of 64 rows
+constexpr int kTmaThreads = (kConsumers + 1) * 128;
+constexpr int kProducerRegs = 56;            // 128 * 56 + 256 * 224 <= 64 K
+constexpr int kConsumerRegs = 224;
+constexpr int kHalf = kBK * 64 * 2;          // one 64-column bf16 half tile
+constexpr int kTile = 2 * kHalf;             // one bf16 K or V tile, 32 KB
+constexpr int kStage = 2 * kTile;            // K and V
+constexpr int kQBytes = kM * kD * 2;         // the bf16 Q tile, 32 KB
+constexpr int kTile8 = kBK * kD;             // one fp8 K or V tile, 16 KB
+constexpr int kStage8 = 2 * kTile8;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <bool kFp8>
+constexpr size_t tma_smem() {
+  constexpr int kStages = ring_stages(kFp8);
+  return 1024 /* alignment slack */ + kQBytes + kStages * kStage +
+         (kFp8 ? kStages * kStage8 : 0) + 3 * kStages * sizeof(uint64_t);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; a false predicate zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct TmaArgs {
+  const void* q;             // [B, T, Hq, D] bf16 or f32, un-scaled
+  const int* tab;            // [B, NB]
+  const int* q_offsets;      // [B]
+  const int* kv_lens;        // [B]
+  float* out;                // [B, T, Hq, D]
+  int T, Hq, G, NP, page, NB, bpp;
+  int rows;                  // rows of the tensor map: Hkv * NP * 2 * page
+  float sm_scale;
+  int q_bf16;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -139,218 +133,353 @@ __device__ __forceinline__ uint4 load_q8(const void* q, int64_t at, int q_bf16,
                     pack_bf16(x[6] * sm_scale, x[7] * sm_scale));
 }
 
-// KV: the pool's element type, bf16 or fp8 e4m3.
-template <typename KV>
-__global__ void __launch_bounds__(kThreads)
-prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kv,
-               const int* __restrict__ tab, const int* __restrict__ q_offsets,
-               const int* __restrict__ kv_lens, float* __restrict__ out,
-               int T, int Hq, int G, int NP, int page, int NB, int bpp,
-               float sm_scale, int q_bf16) {
-  constexpr bool kFp8 = sizeof(KV) == 1;
-  constexpr int CH = 16 / sizeof(KV);   // pool elements per 16-byte chunk
-  constexpr int CPR = kD / CH;         // chunks per pool row
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kBQ * kStride;       // two K buffers, then two V buffers
-  constexpr int kBufs = kFp8 ? 1 : 2;  // bf16 K (and V) tiles
-  bf16* vs = ks + kBufs * kTile;
-  // fp8 only: two staging buffers of [K tile, V tile], unpadded rows.
-  unsigned char* stage = reinterpret_cast<unsigned char*>(vs + kBufs * kTile);
+// One box of the tensor map (columns x.., rows y..) into shared memory,
+// completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_u32(bar))
+      : "memory");
+}
 
-  // Heaviest (latest) query tiles first: they stream the most K/V.
-  const int i0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int hq = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;  // MMA fragment row / column pair
-  const int h_kv = hq / G;
-  const int offset = q_offsets[b];
-  const int kv_len = kv_lens[b];
-  const int max_tok = NB * bpp * page;
-  const int hi = min(offset + i0 + kBQ, kv_len);
+// 2^x on the special-function unit (one instruction; exp2f adds range
+// handling). Underflows to +0, as the masked scores need.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units). K-major (Q, K): rows of 128
+// bytes, sbo = 1024 between 8-row groups, lbo unused. MN-major (V): lbo
+// between 64-column halves, sbo between 8-token groups.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+#define QT_D64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+#define QT_F8(i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define QT_F64                                                       \
+  QT_F8(0), QT_F8(8), QT_F8(16), QT_F8(24), QT_F8(32), QT_F8(40), \
+      QT_F8(48), QT_F8(56)
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory, B
+// K-major; bf16 in, f32 accumulate. scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " QT_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : QT_F64
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the
+// accumulator layout of a 64 x 16 slice, packed bf16 pairs), B from shared
+// memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " QT_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : QT_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef QT_D64
+#undef QT_F8
+#undef QT_F64
+
+template <bool kFp8>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
+  constexpr int kStages = ring_stages(kFp8);
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned: the 128-byte swizzle repeats every 8 rows of 128 B.
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;                     // [2 wg][2 halves][64][64]
+  unsigned char* ring = qs + kQBytes;           // kStages x [K, V] bf16
+  unsigned char* stage8 = ring + kStages * kStage;   // fp8: kStages x [K, V]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      stage8 + (kFp8 ? kStages * kStage8 : 0));
+  uint64_t* empty = full + kStages;
+  uint64_t* sfull = empty + kStages;            // fp8 staging loaded
+
+  const int P = kM / a.G;                       // query positions a CTA
+  const int h_kv = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * P;   // heaviest first
+  const int offset = a.q_offsets[b];
+  // Keys past the block table do not exist (as in the plain version).
+  const int kv_len = min(a.kv_lens[b], a.NB * a.bpp * a.page);
+  const int hi = min(offset + i0 + P, kv_len);  // keys this CTA can see
   const int n_tiles = hi > 0 ? (hi + kBK - 1) / kBK : 0;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
 
-  // Each thread copies chunk column tid % CPR of rows tid / CPR + k * i:
-  // bf16 rows straight into the MMA tiles, fp8 rows into staging.
-  const int pc = tid % CPR, pr = tid / CPR;
-  auto load_tile = [&](int j, int buf) {
-#pragma unroll
-    for (int i = 0; i < kBK / (kThreads / CPR); ++i) {
-      const int r = pr + i * (kThreads / CPR);
-      const int t = j * kBK + r;
-      const bool ok = t < max_tok;
-      int64_t off = 0;
-      if (ok)
-        off = kv_row(h_kv, phys_page(tab, b, NB, bpp, t / page), t % page, NP,
-                     page, kD);
-      const KV* src = kv + off + pc * CH;
-      if constexpr (kFp8) {
-        unsigned char* dst = stage + (2 * buf) * kStage + r * kD + pc * CH;
-        cp_async16(dst, src, ok);
-        cp_async16(dst + kStage, src + page * kD, ok);
-      } else {
-        cp_async16(ks + buf * kTile + r * kStride + pc * CH, src, ok);
-        cp_async16(vs + buf * kTile + r * kStride + pc * CH, src + page * kD,
-                   ok);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], kFp8 ? 128 : 1);       // fp8: every widening thread
+      bar_init(&empty[s], kConsumers * 128);
+      if (kFp8) bar_init(&sfull[s], 1);
     }
-  };
-  // fp8: the staged tiles of buffer buf as the bf16 MMA tiles, 16 fp8 values
-  // (one 16-byte chunk) a thread and step.
-  auto convert_tile = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2 * kBK / (kThreads / 8); ++i) {
-      const int row = tid / 8 + i * (kThreads / 8);   // 0..127: K, then V
-      const int r = row % kBK, c = tid % 8;
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          stage + (2 * buf + row / kBK) * kStage + r * kD + c * 16);
-      store_tile_chunk<KV>(
-          (row < kBK ? ks : vs) + r * kStride + c * 16, raw);
-    }
-  };
-
-  // The first K/V tile in flight, then the scaled Q tile (rows past T
-  // are zeros); thread tid writes chunk tid % 16 of rows tid / 16 + 8 i.
-  if (n_tiles > 0) load_tile(0, 0);
-  cp_async_commit();
-  const int cc = tid % kCPR;
-#pragma unroll
-  for (int i = 0; i < kBQ / (kThreads / kCPR); ++i) {
-    const int r = tid / kCPR + i * (kThreads / kCPR);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (i0 + r < T)
-      val = load_q8(q, ((static_cast<int64_t>(b) * T + i0 + r) * Hq + hq) * kD +
-                           cc * 8, q_bf16, sm_scale);
-    *reinterpret_cast<uint4*>(qs + r * kStride + cc * 8) = val;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  // This warp's 16 query rows as A fragments, one per 16-dim step.
   __syncthreads();
-  uint32_t qf[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * kStride + kk * 16 +
-                            (lane >> 4) * 8);
 
-  float o[kD / 8][4];                   // output rows g, g+8; 16 dim blocks
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_row[2] = {QT_MASK_VALUE, QT_MASK_VALUE};
-  float l_row[2] = {0.f, 0.f};          // this thread's share of the sums
-  const int q_pos0 = offset + i0 + warp * 16 + g;  // row g; row g+8 is +8
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) load_tile(j + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();                 // tile j has landed (this thread)
-    __syncthreads();                    // ... and every thread's part of it
-    if constexpr (kFp8) {
-      convert_tile(buf);
-      __syncthreads();
-    }
-    const bf16* kt = ks + (kFp8 ? 0 : buf) * kTile;
-    const bf16* vt = vs + (kFp8 ? 0 : buf) * kTile;
-
-    // S = Q K^T: 16 rows x 64 tokens as 8 accumulator blocks of 8 tokens.
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kBK / 8; n += 2) {
-        // Matrices: tokens n*8.. (dims lo, hi), tokens n*8+8.. (lo, hi).
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kt + (n * 8 + (lane & 7) + (lane >> 4) * 8) * kStride +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[n], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[n + 1], qf[kk], kb[2], kb[3]);
+  if (wg == kConsumers) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int ppt = kBK / a.page;               // pages a tile
+    // First pool row of page `lane` of tile j (its K rows; V follows
+    // `page` rows later), or a.rows (past the map: zeros) where the page
+    // is past the CTA's keys or the block table.
+    auto page_row = [&](int j) -> int {
+      const int lp = j * ppt + lane;
+      if (lane >= ppt || lp * a.page >= hi || lp >= a.NB * a.bpp) return a.rows;
+      return (h_kv * a.NP + phys_page(a.tab, b, a.NB, a.bpp, lp)) * 2 * a.page;
+    };
+    if constexpr (!kFp8) {
+      if (warp == 0) {
+        int row = page_row(0);
+        for (int j = 0; j < n_tiles; ++j) {
+          const int s = j % kStages;
+          const int next = page_row(j + 1);       // in flight during the wait
+          if (j >= kStages) bar_wait(&empty[s], (j / kStages - 1) & 1);
+          if (lane == 0) bar_expect(&full[s], kStage);
+          __syncwarp();
+          if (lane < ppt) {
+            unsigned char* k = ring + s * kStage + lane * a.page * 128;
+            tma_load(k, &tmap, 0, row, &full[s]);
+            tma_load(k + kHalf, &tmap, 64, row, &full[s]);
+            tma_load(k + kTile, &tmap, 0, row + a.page, &full[s]);
+            tma_load(k + kTile + kHalf, &tmap, 64, row + a.page, &full[s]);
+          }
+          row = next;
+        }
+      }
+    } else {
+      // Warp 0 loads fp8 tiles into staging; all four warps widen them.
+      int row = 0;
+      auto load_tile = [&](int j) {
+        const int s = j % kStages;
+        const int next = page_row(j + 1);
+        if (lane == 0) bar_expect(&sfull[s], kStage8);
+        __syncwarp();
+        if (lane < ppt) {
+          unsigned char* k = stage8 + s * kStage8 + lane * a.page * 128;
+          tma_load(k, &tmap, 0, row, &sfull[s]);
+          tma_load(k + kTile8, &tmap, 0, row + a.page, &sfull[s]);
+        }
+        row = next;
+      };
+      if (warp == 0) {
+        row = page_row(0);
+        for (int j = 0; j < min(kStages, n_tiles); ++j) load_tile(j);
+      }
+      const int c = tid % 8;                    // 16-byte fp8 chunk of a row
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        bar_wait(&sfull[s], (j / kStages) & 1);
+        if (j >= kStages) bar_wait(&empty[s], (j / kStages - 1) & 1);
+        const unsigned char* src = stage8 + s * kStage8;
+        unsigned char* dst = ring + s * kStage;
+#pragma unroll 2
+        for (int i = 0; i < 2 * kBK / 16; ++i) {
+          const int r = tid / 8 + 16 * i;       // K rows, then V rows
+          const int t = r % kBK;
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              src + (r / kBK) * kTile8 + t * 128 + c * 16);
+          uint4 lo, hi8;
+          fp8x16_to_bf16(raw, lo, hi8);         // bf16 elements 16c..16c+15
+          // Element e of row t: half e / 64, 16-byte chunk (e % 64) / 8,
+          // swizzled with t % 8. Threads c >= 4 store their high chunk
+          // first, so the 8 threads of a store phase hit 8 bank groups.
+          unsigned char* base = dst + (r / kBK) * kTile + (c / 4) * kHalf +
+                                t * 128;
+          const int c0 = (2 * (c % 4)) ^ (t % 8), c1 = c0 ^ 1;
+          const bool swap = c >= 4;
+          *reinterpret_cast<uint4*>(base + (swap ? c1 : c0) * 16) =
+              swap ? hi8 : lo;
+          *reinterpret_cast<uint4*>(base + (swap ? c0 : c1) * 16) =
+              swap ? lo : hi8;
+        }
+        fence_async_smem();                     // visible to wgmma
+        bar_arrive(&full[s]);
+        named_sync(1, 128);                     // staging s is read
+        if (warp == 0 && j + kStages < n_tiles) load_tile(j + kStages);
       }
     }
-
-    // Mask, online softmax; rows g (c = 0, 1) and g + 8 (c = 2, 3).
-    float mx[2] = {QT_MASK_VALUE, QT_MASK_VALUE};
+  } else {
+    // ---------------- consumer warpgroups ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    // This warpgroup's 64 query rows, scaled, as two 128-byte-swizzled
+    // halves [64 rows][64 dims]; thread tid writes 8-element chunk
+    // tid % 16 of rows tid / 16 + 8 k. Rows past T are zeros.
+    unsigned char* qw = qs + wg * (kQBytes / 2);
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int k_pos = j * kBK + n * 8 + 2 * t4 + (c & 1);
-        const int q_pos = q_pos0 + (c >> 1) * 8;
-        const bool ok = k_pos <= q_pos && k_pos < kv_len;
-        s[n][c] = ok ? s[n][c] : QT_MASK_VALUE;
-        mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
-      }
+    for (int k = 0; k < 8; ++k) {
+      const int r = tid / 16 + 8 * k, cc = tid % 16;
+      const int row = wg * 64 + r;
+      const int i = i0 + row / a.G;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (i < a.T)
+        v = load_q8(a.q,
+                    ((static_cast<int64_t>(b) * a.T + i) * a.Hq +
+                     h_kv * a.G + row % a.G) * kD + cc * 8,
+                    a.q_bf16, a.sm_scale);
+      *reinterpret_cast<uint4*>(qw + (cc / 8) * (kQBytes / 4) + r * 128 +
+                                (((cc % 8) ^ (r % 8)) * 16)) = v;
     }
-    float alpha[2];
+    fence_async_smem();
+    named_sync(2 + wg, 128);
+
+    // Accumulator layout (64 x 128 per warpgroup): thread holds rows
+    // r0 = 16 warp + lane / 4 and r0 + 8; element 4n + c is column
+    // 8n + 2 (lane % 4) + (c & 1) of row r0 + 8 (c >> 1).
+    float o[64];
+#pragma unroll
+    for (int n = 0; n < 64; ++n) o[n] = 0.f;
+    float m_row[2] = {QT_MASK_VALUE, QT_MASK_VALUE};
+    float l_row[2] = {0.f, 0.f};              // this thread's share
+    const int r0 = wg * 64 + warp * 16 + lane / 4;
+    const int pos[2] = {offset + i0 + r0 / a.G, offset + i0 + (r0 + 8) / a.G};
+    const int wg_lo = offset + i0 + (wg * 64) / a.G;       // first position
+    const int wg_hi = offset + i0 + (wg * 64 + 63) / a.G;  // last position
+    const uint32_t q_base = smem_u32(qw);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const int t0 = j * kBK;
+      bar_wait(&full[s], (j / kStages) & 1);
+      if (t0 <= wg_hi) {                        // a key some row can see
+        const uint32_t kb = smem_u32(ring + s * kStage), vb = kb + kTile;
+        float sc[64];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_ss(sc,
+                   sw128_desc(q_base + (kk / 4) * (kQBytes / 4) + (kk % 4) * 32,
+                              16, 1024),
+                   sw128_desc(kb + (kk / 4) * kHalf + (kk % 4) * 32, 16, 1024),
+                   kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+
+        // Causal and length mask where a key may be past a row's position
+        // or past kv_len; masked scores hold exactly the mask value.
+        const bool masked = t0 + kBK - 1 > wg_lo || t0 + kBK > kv_len;
+        if (masked) {
+#pragma unroll
+          for (int n = 0; n < 64; ++n) {
+            const int k_pos = t0 + 8 * (n / 4) + 2 * (lane % 4) + (n & 1);
+            const bool ok = k_pos <= pos[(n >> 1) & 1] && k_pos < kv_len;
+            sc[n] = ok ? sc[n] : QT_MASK_VALUE;
+          }
+        }
+        float mx[2] = {m_row[0], m_row[1]};
+#pragma unroll
+        for (int n = 0; n < 64; ++n)
+          mx[(n >> 1) & 1] = fmaxf(mx[(n >> 1) & 1], sc[n]);
+        float alpha[2], mb[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          alpha[r] = fast_exp2((m_row[r] - mx[r]) * kLog2e);
+          m_row[r] = mx[r];
+          l_row[r] *= alpha[r];
+          mb[r] = mx[r] * kLog2e;
+        }
+#pragma unroll
+        for (int n = 0; n < 64; ++n) {
+          const int r = (n >> 1) & 1;
+          float p = fast_exp2(fmaf(sc[n], kLog2e, -mb[r]));
+          if (masked) p = sc[n] == QT_MASK_VALUE ? 0.f : p;
+          l_row[r] += p;
+          sc[n] = p;
+          o[n] *= alpha[r];
+        }
+        // P (rounded to bf16) as the A operand: 16 tokens a step.
+        uint32_t pa[kBK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_rs(o, pa[kk], sw128_desc(vb + kk * 16 * 128, kHalf, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+      }
+      bar_arrive(&empty[s]);                    // the slot may be refilled
+    }
+
+    // out[b, i, hq, :] = O / l for the rows inside T.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_row[r], mx[r]);
-      alpha[r] = expf(m_row[r] - m_new);
-      m_row[r] = m_new;
-      l_row[r] *= alpha[r];
+      l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+      l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
     }
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      const int i = i0 + row / a.G;
+      if (i >= a.T) continue;
+      const float inv = l_row[r] > 0.f ? 1.f / l_row[r] : 0.f;
+      float* dst = a.out + ((static_cast<int64_t>(b) * a.T + i) * a.Hq +
+                            h_kv * a.G + row % a.G) * kD + 2 * (lane % 4);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // Masked lanes hold exactly the mask value; they contribute 0.
-        const float p = s[n][c] == QT_MASK_VALUE
-                            ? 0.f : expf(s[n][c] - m_row[c >> 1]);
-        l_row[c >> 1] += p;
-        s[n][c] = p;
-      }
+      for (int n = 0; n < kD / 8; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
     }
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V: P (rounded to bf16) as A fragments of 16 tokens each.
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kD / 8; n += 2) {
-        // Matrices (transposed): tokens lo/hi x dims n*8.., n*8+8...
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * kStride +
-                                  n * 8 + (lane >> 4) * 8);
-        mma_bf16(o[n], pa, vb[0], vb[1]);
-        mma_bf16(o[n + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();                    // buffer `buf` is free again
-  }
-
-  // out[b, i, hq, :] = O / l for the real rows.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
-    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = i0 + warp * 16 + g + r * 8;
-    if (i >= T) continue;
-    const float inv = l_row[r] > 0.f ? 1.f / l_row[r] : 0.f;
-    float* dst = out + ((static_cast<int64_t>(b) * T + i) * Hq + hq) * kD;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
-      *reinterpret_cast<float2*>(dst + n * 8 + 2 * t4) =
-          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
   }
 }
+
+// ---------------------------------------------------------------------------
+// f32 pools: FMA kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;
 
 // f32 pools: one CTA takes kRF query rows of one head; 32-token K/V
 // tiles go through shared memory, each thread computes scores of
@@ -476,32 +605,80 @@ prefill_f32_kernel(const void* __restrict__ q, const float* __restrict__ kv,
   }
 }
 
-template <typename KV>
-cudaError_t launch_mma(const void* q, const void* kv, const int* tab,
-                       const int* q_offsets, const int* kv_lens, float* out,
-                       int B, int T, int Hq, int Hkv, int NP, int page,
-                       int NB, int bpp, float sm_scale, int q_bf16,
+template <bool kFp8>
+cudaError_t launch_tma(const void* tmap, const TmaArgs& a, int B, int Hkv,
                        cudaStream_t s) {
-  const size_t smem = mma_smem<KV>();
+  const size_t smem = tma_smem<kFp8>();
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prefill_tma_kernel<kFp8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((T + kBQ - 1) / kBQ, Hq, B);
-  prefill_kernel<KV><<<grid, kThreads, smem, s>>>(
-      q, static_cast<const KV*>(kv), tab, q_offsets, kv_lens, out, T, Hq,
-      Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
+  CUtensorMap map;                 // by value into the kernel's parameters
+  memcpy(&map, tmap, sizeof(map));
+  const int P = kM / a.G;
+  dim3 grid(Hkv, B, (a.T + P - 1) / P);
+  prefill_tma_kernel<kFp8><<<grid, kTmaThreads, smem, s>>>(map, a);
   return cudaGetLastError();
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
 }  // namespace
 
-// kv_dtype: 0 f32 (FMA kernel), 1 bf16, 2 fp8 e4m3 (MMA kernel).
+// The TMA descriptor of one layer of a bf16 (kv_dtype 1) or fp8 e4m3 (2)
+// pool [Hkv, NP, 2, page, 128] seen as `rows` rows of 128 elements: boxes
+// of one page by 64 bf16 columns with the 128-byte swizzle wgmma reads,
+// or one page by 128 fp8 columns unswizzled (the widening pass reads it).
+// Writes the 128-byte CUtensorMap to `out`; returns the CUresult, or -1
+// when the driver has no cuTensorMapEncodeTiled.
+extern "C" int prefill_tensor_map(void* base, long long rows, int kv_dtype,
+                                  int page, void* out) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess ||
+        fn == nullptr)
+      return -1;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const bool fp8 = kv_dtype == 2;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kD),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kD * (fp8 ? 1 : 2))};
+  const cuuint32_t box[2] = {fp8 ? 128u : 64u, static_cast<cuuint32_t>(page)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUtensorMap map;
+  const CUresult r = encode(
+      &map, fp8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, base, dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      fp8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r == CUDA_SUCCESS) memcpy(out, &map, sizeof(map));
+  return static_cast<int>(r);
+}
+
+// kv_dtype: 0 f32 (FMA kernel), 1 bf16, 2 fp8 e4m3 (TMA + wgmma kernel,
+// which takes tmap from prefill_tensor_map and G = Hq / Hkv in 1, 2, 4, 8,
+// page a multiple of 8 dividing 128; the wrapper checks both).
 extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
                               const int* q_offsets, const int* kv_lens,
                               float* out, int B, int T, int Hq, int Hkv,
                               int NP, int page, int NB, int bpp, int kv_dtype,
-                              float sm_scale, int q_bf16, void* stream) {
+                              float sm_scale, int q_bf16, const void* tmap,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == 0) {
     dim3 grid((T + kRF - 1) / kRF, Hq, B);
@@ -510,13 +687,14 @@ extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
         Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
     return static_cast<int>(cudaGetLastError());
   }
-  if (kv_dtype == 1)
-    return static_cast<int>(launch_mma<bf16>(q, kv, tab, q_offsets, kv_lens,
-                                              out, B, T, Hq, Hkv, NP, page, NB,
-                                              bpp, sm_scale, q_bf16, s));
-  if (kv_dtype == 2)
-    return static_cast<int>(launch_mma<__nv_fp8_e4m3>(
-        q, kv, tab, q_offsets, kv_lens, out, B, T, Hq, Hkv, NP, page, NB, bpp,
-        sm_scale, q_bf16, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int G = Hq / Hkv;
+  if ((kv_dtype != 1 && kv_dtype != 2) || tmap == nullptr ||
+      (G != 1 && G != 2 && G != 4 && G != 8) || page % 8 != 0 ||
+      kBK % page != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TmaArgs a{q,    tab, q_offsets, kv_lens, out,
+                  T,    Hq,  G,         NP,      page,
+                  NB,   bpp, Hkv * NP * 2 * page, sm_scale, q_bf16};
+  return static_cast<int>(kv_dtype == 2 ? launch_tma<true>(tmap, a, B, Hkv, s)
+                                        : launch_tma<false>(tmap, a, B, Hkv, s));
 }

@@ -2,12 +2,14 @@
 ``quest_tpu/ops/prefill.py``).
 
 On a CUDA tensor :func:`prefill_attention` launches the hand-written
-kernel ``csrc/prefill.cu`` (tensor-core MMA for bf16 and fp8 e4m3
-pools, FMA for f32 pools); on a CPU tensor it runs
+kernel ``csrc/prefill.cu`` (TMA page loads and wgmma for bf16 and fp8
+e4m3 pools, FMA for f32 pools); on a CPU tensor it runs
 :func:`prefill_attention_plain`, the same function in eager PyTorch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -59,6 +61,36 @@ def prefill_attention_plain(q, kv_pages, q_offsets, kv_lens, *,
     return out
 
 
+# What the TMA + wgmma kernel (bf16 and fp8 pools) takes: 128 query rows
+# a CTA are positions x the G heads of a group, and a 128-token K/V tile
+# is whole pages of at least 8 rows (1024 bytes: one 128-byte swizzle
+# atom).
+TMA_GROUPS = (1, 2, 4, 8)
+TMA_PAGES = (8, 16, 32, 64, 128)
+_tensor_maps = {}
+
+
+def _tensor_map(lib, kvl, kv_code):
+    """The TMA descriptor of one layer of the pool, seen as rows of 128
+    elements ``[Hkv * NP * 2 * page, 128]``, cached by (pointer, shape,
+    dtype); the address of its 128 bytes. A failed encode raises."""
+    key = (kvl.data_ptr(), tuple(kvl.shape), kvl.dtype)
+    buf = _tensor_maps.get(key)
+    if buf is None:
+        fn = lib.prefill_tensor_map
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        buf = ctypes.create_string_buffer(128)
+        code = fn(_build.ptr(kvl), kvl.numel() // kvl.shape[-1], kv_code,
+                  kvl.shape[-2], ctypes.addressof(buf))
+        if code != 0:
+            raise RuntimeError(f"cuTensorMapEncodeTiled failed for the "
+                               f"prefill pool (CUresult {code})")
+        _tensor_maps[key] = buf
+    return ctypes.addressof(buf)
+
+
 def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
                       layer: int, block_tab, block_pages: int):
     """Causal attention of T fresh queries over the paged cache.
@@ -80,6 +112,14 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
         raise NotImplementedError("the CUDA prefill kernel takes head_dim 128")
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
+    if kv_code != 0 and Hq // Hkv not in TMA_GROUPS:
+        raise NotImplementedError(
+            f"the CUDA prefill kernel for bf16 and fp8 pools takes GQA groups "
+            f"of {TMA_GROUPS} query heads, not {Hq // Hkv}")
+    if kv_code != 0 and page not in TMA_PAGES:
+        raise NotImplementedError(
+            f"the CUDA prefill kernel for bf16 and fp8 pools takes pages of "
+            f"{TMA_PAGES} tokens, not {page}")
     for t in (kv_pages, q_offsets, kv_lens, block_tab):
         if t.device != q.device:
             raise ValueError("all operands must be on the query's device")
@@ -91,12 +131,14 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
     lens = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((B, T, Hq, D), dtype=torch.float32, device=q.device)
     lib = _build.load("prefill")
+    kvl = kv_pages[layer]
+    tmap = None if kv_code == 0 else _tensor_map(lib, kvl, kv_code)
     code = lib.prefill_launch(
-        _build.ptr(qk), _build.ptr(kv_pages[layer]), _build.ptr(tab),
+        _build.ptr(qk), _build.ptr(kvl), _build.ptr(tab),
         _build.ptr(offs), _build.ptr(lens), _build.ptr(out), B, T, Hq, Hkv,
         NP, page, tab.shape[1], block_pages,
         kv_code, sm_scale,
-        int(qk.dtype == torch.bfloat16), _build.stream_of(q))
+        int(qk.dtype == torch.bfloat16), tmap, _build.stream_of(q))
     _build.check(lib, code, "prefill")
     prefill_attention.launches += 1
     return out

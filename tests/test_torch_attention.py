@@ -239,18 +239,32 @@ def test_dense_kernel_matches_plain(cuda, q_dtype, dtype, Hq, Hkv):
     assert rel_err(got, want) <= CARD_TOL[dtype]
 
 
+# The bf16 kernel's CTA takes 128 rows (128 / G positions x G heads) and
+# 128-token K/V tiles of whole pages: cases at G = 1, 2, 4, 8, page 16 and
+# 32, T and offsets off both tiles, padded rows (kv_len < offset + T),
+# an empty row, and tiles that run past the block table (NB * bpp * page).
+PREFILL_CARD_CASES = [
+    # T, offsets, kv_lens, Hq, Hkv, page, NB, bpp
+    (100, [0, 0], [100, 37], 32, 8, 16, 4, 8),
+    (64, [300, 17], [364, 50], 8, 8, 16, 4, 8),
+    (130, [64, 0], [194, 0], 16, 2, 16, 4, 8),
+    (100, [300, 17], [400, 117], 16, 8, 16, 4, 8),
+    (77, [200, 0], [277, 77], 32, 8, 32, 4, 4),
+    (90, [0, 5], [90, 95], 32, 8, 16, 3, 2),      # 96 tokens in the table
+    (40, [0, 8], [40, 48], 8, 8, 16, 3, 1),       # 48 tokens in the table
+    (45, [0, 51], [45, 96], 16, 2, 32, 3, 1),     # 96 tokens in the table
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", Q_DTYPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,offs,kv_lens,Hq,Hkv", [
-    (100, [0, 0], [100, 37], 32, 8),
-    (64, [300, 17], [364, 50], 8, 8),
-    (130, [64, 0], [194, 0], 16, 2),
-])
+@pytest.mark.parametrize("T,offs,kv_lens,Hq,Hkv,page,NB,bpp",
+                         PREFILL_CARD_CASES)
 def test_prefill_kernel_matches_plain(cuda, q_dtype, dtype, T, offs, kv_lens,
-                                      Hq, Hkv):
-    B, NB, bpp = 2, 4, 8
-    g, pool, tab = card_pool(13, B, Hkv, NB, dtype)
+                                      Hq, Hkv, page, NB, bpp):
+    B = len(offs)
+    g, pool, tab = card_pool(13, B, Hkv, NB, dtype, page=page, bpp=bpp)
     q = torch.randn((B, T, Hq, 128), generator=g, device=cuda).to(q_dtype)
     off = torch.tensor(offs, dtype=torch.int32, device=cuda)
     kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
@@ -263,3 +277,59 @@ def test_prefill_kernel_matches_plain(cuda, q_dtype, dtype, T, offs, kv_lens,
     assert rel_err(got, want) <= CARD_TOL[dtype]
     # A slot with no key at all gives zeros.
     assert torch.all(got[kvl == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+def test_prefill_kernel_masks_keys_past_table(cuda, dtype):
+    """A kv_len past the block table's NB * bpp * page = 48 tokens: keys
+    past the table do not exist, as in the plain version. (The f32 FMA
+    kernel, off the serving path, counts them as zero keys: ROADMAP.md
+    queue 3; the engine never makes such a row.)"""
+    g, pool, tab = card_pool(15, 2, 2, 3, dtype, page=16, bpp=1)
+    q = torch.randn((2, 60, 8, 128), generator=g, device=cuda).to(
+        torch.bfloat16)
+    off = torch.zeros(2, dtype=torch.int32, device=cuda)
+    kvl = torch.tensor([60, 20], dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=128 ** -0.5, layer=LAYER, block_tab=tab, block_pages=1)
+    got = prefill_attention(q, pool, off, kvl, **kw)
+    want = prefill_attention_plain(q, pool, off, kvl, **kw)
+    torch.cuda.synchronize()
+    assert rel_err(got, want) <= CARD_TOL[torch.bfloat16]
+
+
+def prefill_group_case(device, Hq, Hkv, dtype):
+    """A 16-token fresh prefill of one row with Hq // Hkv query heads a
+    group, over a random pool of ``dtype``."""
+    g = torch.Generator().manual_seed(14)
+    pool = torch.randn((2, Hkv, 16, 2, 16, 128), generator=g).to(dtype)
+    q = torch.randn((1, 16, Hq, 128), generator=g).to(torch.bfloat16)
+    off = torch.zeros(1, dtype=torch.int32)
+    args = [t.to(device) for t in (q, pool, off, off + 16)]
+    kw = dict(sm_scale=128 ** -0.5, layer=LAYER,
+              block_tab=torch.tensor([[1]], dtype=torch.int32, device=device),
+              block_pages=8)
+    return args, kw
+
+
+def test_prefill_cpu_takes_any_group():
+    """On the CPU the wrapper runs the plain version, whatever the group."""
+    args, kw = prefill_group_case("cpu", 12, 4, torch.bfloat16)
+    got = prefill_attention(*args, **kw)
+    assert torch.equal(got, prefill_attention_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", [(12, 4), (32, 2)])
+def test_prefill_kernel_refuses_group(cuda, Hq, Hkv):
+    """The bf16 and fp8 kernel takes G = 1, 2, 4, 8 and raises on any
+    other group; the f32 FMA kernel takes every G."""
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        args, kw = prefill_group_case(cuda, Hq, Hkv, dtype)
+        with pytest.raises(NotImplementedError, match="GQA groups"):
+            prefill_attention(*args, **kw)
+    args, kw = prefill_group_case(cuda, Hq, Hkv, torch.float32)
+    got = prefill_attention(*args, **kw)
+    want = prefill_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert rel_err(got, want) <= CARD_TOL[torch.float32]

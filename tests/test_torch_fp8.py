@@ -325,14 +325,16 @@ def test_dense_fp8_kernel_matches_plain(cuda, q_dtype, page, Hq, Hkv):
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", Q_DTYPES)
 @pytest.mark.parametrize("page", [16, 32])
-@pytest.mark.parametrize("T,offs,kv_lens,Hq,Hkv", [
-    (100, [0, 0], [100, 37], 32, 8),
-    (130, [64, 0], [194, 0], 16, 2),
+@pytest.mark.parametrize("T,offs,kv_lens,Hq,Hkv,NB,bpp", [
+    (100, [0, 0], [100, 37], 32, 8, 4, 8),
+    (130, [64, 0], [194, 0], 16, 2, 4, 8),
+    (100, [300, 17], [400, 117], 16, 8, 4, 8),    # G = 2
+    (40, [0, 8], [40, 48], 8, 8, 3, 1),           # tiles past the table
 ])
 def test_prefill_fp8_kernel_matches_plain(cuda, q_dtype, page, T, offs,
-                                          kv_lens, Hq, Hkv):
-    B, NB, bpp = 2, 4, 8
-    g, pool, tab = card_pool(33, B, Hkv, NB, FP8, page=page)
+                                          kv_lens, Hq, Hkv, NB, bpp):
+    B = len(offs)
+    g, pool, tab = card_pool(33, B, Hkv, NB, FP8, page=page, bpp=bpp)
     q = torch.randn((B, T, Hq, 128), generator=g, device=cuda).to(q_dtype)
     off = torch.tensor(offs, dtype=torch.int32, device=cuda)
     kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
