@@ -474,6 +474,8 @@ def fused_slice_cases(timer, gen):
     mc = torch.cat([km, kn], dim=-1).reshape(B * Hkv, P, 2 * D).transpose(
         1, 2).contiguous()
     lib = timer(lambda: torch.bmm(qc, mc))
+    # An empty launch under the same timer: the floor every time stands on.
+    empty_ms = timer(lambda: torch.cuda._sleep(1))
     ms = timer(lambda: page_scores_kernel(q, km, kn, agg))
     plain = timer(lambda: page_scores_kernel_plain(q, km, kn, agg))
     nbytes = 2 * km.numel() * 2 + q.numel() * 2 + B * Hkv * P * 4
@@ -483,12 +485,29 @@ def fused_slice_cases(timer, gen):
         case="B=2, 2048 pages, bf16 metadata", max_abs_err=errs[torch.bfloat16][1],
         max_rel_err=max(e[0] for e in errs.values()), ms=ms, plain_ms=plain,
         library_ms=lib, bound_ms=bound, bound_by="bytes",
-        f32_query_rel_err=errs[torch.float32][0])]
+        f32_query_rel_err=errs[torch.float32][0], empty_launch_ms=empty_ms)]
     log(f"estimate: rel err {errs[torch.float32][0]:.2e} (f32 query), "
-        f"{errs[torch.bfloat16][0]:.2e} (bf16 query), {ms * 1e3:.1f} us "
-        f"(bound {bound * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bmm "
-        f"{lib * 1e3:.1f} us)")
-    del km, kn, mc
+        f"{errs[torch.bfloat16][0]:.2e} (bf16 query), {ms * 1e3:.2f} us "
+        f"(bound {bound * 1e3:.2f} us, plain {plain * 1e3:.1f} us, bmm "
+        f"{lib * 1e3:.2f} us; an empty launch {empty_ms * 1e3:.2f} us)")
+    # A page count off the kernel's 16-page tiles (a ragged last tile).
+    Pr = P - 13
+    kmr, knr = km[:, :, :Pr].contiguous(), kn[:, :, :Pr].contiguous()
+    got = page_scores_kernel(q, kmr, knr, agg)
+    want = page_scores_kernel_plain(q, kmr, knr, agg)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    assert err <= 1e-5, f"estimate kernel disagrees at P={Pr}: {err}"
+    msr = timer(lambda: page_scores_kernel(q, kmr, knr, agg))
+    out["estimate"].append(dict(
+        case=f"B=2, {Pr} pages, bf16 metadata", max_abs_err=float(
+            (got - want).abs().max()), max_rel_err=err, ms=msr,
+        plain_ms=timer(lambda: page_scores_kernel_plain(q, kmr, knr, agg)),
+        library_ms=None, bound_ms=(2 * kmr.numel() * 2 + q.numel() * 2
+                                   + B * Hkv * Pr * 4) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes"))
+    log(f"estimate[P={Pr}]: rel err {err:.2e}, {msr * 1e3:.1f} us")
+    del km, kn, mc, kmr, knr
 
     # Select: random scores of every (row, head), then the tie rows.
     scores = torch.randn((B * Hkv, P), generator=gen, device="cuda")
@@ -561,19 +580,106 @@ def fused_slice_cases(timer, gen):
               + Hkv * int(n.clamp(max=K).sum()) * 2 * page * D * 2
               + q.numel() * 2 + B * Hq * D * 4 + cache.block_tab.numel() * 4)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    select_ms = out["topk_select"][0]["ms"]
     out["fused_decode"] = [dict(
         case="B=2, 32768+7001 tokens, 128 pages", max_abs_err=float(
             (got - want).abs().max()), max_rel_err=err, ms=ms, plain_ms=plain,
         library_ms=None, unfused_pipeline_ms=pipe, budget8_ms=ms8,
-        bound_ms=bound,
+        select_alone_ms=select_ms, bound_ms=bound,
         bound_by="bytes", flipped_ids=flips, flip_max_rel_gap=gap,
         f32_query_rel_err=f32_err)]
     log(f"fused: {ms * 1e3:.1f} us (bound {bound * 1e3:.1f} us, plain "
         f"{plain * 1e3:.1f} us, unfused pipeline {pipe * 1e3:.1f} us; no "
         f"single library call computes it); at an 8-page budget "
-        f"{ms8 * 1e3:.1f} us")
+        f"{ms8 * 1e3:.1f} us; the select alone (16 rows, 2048 pages) "
+        f"{select_ms * 1e3:.1f} us")
+    out["fused_decode"].append(fused_serving_rows(timer, cache, q, kw, P))
+    out["fused_decode"].append(fused_tie_rows(cache, q, kw))
     del cache
     return out
+
+
+def fused_serving_rows(timer, cache, q, kw, P):
+    """The fused kernel at the serving run's row lengths (the 6000- and
+    3000-token prompts of ``generate``), held to its plain version like
+    the kernel case; returns the case."""
+    from quest_tpu_torch.ops.fused_decode import (fused_sparse_decode,
+                                                  fused_sparse_decode_plain,
+                                                  slot_page_scores)
+    from quest_tpu_torch.ops.reference import selection_flips
+    seq = torch.tensor([6000, 3000], dtype=torch.int32, device="cuda")
+    B, Hkv = seq.numel(), cache.kv_pages.shape[1]
+    K, page, D = kw["budget_pages"], cache.page_size, q.shape[-1]
+    args = (cache.kv_pages, cache.k_max, cache.k_min, seq)
+    got, ids = fused_sparse_decode(q, *args, return_ids=True, **kw)
+    want, want_ids = fused_sparse_decode_plain(q, *args, return_ids=True,
+                                               **kw)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    scores = slot_page_scores(q, cache.k_max, cache.k_min, layer=0,
+                              block_tab=cache.block_tab,
+                              block_pages=cache.block_pages,
+                              group_agg=kw["group_agg"])
+    n = (seq.long() + page - 1) // page
+    flips, gap = selection_flips(ids.reshape(B * Hkv, K),
+                                 want_ids.reshape(B * Hkv, K),
+                                 scores.reshape(B * Hkv, P),
+                                 n.repeat_interleave(Hkv))
+    assert err <= REL_TOL, f"fused kernel disagrees at 6000/3000: {err}"
+    assert flips == 0 or gap <= 1e-5, f"fused selection differs: {flips}, {gap}"
+    ms = timer(lambda: fused_sparse_decode(q, *args, **kw))
+    nbytes = (Hkv * int(n.sum()) * 2 * D * 2
+              + Hkv * int(n.clamp(max=K).sum()) * 2 * page * D * 2
+              + q.numel() * 2 + q.numel() * 4 + cache.block_tab.numel() * 4)
+    log(f"fused[6000+3000 tokens]: rel err {err:.2e}, {flips} ids differ "
+        f"(gap {gap:.1e}), {ms * 1e3:.1f} us (bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e6:.1f} us)")
+    return dict(case="B=2, 6000+3000 tokens (the serving run's rows)",
+                max_abs_err=float((got - want).abs().max()),
+                max_rel_err=err, ms=ms, plain_ms=None, library_ms=None,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                flipped_ids=flips, flip_max_rel_gap=gap)
+
+
+def fused_tie_rows(cache, q, kw):
+    """The fused kernel on the select's tie rows: every row's metadata
+    holds the tie row's score / (G * 128) on every dimension of a page
+    and the query is all ones, so the kernel's scores are exactly the tie
+    row's (sum over the group) and its ids must equal the plain
+    selection bit for bit. Returns the case (no timing)."""
+    from quest_tpu_torch.ops.fused_decode import (fused_sparse_decode,
+                                                  fused_sparse_decode_plain)
+    Hkv, D = cache.kv_pages.shape[1], q.shape[-1]
+    G = q.shape[1] // Hkv
+    bpp, B = cache.block_pages, q.shape[0]
+    phys = (cache.block_tab.long()[:, :, None] * bpp
+            + torch.arange(bpp, device="cuda")).reshape(B, -1)
+    ones = torch.ones_like(q)
+    worst = 0.0
+    for s, k, sl in tie_rows():
+        meta = torch.zeros(cache.k_max.shape, device="cuda").reshape(
+            Hkv, -1, D)
+        lev = (s.cuda() / (G * D)).to(cache.k_max.dtype).float()
+        for b in range(B):
+            meta[:, phys[b, :lev.numel()]] = lev[None, :, None].expand(
+                Hkv, -1, D)
+        meta = meta.to(cache.k_max.dtype).reshape(cache.k_max.shape)
+        seq = torch.full((B,), sl, dtype=torch.int32, device="cuda")
+        kwt = dict(kw, budget_pages=k, group_agg="sum", return_ids=True)
+        got, ids = fused_sparse_decode(ones, cache.kv_pages, meta, meta, seq,
+                                       **kwt)
+        want, want_ids = fused_sparse_decode_plain(ones, cache.kv_pages, meta,
+                                                   meta, seq, **kwt)
+        torch.cuda.synchronize()
+        assert torch.equal(ids, want_ids), \
+            f"fused ids differ from the plain selection on a tie row (K={k})"
+        worst = max(worst, rel_err(got, want))
+    assert worst <= REL_TOL, f"fused kernel disagrees on a tie row: {worst}"
+    log(f"fused[tie rows]: ids bitwise equal on {len(tie_rows())} tie rows "
+        f"(all rows of the batch, every KV head), rel err {worst:.2e}")
+    return dict(case="4 tie rows, all heads, ids bitwise", max_abs_err=None,
+                max_rel_err=worst, ms=None, plain_ms=None, library_ms=None,
+                bound_ms=None, bound_by="bytes", bitwise_equal=True)
 
 
 def fp8_cases(timer, gen):

@@ -37,15 +37,6 @@ constexpr int kRows = 8 * 128;  // x[page, :8, :], elements
 constexpr int kMaxSlots = 8;
 constexpr int kMaxSem = 8;
 
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 struct ProbeArgs {
   const int* idx;           // [npages] page order
   const __nv_bfloat16* x;   // [npages, page_elems]
@@ -88,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) copy_probe_kernel(ProbeArgs a) {
   if (tid == 0) {
     for (int i = 0; i < a.nslot * a.nsem; ++i)
       bar_init(&bars[(i / a.nsem) * kMaxSem + i % a.nsem], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
   if (tid == 0)
@@ -109,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) copy_probe_kernel(ProbeArgs a) {
     }
     __syncthreads();                                // the slot is read
     if (tid == 0 && t + a.nslot < n) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       issue(t + a.nslot);
     }
   }

@@ -507,8 +507,9 @@ prefill_f32_kernel(const void* __restrict__ q, const float* __restrict__ kv,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int h_kv = hq / G;
   const int offset = q_offsets[b];
-  const int kv_len = kv_lens[b];
-  const int hi = min(min(offset + i0 + kRF, kv_len), NB * bpp * page);
+  // Keys past the block table do not exist (as in the plain version).
+  const int kv_len = min(kv_lens[b], NB * bpp * page);
+  const int hi = min(offset + i0 + kRF, kv_len);
 
   // The scaled query rows (rows past T are zeros and are not written).
   for (int i = tid; i < kRF * kD; i += kThreads) {

@@ -12,8 +12,9 @@
 //
 // Bound on the H100: bytes, but far below any launch: 4 bytes a score in,
 // 4 bytes a selected id out (131 KB and 66 KB for 16 rows of 2048 pages
-// at K = 128). The kernel's time is its serial chain (four histogram
-// passes and two counting passes, each ending in a CTA barrier).
+// at K = 128). The kernel's time is its serial chain: the key loads, four
+// histogram passes of three CTA barriers each, a counting pass and a
+// writing pass.
 #include "select_common.cuh"
 
 namespace qt {

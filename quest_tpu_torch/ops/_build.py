@@ -8,7 +8,9 @@ and flags, so an edited source is rebuilt. A failed build raises; no
 caller catches it.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises on a non-zero code.
+:func:`check` raises on a non-zero code. A source may be built a second
+time with preprocessor ``defines`` (an instrumented variant, e.g. the
+fused kernel's stage clock), into a library of its own.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ SIGNATURES = {
 }
 KERNELS = tuple(SIGNATURES)
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -59,24 +61,29 @@ def nvcc_path() -> str:
     return cand
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines: Iterable[str] = ()) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _lib_path(name: str, defines: tuple = ()) -> Path:
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: tuple = ()):
     """Start nvcc for one source; returns (target, tmp, Popen) or None
     when the library is already built."""
-    out = _lib_path(name)
+    out = _lib_path(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc
@@ -92,11 +99,12 @@ def _finish(name: str, job) -> str:
     return log                 # half-written library
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+def build(names: Iterable[str] = KERNELS,
+          defines: tuple = ()) -> Dict[str, str]:
     """Build the given kernels, one ``nvcc`` per source, all started
     together. Returns the compiler log (``-Xptxas -v``) per kernel
     built; an up-to-date library is not rebuilt."""
-    jobs = {n: _start(n) for n in names}
+    jobs = {n: _start(n, defines) for n in names}
     try:
         return {n: _finish(n, j) for n, j in jobs.items() if j is not None}
     finally:                   # a failed build stops the other compilers
@@ -106,19 +114,20 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
                 j[2].wait()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built if needed."""
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built with ``defines``),
+    built if needed."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            build([name], defines)
+            lib = ctypes.CDLL(str(_lib_path(name, defines)))
             lib.qt_error_string.argtypes = [ctypes.c_int]
             lib.qt_error_string.restype = ctypes.c_char_p
             fn, argtypes = SIGNATURES[name]
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[(name, defines)] = lib
         return lib
 
 

@@ -280,12 +280,13 @@ def test_prefill_kernel_matches_plain(cuda, q_dtype, dtype, T, offs, kv_lens,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn,
+                                   torch.float32])
 def test_prefill_kernel_masks_keys_past_table(cuda, dtype):
     """A kv_len past the block table's NB * bpp * page = 48 tokens: keys
-    past the table do not exist, as in the plain version. (The f32 FMA
-    kernel, off the serving path, counts them as zero keys: ROADMAP.md
-    queue 3; the engine never makes such a row.)"""
+    past the table do not exist, as in the plain version, in the TMA
+    kernel (bf16, fp8 pools) and in the FMA kernel (f32 pools) alike; the
+    engine never makes such a row."""
     g, pool, tab = card_pool(15, 2, 2, 3, dtype, page=16, bpp=1)
     q = torch.randn((2, 60, 8, 128), generator=g, device=cuda).to(
         torch.bfloat16)
@@ -295,7 +296,7 @@ def test_prefill_kernel_masks_keys_past_table(cuda, dtype):
     got = prefill_attention(q, pool, off, kvl, **kw)
     want = prefill_attention_plain(q, pool, off, kvl, **kw)
     torch.cuda.synchronize()
-    assert rel_err(got, want) <= CARD_TOL[torch.bfloat16]
+    assert rel_err(got, want) <= CARD_TOL.get(dtype, CARD_TOL[torch.bfloat16])
 
 
 def prefill_group_case(device, Hq, Hkv, dtype):

@@ -37,6 +37,7 @@ from quest_tpu_torch.ops.topk import select_pages
 from quest_tpu_torch.ops.utils import check_pool_dtype, upcast_fp8
 from test_torch_attention import (CARD_TOL, Q_DTYPES, card_pool,  # noqa: F401
                                   cuda, rel_err)
+from test_torch_fused import ESTIMATE_SHAPES, estimate_operands
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -351,17 +352,20 @@ def test_prefill_fp8_kernel_matches_plain(cuda, q_dtype, page, T, offs,
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", Q_DTYPES)
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
-def test_estimate_fp8_kernel_matches_plain(cuda, q_dtype, G):
-    """fp8 metadata with denormals and the NaN code (read as 480)."""
-    B, Hkv, P = 3, 4, 700
+@pytest.mark.parametrize("P,layout", ESTIMATE_SHAPES)
+def test_estimate_fp8_kernel_matches_plain(cuda, q_dtype, G, P, layout):
+    """fp8 metadata with denormals and the NaN code (read as 480), at page
+    counts below, at and off one CTA's pages, in both layouts."""
+    B, Hkv = 3, 4
     g = torch.Generator(device="cuda").manual_seed(40 + G)
-    a = torch.randn((2, B, Hkv, P, 128), generator=g, device=cuda)
-    b = torch.randn((2, B, Hkv, P, 128), generator=g, device=cuda) * 1e-2
-    kmax, kmin = torch.maximum(a, b).to(FP8), torch.minimum(a, b).to(FP8)
-    kmax.view(torch.uint8)[LAYER, 0, 0, 0, :4] = 0x7F
+    kmax, kmin, layer = estimate_operands(g, B, Hkv, P, layout, scale=1e-2)
+    kmax, kmin = kmax.to(FP8), kmin.to(FP8)
+    first = kmax[LAYER] if layer is not None else kmax
+    first.view(torch.uint8)[0, 0, 0, :4] = 0x7F
     q = torch.randn((B, Hkv * G, 128), generator=g, device=cuda).to(q_dtype)
     agg = "max" if G % 4 else "sum"
-    got = page_scores_kernel(q, kmax, kmin, agg, layer=LAYER)
-    want = page_scores_kernel_plain(q, kmax, kmin, agg, layer=LAYER)
+    got = page_scores_kernel(q, kmax, kmin, agg, layer=layer)
+    want = page_scores_kernel_plain(q, kmax, kmin, agg, layer=layer)
     torch.cuda.synchronize()
+    assert got.shape == (B, Hkv, P)
     assert rel_err(got, want) <= 1e-5

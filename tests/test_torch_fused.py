@@ -253,6 +253,14 @@ def test_fused_plain_selects_like_the_pipeline():
                            n.repeat_interleave(2)) == (0, 0.0)
 
 
+def test_fused_stages_cpu_smoke(capsys):
+    """The stage-clock script's --cpu run: the plain fused op on its kernel
+    case (a 2048-token pool), finite."""
+    from quest_tpu_torch.exp import fused_stages
+    assert fused_stages.main(["--cpu"]) == 0
+    assert "finite True" in capsys.readouterr().out
+
+
 # --------------------------------------------------------------------------
 # The model's gate.
 # --------------------------------------------------------------------------
@@ -380,21 +388,43 @@ def card_rel_err(got, want):
                  / want.float().abs().max())
 
 
+# Page counts of the estimate's card cases, with the metadata layout: a
+# warp takes 16 pages over bf16 and fp8 metadata (4 over f32 at these
+# shapes), a CTA four warps, so 700 and 33 leave ragged tiles, 12 and 1
+# are below one tile, 64 is a multiple; "stacked" is [L, B, Hkv, P, D]
+# read at ``layer``, "flat" is [B, Hkv, P, D].
+ESTIMATE_SHAPES = [(700, "stacked"), (12, "flat"), (33, "stacked"),
+                   (64, "flat"), (1, "stacked")]
+
+
+def estimate_operands(g, B, Hkv, P, layout, scale=1.0):
+    """k_max / k_min in f32 (a random pair ordered elementwise), of shape
+    [2, B, Hkv, P, 128] (stacked) or [B, Hkv, P, 128] (flat), and the
+    ``layer`` argument that reads them."""
+    lead = (2,) if layout == "stacked" else ()
+    a = torch.randn(lead + (B, Hkv, P, 128), generator=g, device="cuda")
+    b = torch.randn(lead + (B, Hkv, P, 128), generator=g,
+                    device="cuda") * scale
+    return (torch.maximum(a, b), torch.minimum(a, b),
+            LAYER if layout == "stacked" else None)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("meta", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
-def test_estimate_kernel_matches_plain(cuda, q_dtype, meta, G):
-    B, Hkv, P = 3, 4, 700
+@pytest.mark.parametrize("P,layout", ESTIMATE_SHAPES)
+def test_estimate_kernel_matches_plain(cuda, q_dtype, meta, G, P, layout):
+    B, Hkv = 3, 4
     g = torch.Generator(device="cuda").manual_seed(G)
-    a = torch.randn((2, B, Hkv, P, 128), generator=g, device=cuda)
-    b = torch.randn((2, B, Hkv, P, 128), generator=g, device=cuda)
-    kmax, kmin = torch.maximum(a, b).to(meta), torch.minimum(a, b).to(meta)
+    kmax, kmin, layer = estimate_operands(g, B, Hkv, P, layout)
+    kmax, kmin = kmax.to(meta), kmin.to(meta)
     q = torch.randn((B, Hkv * G, 128), generator=g, device=cuda).to(q_dtype)
     agg = "max" if G % 4 else "sum"
-    got = page_scores_kernel(q, kmax, kmin, agg, layer=LAYER)
-    want = page_scores_kernel_plain(q, kmax, kmin, agg, layer=LAYER)
+    got = page_scores_kernel(q, kmax, kmin, agg, layer=layer)
+    want = page_scores_kernel_plain(q, kmax, kmin, agg, layer=layer)
     torch.cuda.synchronize()
+    assert got.shape == (B, Hkv, P)
     assert card_rel_err(got, want) <= 1e-5
 
 
@@ -431,14 +461,31 @@ def test_select_kernel_rejects_misshapen_num_pages(cuda):
         exact_topk_select(s, torch.ones(2, dtype=torch.int32, device=cuda), 8)
 
 
+def kernel_selection(q, kmax, kmin, tab, bpp, seq, page, K, agg):
+    """The plain selection over the streaming estimate kernel's scores of
+    every logical page of every row, which are bit for bit the fused
+    kernel's own (the same device code on the same query split)."""
+    Hkv, D = kmax.shape[1], kmax.shape[-1]
+    B = tab.shape[0]
+    phys = (tab.long()[:, :, None] * bpp
+            + torch.arange(bpp, device=tab.device)).reshape(B, -1)
+    km = kmax[LAYER].reshape(Hkv, -1, D)[:, phys].transpose(0, 1).contiguous()
+    kn = kmin[LAYER].reshape(Hkv, -1, D)[:, phys].transpose(0, 1).contiguous()
+    scores = page_scores_kernel(q, km, kn, agg)
+    n = ((seq.long() + page - 1) // page).repeat_interleave(Hkv)
+    ids, _ = exact_topk_select_plain(scores.reshape(B * Hkv, -1), n, K)
+    return ids.reshape(B, Hkv, K)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("pool,meta", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
-def test_fused_kernel_matches_plain(cuda, q_dtype, pool, meta, G):
-    B, Hkv, NB, bpp, page, K = 4, 2, 6, 32, 16, 40
+@pytest.mark.parametrize("page", [16, 32])
+def test_fused_kernel_matches_plain(cuda, q_dtype, pool, meta, G, page):
+    B, Hkv, NB, bpp, K = 4, 2, 6, 32, 40
     g = torch.Generator(device="cuda").manual_seed(G)
     NPB = B * NB + 2
     kv = torch.randn((2, Hkv, NPB * bpp, 2, page, 128), generator=g,
@@ -468,3 +515,69 @@ def test_fused_kernel_matches_plain(cuda, q_dtype, pool, meta, G):
                                    want_ids.reshape(B * Hkv, K),
                                    scores.reshape(B * Hkv, -1), n)
     assert flips == 0 or worst <= 1e-5, (flips, worst)
+    assert torch.equal(ids, kernel_selection(q, kmax, kmin, tab, bpp, seq,
+                                             page, K, kw["group_agg"]))
+
+
+def tie_levels(case, P=320):
+    """Per-page score levels of one tie case (row of P = 320 pages at page
+    16, split over the cluster's 8 CTAs in segments of ceil(n / 8) pages),
+    with its seq_len and K."""
+    rng = np.random.default_rng(9)
+    lev = rng.integers(1, 5, P).astype(np.float32)
+    if case == "straddle":       # n = 203 (segments of 26): the tie band
+        lev[:20] = 10 + np.arange(20)    # 20..80 holds the boundary and
+        lev[20:81] = 5                   # crosses segments at 26, 52, 78
+        return lev, 203 * 16 - 5, 70
+    if case == "all_equal":      # every page ties; 63 + the last taken
+        return np.full(P, 3, np.float32), P * 16, 64
+    if case == "one_page":
+        return lev, 9, 16
+    if case == "short":          # n = 37 < K, every page taken
+        return lev, 37 * 16 - 3, 64
+    if case == "k1":             # only the last page (+inf)
+        return lev, 100 * 16 - 1, 1
+    if case == "k256":           # n = 300, 10 levels, ties at the boundary
+        return rng.integers(0, 10, P).astype(np.float32), 300 * 16 - 7, 256
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool,meta", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.float32)])
+@pytest.mark.parametrize("case", ["straddle", "all_equal", "one_page",
+                                  "short", "k1", "k256"])
+def test_fused_kernel_select_ties(cuda, pool, meta, case):
+    """Exact ties inside one CTA's segment and across the cluster's
+    segment boundaries, an all-equal row, n = 1, n < K, n off a multiple
+    of 8, K = 1 and K = 256: the metadata rows hold one integer level a
+    page and q is all ones, so scores are exact and equal levels tie
+    exactly. The ids are bit for bit the plain selection."""
+    Hkv, G, page, NB, bpp, D = 2, 4, 16, 10, 32, 128
+    lev, seq_len, K = tie_levels(case)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    NPB = NB + 2
+    kv = torch.randn((2, Hkv, NPB * bpp, 2, page, D), generator=g,
+                     device=cuda).to(pool)
+    perm = torch.randperm(NPB - 1, generator=torch.Generator().manual_seed(3))
+    tab = (1 + perm[:NB]).reshape(1, NB).to(torch.int32).to(cuda)
+    phys = (tab.long()[0, :, None] * bpp
+            + torch.arange(bpp, device=cuda)).reshape(-1)
+    levels = torch.from_numpy(np.stack([lev, np.roll(lev, 7)])).to(cuda)
+    meta_f = torch.zeros((2, Hkv, NPB * bpp, D), device=cuda)
+    meta_f[LAYER][:, phys] = levels[:, :, None].expand(-1, -1, D)
+    kmax = kmin = meta_f.to(meta).reshape(2, Hkv, NPB, bpp, D)
+    q = torch.ones((1, Hkv * G, D), device=cuda, dtype=torch.bfloat16)
+    seq = torch.tensor([seq_len], dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=D ** -0.5, budget_pages=K, layer=LAYER,
+              block_tab=tab, block_pages=bpp, group_agg="sum",
+              return_ids=True)
+    got, ids = fused_sparse_decode(q, kv, kmax, kmin, seq, **kw)
+    want, want_ids = fused_sparse_decode_plain(q, kv, kmax, kmin, seq, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, want_ids)
+    assert torch.equal(ids, kernel_selection(q, kmax, kmin, tab, bpp, seq,
+                                             page, K, "sum"))
+    assert torch.isfinite(got).all()
+    tol = 2e-2 if pool == torch.bfloat16 else 2e-3
+    assert card_rel_err(got, want) <= tol
