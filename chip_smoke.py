@@ -16,12 +16,14 @@ Phases, each fatal on failure:
      serving phase's shape (B=2, T=5120, rows of 5000 and 2500 tokens),
      its yardstick SDPA restricted to each of the flash, cuDNN and
      efficient-attention kernels with a bottom-right causal mask (the
-     fastest that agrees with the plain version counts);
+     fastest that agrees with the plain version counts; at the serving
+     shape one call with the explicit causal-and-length boolean mask);
      The fused path's kernels are held the same way: the streaming
      estimate within 1e-5, the select's ids bit for bit (random rows
      and boundary ties), the fused decode within 2e-2 with every
      selected id that differs from the plain selection inside a 1e-5
-     band around the K-th score, timed beside the unfused pipeline;
+     band around the K-th score, timed beside the unfused pipeline, and
+     once more over 8-token pages (two pages an attention chunk);
      then the fp8 e4m3 branches of the sparse, dense, prefill and
      estimate kernels (fp8 pool and metadata) at page 16 and at page 32,
      each also timed beside its bf16 branch on the same values;
@@ -42,7 +44,9 @@ Phases, each fatal on failure:
      ``generate`` on two prompts, then ``clear()`` and
      ``generate_ondevice`` on two more, with the kernel launch counts of
      each run checked against its path; the decode steps timed in turns
-     and profiled.
+     and profiled, the device ops of a step checked against the path's
+     (the sparse and dense kernels merge their splits in the same
+     launch).
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this script, it exits non-zero and prints
@@ -314,6 +318,35 @@ def prefill_sdpa(qs, K, V, offset):
     return calls
 
 
+def masked_prefill_sdpa(qs, K, V, mask):
+    """Library yardsticks of a prefill over rows of several lengths: one
+    SDPA call with an explicit boolean mask (causal and length, [B, 1, T,
+    Tkv]), restricted to one backend each (flash takes no mask; the
+    efficient kernel gets K/V repeated to every query head). Returns
+    {backend: call} for the backends that accept the call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = qs.shape[1] // K.shape[1]
+    calls = {}
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+        gqa = backend != SDPBackend.EFFICIENT_ATTENTION
+        k, v = ((K, V) if gqa else (K.repeat_interleave(G, 1),
+                                    V.repeat_interleave(G, 1)))
+
+        def call(k=k, v=v, backend=backend, gqa=gqa):
+            with sdpa_kernel(backend):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qs, k, v, attn_mask=mask, scale=1.0,
+                    enable_gqa=gqa).transpose(1, 2)
+        try:
+            call()
+            torch.cuda.synchronize()
+            calls[backend.name] = call
+        except RuntimeError as e:
+            log(f"SDPA {backend.name} refused the masked prefill yardstick: "
+                f"{str(e).splitlines()[0][:160]}")
+    return calls
+
+
 def prefill_case(timer, label, q, kv_pages, off, kvl, kw, flops, nbytes,
                  library=None, bf16_pool=None):
     """One prefill case: the kernel against its plain version, timed
@@ -410,10 +443,21 @@ def prefill_cases(timer, gen):
     kvl = torch.tensor(lens, dtype=torch.int32, device="cuda")
     flops = 4 * Hq * D * sum(causal_pairs(T, 0, n) for n in lens)
     nbytes = sum(lens) * Hkv * 2 * D * 2 + q.numel() * (2 + 4)
+    # Yardstick: one SDPA call over both rows' keys (5000 each, the short
+    # row's past 2500 masked) with the causal-and-length boolean mask.
+    n_max = max(lens)
+    K = torch.stack([gather_tokens(cache, b, n_max)[0] for b in range(2)])
+    V = torch.stack([gather_tokens(cache, b, n_max)[1] for b in range(2)])
+    k_pos = torch.arange(n_max, device="cuda")
+    mask = ((k_pos[None, None, :] <= torch.arange(T, device="cuda")[None, :,
+                                                                    None])
+            & (k_pos[None, None, :] < kvl[:, None, None]))[:, None]
+    qs = (q.float() / math.sqrt(D)).to(torch.bfloat16).transpose(1, 2)
     cases.append(prefill_case(timer, "serving shape B=2 T=5120 kv 5000+2500",
                               q, cache.kv_pages, off, kvl,
                               dict(kw, block_tab=cache.block_tab), flops,
-                              nbytes))
+                              nbytes, masked_prefill_sdpa(qs, K, V, mask)))
+    del K, V, mask, qs
     del cache
     return cases
 
@@ -596,7 +640,59 @@ def fused_slice_cases(timer, gen):
     out["fused_decode"].append(fused_serving_rows(timer, cache, q, kw, P))
     out["fused_decode"].append(fused_tie_rows(cache, q, kw))
     del cache
+    out["fused_decode"].append(fused_page8_case(timer, gen))
     return out
+
+
+def fused_page8_case(timer, gen):
+    """The fused kernel over a pool of 8-token pages (two pages an
+    attention chunk; the budget of 2048 tokens is 256 pages), B=2, 32768 +
+    7001 tokens, bf16, held to its plain version; returns the case."""
+    from quest_tpu_torch.ops.fused_decode import (fused_sparse_decode,
+                                                  fused_sparse_decode_plain,
+                                                  slot_page_scores)
+    from quest_tpu_torch.ops.reference import selection_flips
+    cfg, quest, cache = make_pool(32768, 2, gen, page_size=8)
+    seq = torch.tensor([32768, 7001], dtype=torch.int32, device="cuda")
+    B, Hq, Hkv, D = 2, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    page, K, P = quest.page_size, quest.page_budget, cache.max_pages
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(sm_scale=1.0 / math.sqrt(D), budget_pages=K,
+              group_agg=quest.group_agg, layer=0, block_tab=cache.block_tab,
+              block_pages=cache.block_pages)
+    args = (cache.kv_pages, cache.k_max, cache.k_min, seq)
+    got, ids = fused_sparse_decode(q, *args, return_ids=True, **kw)
+    want, want_ids = fused_sparse_decode_plain(q, *args, return_ids=True,
+                                               **kw)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    scores = slot_page_scores(q, cache.k_max, cache.k_min, layer=0,
+                              block_tab=cache.block_tab,
+                              block_pages=cache.block_pages,
+                              group_agg=quest.group_agg)
+    n = (seq.long() + page - 1) // page
+    flips, gap = selection_flips(ids.reshape(B * Hkv, K),
+                                 want_ids.reshape(B * Hkv, K),
+                                 scores.reshape(B * Hkv, P),
+                                 n.repeat_interleave(Hkv))
+    assert err <= REL_TOL, f"fused kernel disagrees at page 8: {err}"
+    assert flips == 0 or gap <= 1e-5, f"fused selection differs: {flips}, {gap}"
+    ms = timer(lambda: fused_sparse_decode(q, *args, **kw))
+    plain = timer(lambda: fused_sparse_decode_plain(q, *args, **kw))
+    nbytes = (Hkv * int(n.sum()) * 2 * D * 2
+              + Hkv * int(n.clamp(max=K).sum()) * 2 * page * D * 2
+              + q.numel() * 2 + q.numel() * 4 + cache.block_tab.numel() * 4)
+    log(f"fused[page 8, {K} pages]: rel err {err:.2e}, {flips} ids differ "
+        f"(gap {gap:.1e}), {ms * 1e3:.1f} us (bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e6:.1f} us, plain {plain * 1e3:.1f} "
+        f"us)")
+    del cache
+    torch.cuda.empty_cache()
+    return dict(case=f"page 8, B=2, 32768+7001 tokens, {K} pages",
+                max_abs_err=float((got - want).abs().max()),
+                max_rel_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                flipped_ids=flips, flip_max_rel_gap=gap)
 
 
 def fused_serving_rows(timer, cache, q, kw, P):
@@ -1025,6 +1121,11 @@ def cache_bytes(cache):
 
 # Engine name: its QuestConfig (max_seq_len 16384) by keyword arguments.
 SERVING_PATHS = ("unfused", "fused", "serving", "serving_fp8")
+# Device ops (kernels, copies, memsets) of one decode step in the profile:
+# the sparse and dense kernels merge their splits in the same launch, one
+# launch a layer (30 sparse + 2 dense layers unfused, 2 dense fused).
+DEVICE_OPS_PER_STEP = {"unfused": 4450, "fused": 3130, "serving": 4450,
+                       "serving_fp8": 4514}
 
 
 def serving_quest(path):
@@ -1145,6 +1246,12 @@ def serving_phase(kernels):
                              decode_ms_per_step=decode_ms[path],
                              generate_ondevice_s=totals[path],
                              **profile_decode(engines[path], tok[path], path))
+        # Over the two profiled steps the fp8 engine runs one op more than
+        # twice its step (4513.5 a step): half an op of slack.
+        ops = serving[path]["device_ops_per_step"]
+        assert abs(ops - DEVICE_OPS_PER_STEP[path]) <= 0.5, (
+            f"{path}: {ops} device ops a decode step, expected "
+            f"{DEVICE_OPS_PER_STEP[path]}")
     serving["token_agreement"] = same
     return counts, serving
 

@@ -190,22 +190,28 @@ __device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
       : "memory");
 }
 
+// Whether the phase of the given parity has completed (try_wait: the
+// thread may sleep a while in it first).
+__device__ __forceinline__ bool bar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // Waits for the phase of the given parity; traps (an error the host
-// sees, not a hang) if it has not completed after ~10 s.
+// sees, not a hang) if it has not completed after ~10 s. The clock is
+// read only once the first try fails.
 __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  if (bar_try(bar, parity)) return;
   const long long t0 = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
+  while (!bar_try(bar, parity))
     if (clock64() - t0 > (1ll << 34)) __trap();
-  }
 }
 
 // Makes a thread's mbarrier inits visible to the async proxy (bulk copies)

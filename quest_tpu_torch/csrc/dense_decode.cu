@@ -8,24 +8,30 @@
 // its own CTA, every page is mapped through the block table
 // (tab[b, p / bpp] * bpp + p % bpp), tokens >= seq_len are masked (the
 // sequence may end inside a block or a page), and the splits are merged
-// by log-sum-exp in a second small kernel.
+// by log-sum-exp: in the same launch over bf16 and fp8 pools
+// (decode_common.cuh: decode_ring, which also brings each split's pages
+// in through a ring of TMA or bulk copies and attends on the tensor
+// cores), by a second small kernel over f32 pools. The grid is sized from
+// the block table's capacity and the SM count (no host read of seq_lens;
+// ops/decode_common.py:decode_plan, three CTAs an SM for a full table);
+// splits past a row's pages exit at once.
 //
 // Bound on the H100: bytes. Every K and V row of the slot is read once
 // per KV head: 8 heads x 32768 tokens x 512 bytes = 134 MB for one
 // 32K-token row of Llama-3.1-8B in bf16 (half that from an fp8 e4m3
-// pool), against 3.35 TB/s. The G query
-// heads of a group share each row read; the splits put hundreds of CTAs
-// in flight so that the loads of many SMs overlap.
+// pool), against 3.35 TB/s. The G query heads of a group share each row
+// read; the splits put hundreds of CTAs in flight so that the loads of
+// many SMs overlap.
 #include "decode_common.cuh"
 
 extern "C" int dense_decode_launch(
     const void* q, const void* kv, const int* tab, const int* seq_lens,
-    float* part_o, float* part_ml, float* out, int B, int Hkv, int G, int NP,
-    int page, int NB, int bpp, int nsplit, int per_split, int kv_dtype,
-    float sm_scale, int q_bf16, void* stream) {
-  qt::DecodeArgs a{q,       kv,       tab, seq_lens, nullptr, nullptr,
-                   part_o,  part_ml,  Hkv, 1,        NP,      page,
-                   NB,      bpp,      0,   nsplit,   per_split,
-                   sm_scale, q_bf16};
-  return qt::dispatch_decode<false>(a, out, B, G, kv_dtype, stream);
+    float* part_o, float* part_ml, int* tickets, float* out, int B, int Hkv,
+    int G, int NP, int page, int NB, int bpp, int nsplit, int per_split,
+    int kv_dtype, float sm_scale, int q_bf16, const void* tmap, void* stream) {
+  qt::DecodeArgs a{q,       kv,      tab,     seq_lens, nullptr, nullptr,
+                   part_o,  part_ml, tickets, out,      Hkv,     1,
+                   NP,      page,    NB,      bpp,      0,       nsplit,
+                   per_split, sm_scale, q_bf16};
+  return qt::dispatch_decode<false>(a, tmap, B, G, kv_dtype, stream);
 }

@@ -33,14 +33,16 @@
 //      round of peer reads for each of its four passes; pushing the keys
 //      costs one barrier.)
 //   3. Attention over the CTA's share of the min(K, n) selected pages, cut
-//      into chunks of TC tokens: warp w takes chunks w, w + 8, ..., loads
-//      a chunk's K and V rows with 16-byte cp.async into a padded buffer
-//      of its own and attends the G query heads over it with its own
-//      online softmax, so no CTA barrier sits in the loop and the warps'
-//      loads overlap each other's products. Over a bf16 pool and bf16
-//      metadata (the serving path) QK^T and PV run on the tensor cores
-//      (mma.sync m16n8k16, the heads padded to 16 rows); otherwise on
-//      FMAs (QK a lane a token, PV a lane 4 dims).
+//      into chunks of TC tokens (16; 8 over an f32 pool), a chunk
+//      spanning pages where a page holds fewer or is not a multiple:
+//      warp w takes chunks w, w + 8, ..., loads a chunk's K and V rows
+//      with 16-byte cp.async into a padded buffer of its own and attends
+//      the G query heads over it with its own online softmax, so no CTA
+//      barrier sits in the loop and the warps' loads overlap each other's
+//      products. Over a bf16 pool and bf16 metadata (the serving path)
+//      QK^T and PV run on the tensor cores (attend.cuh, shared with the
+//      sparse and dense kernels); otherwise on FMAs (QK a lane a token,
+//      PV a lane 4 dims).
 //   4. Merge: the warps' partials merge in shared memory, each CTA stores
 //      head g's partial into the shared memory of rank g % 8, and after
 //      one cluster barrier each CTA merges its heads by log-sum-exp from
@@ -63,6 +65,7 @@
 // the select, the attention's loads and the merge barrier.
 #include <cooperative_groups.h>
 
+#include "attend.cuh"
 #include "select_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -178,18 +181,6 @@ __device__ __forceinline__ void load4(const T* p, float* f) {
     f[2] = v.z;
     f[3] = v.w;
   }
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, transposed (the B operand
-// of mma_bf16 from a row-major [k][n] tile); lane l gives the address of
-// row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row)));
 }
 
 // The two halves of a cluster barrier: arrive (relaxed: orders nothing)
@@ -367,126 +358,52 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
   T* kb = reinterpret_cast<T*>(ring + warp * kWarpBytes);
   T* vb = kb + TC * STR;
   float* wa = reinterpret_cast<float*>(ring + warp * kWarpBytes);
-  // Chunk c's K and V rows into the warp's buffer. A chunk lies in one
-  // page (TC divides the page size), so its rows are contiguous in the
-  // pool; rows past the share are zero-filled (no stale value meets a zero
-  // probability in PV).
+  // Chunk c's K and V rows into the warp's buffer. A chunk may span pages
+  // (pages of fewer than TC tokens, or not a multiple of TC): lane r < TC
+  // finds token r's row in the pool and the lanes share it; rows past the
+  // share are zero-filled (no stale value meets a zero probability in PV).
   auto load_chunk = [&](int c) {
-    const int t0 = c * TC, e0 = t0 % a.page;
-    const T* src = kv + kv_row(h, phys_page(tab, 0, a.NB, a.bpp,
-                                            ids[t0 / a.page]),
-                               e0, a.NP, a.page, kHeadDim);
+    const int t0 = c * TC;
+    int row = 0;  // the token's K row in the layer, in rows of kHeadDim
+    if (lane < TC && t0 + lane < ntok) {
+      const int t = t0 + lane;
+      row = static_cast<int>(
+          kv_row(h, phys_page(tab, 0, a.NB, a.bpp, ids[t / a.page]),
+                 t % a.page, a.NP, a.page, 1));
+    }
     const int rows = min(TC, ntok - t0);
     for (int i = lane; i < TC * CPR; i += 32) {
-      const int r = i / CPR, off = r * kHeadDim + (i % CPR) * CH;
+      const int r = i / CPR, cc = i % CPR;
+      const int64_t ro =
+          static_cast<int64_t>(__shfl_sync(kFull, row, r)) * kHeadDim;
       const bool ok = r < rows;
-      cp_async16(kb + r * STR + (i % CPR) * CH, ok ? src + off : kv, ok);
-      cp_async16(vb + r * STR + (i % CPR) * CH,
-                 ok ? src + a.page * kHeadDim + off : kv, ok);
+      cp_async16(kb + r * STR + cc * CH, ok ? kv + ro + cc * CH : kv, ok);
+      cp_async16(vb + r * STR + cc * CH,
+                 ok ? kv + ro + a.page * kHeadDim + cc * CH : kv, ok);
     }
     cp_async_commit();
     cp_async_wait<0>();
     __syncwarp();
   };
-  // Token e0 + r of the chunk's page is past the row's length.
+  // Token r of chunk c is a token of the share and inside the row's length.
   auto token_ok = [&](int c, int r) {
-    const int t0 = c * TC;
-    return t0 + r < ntok &&
-           ids[t0 / a.page] * a.page + t0 % a.page + r < seq_len;
+    const int t = c * TC + r;
+    return t < ntok && ids[t / a.page] * a.page + t % a.page < seq_len;
   };
   if constexpr (kMma) {
-    // Tensor cores, m16n8k16 with the G heads as rows (padded to 16; lane
-    // l holds head gid = l / 4): QK^T has K^T as B (8 tokens a tile,
-    // straight from the padded rows); its C fragments, as bf16, are PV's
-    // A (16 tokens a step), and V comes in through ldmatrix.trans.
-    const int gid = lane >> 2, tig = lane & 3;
-    uint32_t qa[8][2];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const float* qr = fs.qs[gid < G ? gid : 0] + kk * 16 + 2 * tig;
-      qa[kk][0] = gid < G ? pack_bf16(qr[0], qr[1]) : 0u;
-      qa[kk][1] = gid < G ? pack_bf16(qr[8], qr[9]) : 0u;
-    }
-    float m_run = QT_MASK_VALUE, l_run = 0.f, acc[16][4];
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    // ldmatrix: lane l addresses row l % 8 of matrix l / 8 (tokens +8 for
-    // odd matrices, dims +8 for matrices 2 and 3).
-    const T* vr =
-        vb + ((lane & 7) + ((lane >> 3) & 1) * 8) * STR + (lane >> 4) * 8;
+    // Tensor cores (attend.cuh): q rounded to M and un-scaled, the scores
+    // multiplied by the softmax scale.
+    const int gid = lane >> 2;
+    WarpAttn wa_state;
+    wa_state.init(gid < G ? fs.qs[gid] : nullptr);
     for (int c = warp; c < nchunk; c += kWarps) {
       load_chunk(c);
       if (c == warp) QT_STAMP(5);
-      float sc[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const T* kr = kb + (8 * j + gid) * STR + kk * 16 + 2 * tig;
-          mma_bf16(sc[j], qa[kk][0], 0u, qa[kk][1], 0u, ld_u32(kr),
-                   ld_u32(kr + 8));
-        }
-      }
-      // Online softmax of head gid over the chunk's 16 tokens (4 lanes
-      // hold them); masked tokens weigh 0.
-      float mx = QT_MASK_VALUE;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          sc[j][e] = token_ok(c, 8 * j + 2 * tig + e) ? sc[j][e] * a.sm_scale
-                                                      : QT_MASK_VALUE;
-          mx = fmaxf(mx, sc[j][e]);
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pr = sc[j][e] == QT_MASK_VALUE ? 0.f
-                                                     : expf(sc[j][e] - m_new);
-          sum += pr;
-          sc[j][e] = pr;
-        }
-      }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      sum += __shfl_xor_sync(kFull, sum, 2);
-      const float alpha = expf(m_run - m_new);
-      l_run = alpha * l_run + sum;
-      m_run = m_new;
-      const uint32_t a0 = pack_bf16(sc[0][0], sc[0][1]);
-      const uint32_t a2 = pack_bf16(sc[1][0], sc[1][1]);
-#pragma unroll
-      for (int d16 = 0; d16 < 8; ++d16) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vr + d16 * 16);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          float* o = acc[2 * d16 + t];
-          o[0] *= alpha;
-          o[1] *= alpha;
-          mma_bf16(o, a0, 0u, a2, 0u, bv[2 * t], bv[2 * t + 1]);
-        }
-      }
+      const unsigned valid = __ballot_sync(kFull, lane < TC && token_ok(c, lane));
+      wa_state.chunk(PaddedRows<STR>{kb, vb}, a.sm_scale, valid);
       __syncwarp();  // the buffers are read before the next loads
     }
-    // The warp's partial: head gid, dims 8j + 2 tig, + 1.
-    if (gid < G) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        wa[gid * kHeadDim + 8 * j + 2 * tig] = acc[j][0];
-        wa[gid * kHeadDim + 8 * j + 2 * tig + 1] = acc[j][1];
-      }
-      if (tig == 0) {
-        fs.wm[warp][gid] = m_run;
-        fs.wl[warp][gid] = l_run;
-      }
-    }
+    wa_state.store<G>(wa, fs.wm[warp], fs.wl[warp]);
   } else {
     // FMAs: QK a lane a token, PV a lane DL output dims.
     float m_run[G], l_run[G], acc[G][DL];
@@ -663,8 +580,7 @@ extern "C" int fused_decode_launch(
     const int* tab, const int* seq_lens, float* out, int* ids_out, int B,
     int Hkv, int G, int NP, int page, int NB, int bpp, int K, int kv_bf16,
     int meta_bf16, int agg_sum, int q_bf16, float sm_scale, void* stream) {
-  // A 16-token chunk (8 over an f32 pool) lies in one page.
-  if (K < 1 || K > qt::kMaxBudget || page % (kv_bf16 ? 16 : 8) != 0 ||
+  if (K < 1 || K > qt::kMaxBudget || page < 1 ||
       ((reinterpret_cast<uintptr_t>(kv) | reinterpret_cast<uintptr_t>(kmax) |
         reinterpret_cast<uintptr_t>(kmin)) & 15) != 0)
     return cudaErrorInvalidValue;

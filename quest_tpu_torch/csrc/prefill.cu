@@ -51,13 +51,16 @@
 // products by explicit scheduling, and a persistent grid.
 //
 // f32 pools (off the serving path, which keeps bf16 KV) take a plain
-// FMA kernel, prefill_f32_kernel: the contract there is f32 products
-// throughout, which bf16 tensor cores cannot keep.
-#include <cuda.h>  // CUtensorMap and its enums; the driver entry point is
-                   // found at run time (cudaGetDriverEntryPoint), no -lcuda
+// FMA kernel, prefill_fma_kernel: the contract there is f32 products
+// throughout, which bf16 tensor cores cannot keep. bf16 and fp8 pools
+// whose pages the TMA kernel cannot box (fewer than 8 tokens, or not
+// dividing 128; the wrapper chooses by shape) take the same kernel on
+// their element type: q and p rounded to bf16 as in the TMA kernel, fp8
+// read by the upcast_fp8 recipe, the products in f32.
 #include <string.h>
 
 #include "common.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -476,22 +479,25 @@ prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// f32 pools: FMA kernel.
+// f32 pools, and pages the TMA kernel does not take: FMA kernel.
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 128;
 
-// f32 pools: one CTA takes kRF query rows of one head; 32-token K/V
-// tiles go through shared memory, each thread computes scores of
-// (row, token) pairs with FMAs, one warp runs the online softmax of a
-// row, and thread t accumulates output dim t of every row.
+// One CTA takes kRF query rows of one head; 32-token K/V tiles go
+// through shared memory as f32 (pool element KV widened), each thread
+// computes scores of (row, token) pairs with FMAs, one warp runs the
+// online softmax of a row, and thread t accumulates output dim t of
+// every row. q and p are rounded to KV's compute dtype (Elem<KV>::round:
+// none for f32, bf16 for bf16 and fp8) before the products.
 constexpr int kRF = 16;              // query rows per CTA
 constexpr int kTF = 32;              // tokens per K/V tile (one per lane)
 constexpr int kKStrF = kD + 4;       // padded K row: float4 reads of 8
                                      // consecutive rows hit distinct banks
 
+template <typename KV>
 __global__ void __launch_bounds__(kThreads)
-prefill_f32_kernel(const void* __restrict__ q, const float* __restrict__ kv,
+prefill_fma_kernel(const void* __restrict__ q, const KV* __restrict__ kv,
                    const int* __restrict__ tab,
                    const int* __restrict__ q_offsets,
                    const int* __restrict__ kv_lens, float* __restrict__ out,
@@ -521,7 +527,7 @@ prefill_f32_kernel(const void* __restrict__ q, const float* __restrict__ kv,
       x = q_bf16 ? __bfloat162float(static_cast<const bf16*>(q)[at])
                  : static_cast<const float*>(q)[at];
     }
-    qs[r][d] = x * sm_scale;
+    qs[r][d] = Elem<KV>::round(x * sm_scale);
   }
   if (tid < kRF) {
     m_s[tid] = QT_MASK_VALUE;
@@ -533,19 +539,29 @@ prefill_f32_kernel(const void* __restrict__ q, const float* __restrict__ kv,
   __syncthreads();
 
   for (int t0 = 0; t0 < hi; t0 += kTF) {
-    // K and V rows, one float4 a thread and step; rows past hi are zeros.
-    for (int c = tid; c < kTF * (kD / 4); c += kThreads) {
-      const int r = c / (kD / 4), cc = c % (kD / 4);
+    // K and V rows, 16 bytes of the pool a thread and step, widened to
+    // f32; rows past hi are zeros.
+    constexpr int CH = Elem<KV>::kPerChunk;
+    for (int c = tid; c < kTF * (kD / CH); c += kThreads) {
+      const int r = c / (kD / CH), cc = c % (kD / CH);
       const int t = t0 + r;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+      uint4 kk = make_uint4(0, 0, 0, 0), vv = kk;
       if (t < hi) {
         const int64_t off = kv_row(h_kv, phys_page(tab, b, NB, bpp, t / page),
                                    t % page, NP, page, kD);
-        kk = __ldg(reinterpret_cast<const float4*>(kv + off) + cc);
-        vv = __ldg(reinterpret_cast<const float4*>(kv + off + page * kD) + cc);
+        kk = __ldg(reinterpret_cast<const uint4*>(kv + off) + cc);
+        vv = __ldg(reinterpret_cast<const uint4*>(kv + off + page * kD) + cc);
       }
-      *reinterpret_cast<float4*>(&ks[r][cc * 4]) = kk;
-      *reinterpret_cast<float4*>(&vs[r][cc * 4]) = vv;
+      float fk[CH], fv[CH];
+      Elem<KV>::unpack(kk, fk);
+      Elem<KV>::unpack(vv, fv);
+#pragma unroll
+      for (int j = 0; j < CH; j += 4) {
+        *reinterpret_cast<float4*>(&ks[r][cc * CH + j]) =
+            make_float4(fk[j], fk[j + 1], fk[j + 2], fk[j + 3]);
+        *reinterpret_cast<float4*>(&vs[r][cc * CH + j]) =
+            make_float4(fv[j], fv[j + 1], fv[j + 2], fv[j + 3]);
+      }
     }
     __syncthreads();
 
@@ -573,9 +589,10 @@ prefill_f32_kernel(const void* __restrict__ q, const float* __restrict__ kv,
       const float s = ps[r][lane];
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, warp_max(s));
-      // Masked lanes hold exactly the mask value; they contribute 0.
+      // Masked lanes hold exactly the mask value; they contribute 0. PV
+      // takes p rounded; the sum, the unrounded p.
       const float p = s == QT_MASK_VALUE ? 0.f : expf(s - m_new);
-      ps[r][lane] = p;
+      ps[r][lane] = Elem<KV>::round(p);
       const float sum = warp_sum(p);
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
@@ -622,13 +639,6 @@ cudaError_t launch_tma(const void* tmap, const TmaArgs& a, int B, int Hkv,
   return cudaGetLastError();
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
 }  // namespace
 
 // The TMA descriptor of one layer of a bf16 (kv_dtype 1) or fp8 e4m3 (2)
@@ -639,22 +649,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // when the driver has no cuTensorMapEncodeTiled.
 extern "C" int prefill_tensor_map(void* base, long long rows, int kv_dtype,
                                   int page, void* out) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess ||
-        fn == nullptr)
-      return -1;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return -1;
   const bool fp8 = kv_dtype == 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kD),
                               static_cast<cuuint64_t>(rows)};
@@ -671,22 +667,26 @@ extern "C" int prefill_tensor_map(void* base, long long rows, int kv_dtype,
   return static_cast<int>(r);
 }
 
-// kv_dtype: 0 f32 (FMA kernel), 1 bf16, 2 fp8 e4m3 (TMA + wgmma kernel,
-// which takes tmap from prefill_tensor_map and G = Hq / Hkv in 1, 2, 4, 8,
-// page a multiple of 8 dividing 128; the wrapper checks both).
+// kv_dtype: 0 f32, 1 bf16, 2 fp8 e4m3. f32 pools, and any pool with fma
+// set, take the FMA kernel; otherwise the TMA + wgmma kernel, which takes
+// tmap from prefill_tensor_map and G = Hq / Hkv in 1, 2, 4, 8, page a
+// multiple of 8 dividing 128 (the wrapper chooses the route by shape).
 extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
                               const int* q_offsets, const int* kv_lens,
                               float* out, int B, int T, int Hq, int Hkv,
                               int NP, int page, int NB, int bpp, int kv_dtype,
-                              float sm_scale, int q_bf16, const void* tmap,
-                              void* stream) {
+                              int fma, float sm_scale, int q_bf16,
+                              const void* tmap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == 0) {
+  if (kv_dtype == 0 || fma) {
     dim3 grid((T + kRF - 1) / kRF, Hq, B);
-    prefill_f32_kernel<<<grid, kThreads, 0, s>>>(
-        q, static_cast<const float*>(kv), tab, q_offsets, kv_lens, out, T, Hq,
-        Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(with_elem(kv_dtype, [&](auto t) {
+      using E = decltype(t);
+      prefill_fma_kernel<E><<<grid, kThreads, 0, s>>>(
+          q, static_cast<const E*>(kv), tab, q_offsets, kv_lens, out, T, Hq,
+          Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
+      return cudaGetLastError();
+    }));
   }
   const int G = Hq / Hkv;
   if ((kv_dtype != 1 && kv_dtype != 2) || tmap == nullptr ||

@@ -14,23 +14,26 @@
 // Bound on the H100: bytes. Each selected page is read once per
 // selection head (2 * page * D * 2 bytes in bf16, 8 KB at page 16),
 // about 8.4 MB for one row of Llama-3.1-8B at S = 128, against
-// 3.35 TB/s. The G query heads share every page read. The design
-// splits the slots across CTAs (128 tokens a CTA: 8 slots at page 16,
-// 4 at page 32; ops/sparse_decode.py SPLIT_TOKENS) so that one row
-// fills 16 x Hkv = 128 SMs instead of 8, keeps 16-byte loads per
-// thread, and merges the splits by log-sum-exp in a second small kernel
-// (one CTA per query head). fp8 e4m3 pools read half the bytes.
+// 3.35 TB/s. The G query heads share every page read. The slots are
+// split across CTAs (ops/decode_common.py:decode_plan: the batch's
+// selections spread over one CTA an SM, at least 128 tokens a split, 8
+// splits of 16 slots a (row, KV head) at B=2 on 132 SMs) so that one row
+// fills the card instead of Hkv SMs. Over bf16 and fp8 pools each CTA
+// keeps its split's pages in flight at once (a ring of TMA or bulk
+// copies), attends on the tensor cores in warp-private 16-token chunks,
+// and the splits merge in the same launch (decode_common.cuh:
+// decode_ring). fp8 e4m3 pools read half the bytes.
 #include "decode_common.cuh"
 
 extern "C" int sparse_decode_launch(
     const void* q, const void* kv, const int* tab, const int* seq_lens,
     const int* indices, const int* num_valid, float* part_o, float* part_ml,
-    float* out, int B, int Hsel, int G, int kvdiv, int NP, int page, int NB,
-    int bpp, int S, int nsplit, int per_split, int kv_dtype, float sm_scale,
-    int q_bf16, void* stream) {
-  qt::DecodeArgs a{q,      kv,      tab,   seq_lens, indices, num_valid,
-                   part_o, part_ml, Hsel,  kvdiv,    NP,      page,
-                   NB,     bpp,     S,     nsplit,   per_split,
-                   sm_scale, q_bf16};
-  return qt::dispatch_decode<true>(a, out, B, G, kv_dtype, stream);
+    int* tickets, float* out, int B, int Hsel, int G, int kvdiv, int NP,
+    int page, int NB, int bpp, int S, int nsplit, int per_split, int kv_dtype,
+    float sm_scale, int q_bf16, const void* tmap, void* stream) {
+  qt::DecodeArgs a{q,      kv,      tab,     seq_lens, indices, num_valid,
+                   part_o, part_ml, tickets, out,      Hsel,    kvdiv,
+                   NP,     page,    NB,      bpp,      S,       nsplit,
+                   per_split, sm_scale, q_bf16};
+  return qt::dispatch_decode<true>(a, tmap, B, G, kv_dtype, stream);
 }

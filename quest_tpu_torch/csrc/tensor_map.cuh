@@ -1,0 +1,32 @@
+// cuTensorMapEncodeTiled, found at run time through the runtime's
+// entry-point query (no -lcuda), for the kernels that load by TMA.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums
+#include <cuda_runtime.h>
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The encoder, or null when it cannot be found.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  return encode;
+}

@@ -35,9 +35,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point and its argument types, per kernel source.
 SIGNATURES = {
     "sparse_decode": ("sparse_decode_launch",
-                      [_P] * 9 + [_I] * 12 + [_F, _I, _P]),
-    "dense_decode": ("dense_decode_launch", [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
-    "prefill": ("prefill_launch", [_P] * 6 + [_I] * 9 + [_F, _I, _P, _P]),
+                      [_P] * 10 + [_I] * 12 + [_F, _I, _P, _P]),
+    "dense_decode": ("dense_decode_launch",
+                     [_P] * 8 + [_I] * 10 + [_F, _I, _P, _P]),
+    "prefill": ("prefill_launch", [_P] * 6 + [_I] * 10 + [_F, _I, _P, _P]),
     "estimate": ("estimate_launch", [_P] * 4 + [_I] * 7 + [_P]),
     "topk_select": ("topk_select_launch", [_P] * 4 + [_I] * 3 + [_P]),
     "fused_decode": ("fused_decode_launch", [_P] * 8 + [_I] * 12 + [_F, _P]),

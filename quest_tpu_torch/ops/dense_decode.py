@@ -3,7 +3,8 @@
 
 Used by the first ``skip_layers`` layers of every decode step. On a CUDA
 tensor :func:`dense_decode_attention` launches the hand-written kernel
-``csrc/dense_decode.cu``; on a CPU tensor it runs
+``csrc/dense_decode.cu`` (one launch a call over bf16 and fp8 pools, the
+splits merged inside it); on a CPU tensor it runs
 :func:`dense_decode_attention_plain`, the same function in eager
 PyTorch.
 """
@@ -13,12 +14,17 @@ from __future__ import annotations
 import torch
 
 from quest_tpu_torch.ops import _build
+from quest_tpu_torch.ops.decode_common import (decode_plan, sm_count,
+                                               tensor_map, workspace)
 from quest_tpu_torch.ops.utils import (MASK_VALUE, check_pool_dtype,
                                       compute_dtype, kernel_query,
                                       scaled_query, to_f32)
 
-# Tokens per CTA split (32 pages at page 16).
-SPLIT_TOKENS = 512
+# Splits (ops/decode_common.py:decode_plan): the block table's capacity of
+# the batch's (row, KV head)s spread over CTAS_PER_SM CTAs an SM, none of
+# fewer than MIN_SPLIT_TOKENS tokens.
+CTAS_PER_SM = 3
+MIN_SPLIT_TOKENS = 512
 
 
 def dense_decode_attention_plain(q, kv_pages, seq_lens, *, sm_scale: float,
@@ -82,23 +88,23 @@ def dense_decode_attention(q, kv_pages, seq_lens, *, sm_scale: float,
     if not kv_pages.is_contiguous():
         raise ValueError("kv_pages must be contiguous")
     NB = block_tab.shape[1]
-    per_split = max(1, SPLIT_TOKENS // page)
-    nsplit = -(-NB * block_pages // per_split)
+    # Sized from the table's capacity, not from seq_lens (no host read).
+    plan = decode_plan(B, Hkv, G, page, NB * block_pages, MIN_SPLIT_TOKENS,
+                       CTAS_PER_SM * sm_count(q.device))
     qk = kernel_query(q)
     tab = block_tab.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
-    part_o = torch.empty((B, Hkv, nsplit, G, D), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B, Hkv, nsplit, G, 2), dtype=torch.float32,
-                          device=q.device)
+    part_o, part_ml, tickets = workspace(q.device, plan)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     lib = _build.load("dense_decode")
+    kvl = kv_pages[layer]
+    tmap = tensor_map(lib, kvl) if kvl.dtype == torch.bfloat16 else None
     code = lib.dense_decode_launch(
-        _build.ptr(qk), _build.ptr(kv_pages[layer]), _build.ptr(tab),
+        _build.ptr(qk), _build.ptr(kvl), _build.ptr(tab),
         _build.ptr(lens), _build.ptr(part_o), _build.ptr(part_ml),
-        _build.ptr(out), B, Hkv, G, NP, page, NB, block_pages, nsplit,
-        per_split, kv_code, sm_scale,
-        int(qk.dtype == torch.bfloat16), _build.stream_of(q))
+        _build.ptr(tickets), _build.ptr(out), B, Hkv, G, NP, page, NB,
+        block_pages, plan.nsplit, plan.per_split, kv_code, sm_scale,
+        int(qk.dtype == torch.bfloat16), tmap, _build.stream_of(q))
     _build.check(lib, code, "dense_decode")
     dense_decode_attention.launches += 1
     return out

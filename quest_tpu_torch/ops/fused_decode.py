@@ -207,11 +207,6 @@ def fused_sparse_decode(q, kv_pages, k_max, k_min, seq_lens, *,
             f"the fused kernel holds 1..{MAX_BUDGET} selection slots, got {K}")
     B, Hq, D = q.shape
     _, Hkv, NP, _, page, _ = kv_pages.shape
-    chunk = 16 if kv_pages.dtype == torch.bfloat16 else 8
-    if page % chunk:
-        raise NotImplementedError(
-            f"the fused kernel attends in chunks of {chunk} tokens that lie "
-            f"in one page; got pages of {page}")
     G = check_kernel_operands(q, Hkv, kv_pages, k_max, k_min)
     if k_max.shape[1:] != (Hkv, NP // block_pages, block_pages, D):
         raise ValueError(f"metadata {tuple(k_max.shape)} does not match the "

@@ -3,7 +3,8 @@
 
 On a CUDA tensor :func:`prefill_attention` launches the hand-written
 kernel ``csrc/prefill.cu`` (TMA page loads and wgmma for bf16 and fp8
-e4m3 pools, FMA for f32 pools); on a CPU tensor it runs
+e4m3 pools, FMA for f32 pools and for pages the TMA kernel does not
+take; :func:`prefill_route`); on a CPU tensor it runs
 :func:`prefill_attention_plain`, the same function in eager PyTorch.
 """
 
@@ -70,6 +71,20 @@ TMA_PAGES = (8, 16, 32, 64, 128)
 _tensor_maps = {}
 
 
+def prefill_route(dtype: torch.dtype, page: int, G: int) -> str:
+    """The card kernel of a pool of ``dtype`` with pages of ``page`` tokens
+    and GQA groups of G query heads: ``"tma"`` (TMA + wgmma, bf16 and fp8
+    pools with pages in TMA_PAGES) or ``"fma"`` (f32 pools, and bf16 or
+    fp8 pools with other pages). bf16 and fp8 pools take G in TMA_GROUPS
+    only (either kernel); another G raises NotImplementedError."""
+    code = check_pool_dtype(dtype)
+    if code != 0 and G not in TMA_GROUPS:
+        raise NotImplementedError(
+            f"the CUDA prefill kernel for bf16 and fp8 pools takes GQA groups "
+            f"of {TMA_GROUPS} query heads, not {G}")
+    return "tma" if code != 0 and page in TMA_PAGES else "fma"
+
+
 def _tensor_map(lib, kvl, kv_code):
     """The TMA descriptor of one layer of the pool, seen as rows of 128
     elements ``[Hkv * NP * 2 * page, 128]``, cached by (pointer, shape,
@@ -112,14 +127,7 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
         raise NotImplementedError("the CUDA prefill kernel takes head_dim 128")
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
-    if kv_code != 0 and Hq // Hkv not in TMA_GROUPS:
-        raise NotImplementedError(
-            f"the CUDA prefill kernel for bf16 and fp8 pools takes GQA groups "
-            f"of {TMA_GROUPS} query heads, not {Hq // Hkv}")
-    if kv_code != 0 and page not in TMA_PAGES:
-        raise NotImplementedError(
-            f"the CUDA prefill kernel for bf16 and fp8 pools takes pages of "
-            f"{TMA_PAGES} tokens, not {page}")
+    route = prefill_route(kv_pages.dtype, page, Hq // Hkv)
     for t in (kv_pages, q_offsets, kv_lens, block_tab):
         if t.device != q.device:
             raise ValueError("all operands must be on the query's device")
@@ -132,12 +140,12 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
     out = torch.empty((B, T, Hq, D), dtype=torch.float32, device=q.device)
     lib = _build.load("prefill")
     kvl = kv_pages[layer]
-    tmap = None if kv_code == 0 else _tensor_map(lib, kvl, kv_code)
+    tmap = _tensor_map(lib, kvl, kv_code) if route == "tma" else None
     code = lib.prefill_launch(
         _build.ptr(qk), _build.ptr(kvl), _build.ptr(tab),
         _build.ptr(offs), _build.ptr(lens), _build.ptr(out), B, T, Hq, Hkv,
         NP, page, tab.shape[1], block_pages,
-        kv_code, sm_scale,
+        kv_code, int(route == "fma"), sm_scale,
         int(qk.dtype == torch.bfloat16), tmap, _build.stream_of(q))
     _build.check(lib, code, "prefill")
     prefill_attention.launches += 1

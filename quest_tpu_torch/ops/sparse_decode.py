@@ -2,7 +2,8 @@
 signature Quest kernel (counterpart of ``quest_tpu/ops/sparse_decode.py``).
 
 On a CUDA tensor :func:`sparse_decode_attention` launches the
-hand-written kernel ``csrc/sparse_decode.cu``; on a CPU tensor it runs
+hand-written kernel ``csrc/sparse_decode.cu`` (one launch a call over
+bf16 and fp8 pools, the splits merged inside it); on a CPU tensor it runs
 :func:`sparse_decode_attention_plain`, the same function in eager
 PyTorch.
 """
@@ -12,14 +13,17 @@ from __future__ import annotations
 import torch
 
 from quest_tpu_torch.ops import _build
+from quest_tpu_torch.ops.decode_common import (decode_plan, sm_count,
+                                               tensor_map, workspace)
 from quest_tpu_torch.ops.utils import (MASK_VALUE, check_pool_dtype,
                                       compute_dtype, kernel_query,
                                       scaled_query, to_f32)
 
-# Tokens per CTA split: 8 selection slots at page 16 and 4 at page 32,
-# so a 2048-token budget of Llama-3.1-8B is 2 x 8 x 16 = 256 CTAs at B=2
-# at either page size.
-SPLIT_TOKENS = 128
+# Splits (ops/decode_common.py:decode_plan): the selection slots of the
+# batch's (row, selection head)s spread over CTAS_PER_SM CTAs an SM, none
+# of fewer than MIN_SPLIT_TOKENS tokens.
+CTAS_PER_SM = 1
+MIN_SPLIT_TOKENS = 128
 
 
 def _selection_shape(q, kv_pages, indices, per_q_head: bool):
@@ -109,26 +113,25 @@ def sparse_decode_attention(q, kv_pages, indices, num_valid, seq_lens, *,
         raise ValueError("kv_pages must be contiguous")
     S = indices.shape[-1]
     NB = block_tab.shape[1]
-    per_split = max(1, SPLIT_TOKENS // page)        # slots a split
-    nsplit = -(-S // per_split)
+    plan = decode_plan(B, Hsel, G, page, S, MIN_SPLIT_TOKENS,
+                       CTAS_PER_SM * sm_count(q.device))
     qk = kernel_query(q)
     idx = indices.to(torch.int32).contiguous()
     nv = num_valid.to(torch.int32).contiguous()
     tab = block_tab.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
-    part_o = torch.empty((B, Hsel, nsplit, G, D), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B, Hsel, nsplit, G, 2), dtype=torch.float32,
-                          device=q.device)
+    part_o, part_ml, tickets = workspace(q.device, plan)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     lib = _build.load("sparse_decode")
+    kvl = kv_pages[layer]
+    tmap = tensor_map(lib, kvl) if kvl.dtype == torch.bfloat16 else None
     code = lib.sparse_decode_launch(
-        _build.ptr(qk), _build.ptr(kv_pages[layer]), _build.ptr(tab),
+        _build.ptr(qk), _build.ptr(kvl), _build.ptr(tab),
         _build.ptr(lens), _build.ptr(idx), _build.ptr(nv),
-        _build.ptr(part_o), _build.ptr(part_ml), _build.ptr(out),
-        B, Hsel, G, kvdiv, NP, page, NB, block_pages, S, nsplit,
-        per_split, kv_code, sm_scale,
-        int(qk.dtype == torch.bfloat16), _build.stream_of(q))
+        _build.ptr(part_o), _build.ptr(part_ml), _build.ptr(tickets),
+        _build.ptr(out), B, Hsel, G, kvdiv, NP, page, NB, block_pages, S,
+        plan.nsplit, plan.per_split, kv_code, sm_scale,
+        int(qk.dtype == torch.bfloat16), tmap, _build.stream_of(q))
     _build.check(lib, code, "sparse_decode")
     sparse_decode_attention.launches += 1
     return out

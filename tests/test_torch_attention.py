@@ -16,10 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from quest_tpu_torch.ops.decode_common import (MAX_SPLITS, decode_plan,
+                                               workspace)
 from quest_tpu_torch.ops.dense_decode import (dense_decode_attention,
                                               dense_decode_attention_plain)
-from quest_tpu_torch.ops.prefill import (prefill_attention,
-                                         prefill_attention_plain)
+from quest_tpu_torch.ops.prefill import (TMA_GROUPS, TMA_PAGES,
+                                         prefill_attention,
+                                         prefill_attention_plain,
+                                         prefill_route)
 from quest_tpu_torch.ops.sparse_decode import (sparse_decode_attention,
                                                sparse_decode_attention_plain)
 from quest_tpu_torch.ops.topk import select_pages
@@ -60,8 +64,10 @@ def make_pool(seed, B, Hkv, D, page, bpp, NB, L=2):
     return rng, pool, tab.astype(np.int32)
 
 
-def sparse_case(seed, seq_lens, Hq, Hkv, per_q_head, budget, inject):
-    D, page, bpp, NB = 32, 8, 4, 6
+def sparse_case(seed, seq_lens, Hq, Hkv, per_q_head, budget, inject,
+                page=8):
+    D, NB = 32, 6
+    bpp = 32 // page              # 192 tokens of table at every page size
     B = len(seq_lens)
     rng, pool, tab = make_pool(seed, B, Hkv, D, page, bpp, NB)
     Hsel = Hq if per_q_head else Hkv
@@ -88,6 +94,8 @@ SPARSE_CASES = {
     "mha": (2, [33, 9], 2, 2, False, 4, False),       # short row: dense
     "per_q_head": (3, [120, 61], 8, 2, True, 5, False),
     "injected": (4, [150, 100], 8, 2, False, 7, True),
+    "gqa4_page4": (21, [77, 150], 8, 2, False, 12, False, 4),
+    "per_q_head_page16": (22, [120, 61], 8, 2, True, 3, False, 16),
 }
 
 
@@ -108,13 +116,16 @@ def test_sparse_plain_matches_jax(jx, name):
                                atol=2e-3)
 
 
-DENSE_CASES = {"gqa4": (5, [77, 190], 8, 2), "mha": (6, [1, 64], 2, 2)}
+DENSE_CASES = {"gqa4": (5, [77, 190], 8, 2), "mha": (6, [1, 64], 2, 2),
+               "gqa4_page4": (23, [77, 190], 8, 2, 4),
+               "mha_page16": (24, [1, 131], 2, 2, 16)}
 
 
 @pytest.mark.parametrize("name", sorted(DENSE_CASES))
 def test_dense_plain_matches_jax(jx, name):
-    seed, seq_lens, Hq, Hkv = DENSE_CASES[name]
-    D, page, bpp, NB = 32, 8, 4, 6
+    seed, seq_lens, Hq, Hkv, page = (DENSE_CASES[name] + (8,))[:5]
+    D, NB = 32, 6
+    bpp = 32 // page              # 192 tokens of table at every page size
     B = len(seq_lens)
     rng, pool, tab = make_pool(seed, B, Hkv, D, page, bpp, NB)
     q = rng.standard_normal((B, Hq, D)).astype(np.float32)
@@ -188,27 +199,39 @@ CARD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 Q_DTYPES = [torch.bfloat16, torch.float32]
 
 
+# Pools of every dtype the decode kernels take: bf16 and fp8 e4m3 go
+# through the ring kernel, f32 through the FMA body.
+POOL_DTYPES = [torch.bfloat16, torch.float8_e4m3fn, torch.float32]
+DECODE_PAGES = [4, 8, 16, 32]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", Q_DTYPES)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+@pytest.mark.parametrize("page", DECODE_PAGES)
 @pytest.mark.parametrize("Hq,Hkv,per_q_head,inject", [
     (32, 8, False, False), (8, 8, False, False), (64, 8, False, True),
     (32, 8, True, False)])
-def test_sparse_kernel_matches_plain(cuda, q_dtype, dtype, Hq, Hkv,
+def test_sparse_kernel_matches_plain(cuda, q_dtype, dtype, page, Hq, Hkv,
                                      per_q_head, inject):
-    B, NB, bpp, page, budget = 3, 6, 8, 16, 20
-    g, pool, tab = card_pool(11, B, Hkv, NB, dtype)
-    seq = torch.tensor([700, 95, 16], dtype=torch.int32, device=cuda)
+    """Rows of 700 tokens (ending mid-page), 95 (fewer pages than the
+    budget: num_valid < S) and one token, at every page size."""
+    B, NB, budget = 3, 6, 20
+    bpp = 128 // page                 # 768 tokens of table at every page
+    g, pool, tab = card_pool(11, B, Hkv, NB, dtype, page=page, bpp=bpp)
+    seq = torch.tensor([700, 95, 1], dtype=torch.int32, device=cuda)
     Hsel = Hq if per_q_head else Hkv
     q = torch.randn((B, Hq, 128), generator=g, device=cuda).to(q_dtype)
     if inject:
-        # Shuffled distinct pages per head; row 2 has one page only.
+        # Shuffled distinct pages per head (at most 6); row 2 has one page
+        # only.
         idx = torch.zeros((B, Hsel, 6), dtype=torch.int32, device=cuda)
+        n_pages = [min(6, (s + page - 1) // page) for s in (700, 95, 1)]
         for b, s in enumerate((700, 95)):
             for h in range(Hsel):
-                idx[b, h] = torch.randperm((s + page - 1) // page,
-                                           device=cuda)[:6]
-        nv = torch.tensor([6, 6, 1], dtype=torch.int32, device=cuda)
+                idx[b, h, :n_pages[b]] = torch.randperm(
+                    (s + page - 1) // page, device=cuda)[:6]
+        nv = torch.tensor(n_pages, dtype=torch.int32, device=cuda)
     else:
         scores = torch.randn((B, Hsel, NB * bpp), generator=g, device=cuda)
         idx, nv = select_pages(scores, seq, page, budget)
@@ -218,16 +241,20 @@ def test_sparse_kernel_matches_plain(cuda, q_dtype, dtype, Hq, Hkv,
     want = sparse_decode_attention_plain(q, pool, idx, nv, seq, **kw)
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.isfinite(got).all()
-    assert rel_err(got, want) <= CARD_TOL[dtype]
+    assert rel_err(got, want) <= CARD_TOL.get(dtype, CARD_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", Q_DTYPES)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+@pytest.mark.parametrize("page", DECODE_PAGES)
 @pytest.mark.parametrize("Hq,Hkv", [(32, 8), (8, 8), (16, 2)])
-def test_dense_kernel_matches_plain(cuda, q_dtype, dtype, Hq, Hkv):
-    B, NB, bpp = 3, 8, 8
-    g, pool, tab = card_pool(12, B, Hkv, NB, dtype)
+def test_dense_kernel_matches_plain(cuda, q_dtype, dtype, page, Hq, Hkv):
+    """Rows of 1021 tokens (several splits, ending mid-page), one token
+    and 500, at every page size."""
+    B, NB = 3, 8
+    bpp = 128 // page                 # 1024 tokens of table at every page
+    g, pool, tab = card_pool(12, B, Hkv, NB, dtype, page=page, bpp=bpp)
     seq = torch.tensor([1021, 1, 500], dtype=torch.int32, device=cuda)
     q = torch.randn((B, Hq, 128), generator=g, device=cuda).to(q_dtype)
     kw = dict(sm_scale=128 ** -0.5, layer=LAYER, block_tab=tab,
@@ -236,7 +263,101 @@ def test_dense_kernel_matches_plain(cuda, q_dtype, dtype, Hq, Hkv):
     want = dense_decode_attention_plain(q, pool, seq, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    assert rel_err(got, want) <= CARD_TOL[dtype]
+    assert rel_err(got, want) <= CARD_TOL.get(dtype, CARD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+def test_decode_kernels_repeat_bitwise(cuda, dtype):
+    """Two calls in a row on the same inputs give the same bits: the
+    splits merge in a fixed order, and the merge tickets the first call
+    leaves are zero for the second (a row of 4000 tokens merges 8 dense
+    splits; 64 selected pages, 8 sparse splits)."""
+    B, Hq, Hkv, NB, bpp, page = 2, 32, 8, 16, 16, 16
+    g, pool, tab = card_pool(16, B, Hkv, NB, dtype, page=page, bpp=bpp)
+    seq = torch.tensor([4000, 700], dtype=torch.int32, device=cuda)
+    q = torch.randn((B, Hq, 128), generator=g, device=cuda).to(torch.bfloat16)
+    kw = dict(sm_scale=128 ** -0.5, layer=LAYER, block_tab=tab,
+              block_pages=bpp)
+    scores = torch.randn((B, Hkv, NB * bpp), generator=g, device=cuda)
+    idx, nv = select_pages(scores, seq, page, 64)
+    for call in (lambda: dense_decode_attention(q, pool, seq, **kw),
+                 lambda: sparse_decode_attention(q, pool, idx, nv, seq, **kw)):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_decode_plan_reads_shapes_only():
+    """The decode launch plan is a function of shapes and the card's SM
+    count (ints), never of a tensor's values: the wrappers read no device
+    value on the host, so a decode step has no host sync. A full table
+    spreads over one wave of CTAs, no split below min_tokens, at most
+    MAX_SPLITS a (row, head); one ticket a (row, head)."""
+    # Dense at the kernel case: 2048 pages of 16 tokens, 264 CTAs a wave.
+    p = decode_plan(2, 8, 4, 16, 2048, 512, 264)
+    assert (p.per_split, p.nsplit, p.grid) == (128, 16, (16, 8, 2))
+    assert (p.part_o, p.part_ml, p.tickets) == (2 * 8 * 16 * 4 * 128,
+                                                2 * 8 * 16 * 4 * 2, 16)
+    # A short table keeps splits of at least min_tokens tokens.
+    assert decode_plan(2, 8, 4, 16, 64, 512, 264).per_split == 32
+    # Sparse: a 2048-token budget at any page size fills the same wave.
+    for page, per in ((4, 32), (8, 16), (16, 8), (32, 4)):
+        q = decode_plan(2, 8, 4, page, 2048 // page, 128, 264)
+        assert (q.per_split, q.nsplit, q.grid) == (per, 16, (16, 8, 2))
+    # Per-query-head selection: 32 selection heads a row.
+    assert decode_plan(2, 32, 1, 16, 128, 128, 264).grid == (4, 32, 2)
+    # A long table at page 1: at most MAX_SPLITS splits merge.
+    r = decode_plan(1, 8, 8, 1, 1 << 20, 512, 8 * MAX_SPLITS * 4)
+    assert r.nsplit <= MAX_SPLITS and r.nsplit * r.per_split >= 1 << 20
+    assert decode_plan(1, 1, 1, 16, 0, 512, 264).nsplit == 1
+
+
+def test_decode_workspace_is_cached_and_grown():
+    """One workspace a device, reused by a smaller plan and grown (its
+    tickets zeroed) for a larger one."""
+    dev = torch.device("cpu")
+    small, large = decode_plan(1, 2, 4, 16, 64, 128, 264), decode_plan(
+        2, 8, 4, 16, 2048, 512, 264)
+    o1, ml1, t1 = workspace(dev, small)
+    o2, ml2, t2 = workspace(dev, small)
+    assert o1.data_ptr() == o2.data_ptr() and t1.data_ptr() == t2.data_ptr()
+    o3, ml3, t3 = workspace(dev, large)
+    assert (o3.numel(), ml3.numel(), t3.numel()) == (
+        large.part_o, large.part_ml, large.tickets)
+    assert torch.all(t3 == 0)
+    o4, _, _ = workspace(dev, small)
+    assert o4.data_ptr() == o3.data_ptr()
+
+
+def test_decode_ablation_cpu_smoke(capsys):
+    """The decode ablation script's --cpu run: the plain dense op on a
+    small pool, finite."""
+    from quest_tpu_torch.exp import decode_ablation
+    assert decode_ablation.main(["--cpu"]) == 0
+    assert "finite True" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("dtype,page,G,route", [
+    (torch.bfloat16, 16, 4, "tma"), (torch.bfloat16, 4, 4, "fma"),
+    (torch.float8_e4m3fn, 4, 1, "fma"), (torch.float8_e4m3fn, 32, 8, "tma"),
+    (torch.bfloat16, 256, 2, "fma"), (torch.float32, 16, 4, "fma"),
+    (torch.float32, 4, 3, "fma")])
+def test_prefill_route_by_shape(dtype, page, G, route):
+    """The prefill wrapper picks its card kernel by dtype, page and G
+    alone: TMA + wgmma for bf16 and fp8 pools with pages in TMA_PAGES,
+    the FMA kernel for f32 pools and for other pages."""
+    assert prefill_route(dtype, page, G) == route
+    assert (route == "tma") == (dtype != torch.float32 and page in TMA_PAGES
+                                and G in TMA_GROUPS)
+
+
+def test_prefill_route_refuses_group():
+    """bf16 and fp8 pools take G in TMA_GROUPS on either route."""
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        for page in (4, 16):
+            with pytest.raises(NotImplementedError, match="GQA groups"):
+                prefill_route(dtype, page, 3)
 
 
 # The bf16 kernel's CTA takes 128 rows (128 / G positions x G heads) and
@@ -334,3 +455,27 @@ def test_prefill_kernel_refuses_group(cuda, Hq, Hkv):
     want = prefill_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     assert rel_err(got, want) <= CARD_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("page", [4, 24])
+def test_prefill_kernel_small_pages(cuda, q_dtype, dtype, page):
+    """bf16 and fp8 pools with pages the TMA kernel does not box take the
+    FMA kernel on their element type (fresh and chunked rows, an empty
+    row, GQA 4)."""
+    B, Hq, Hkv, NB = 2, 32, 8, 4
+    bpp = 96 // page
+    g, pool, tab = card_pool(17, B, Hkv, NB, dtype, page=page, bpp=bpp)
+    q = torch.randn((B, 70, Hq, 128), generator=g, device=cuda).to(q_dtype)
+    off = torch.tensor([0, 200], dtype=torch.int32, device=cuda)
+    kvl = torch.tensor([70, 263], dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=128 ** -0.5, layer=LAYER, block_tab=tab,
+              block_pages=bpp)
+    assert prefill_route(dtype, page, Hq // Hkv) == "fma"
+    got = prefill_attention(q, pool, off, kvl, **kw)
+    want = prefill_attention_plain(q, pool, off, kvl, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert rel_err(got, want) <= CARD_TOL[torch.bfloat16]

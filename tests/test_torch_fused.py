@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from quest_tpu_torch.config import QuestConfig, tiny_test_model
+from quest_tpu_torch.config import (QuestConfig, small_tpu_model,
+                                    tiny_test_model)
 from quest_tpu_torch.engine.engine import QuestEngine
 from quest_tpu_torch.models import llama as tllama
 from quest_tpu_torch.models.convert import params_from_numpy
@@ -483,7 +484,7 @@ def kernel_selection(q, kmax, kmin, tab, bpp, seq, page, K, agg):
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
-@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("page", [4, 8, 16, 32])
 def test_fused_kernel_matches_plain(cuda, q_dtype, pool, meta, G, page):
     B, Hkv, NB, bpp, K = 4, 2, 6, 32, 40
     g = torch.Generator(device="cuda").manual_seed(G)
@@ -495,8 +496,10 @@ def test_fused_kernel_matches_plain(cuda, q_dtype, pool, meta, G, page):
     kmin = k.amin(dim=3).to(meta).reshape(2, Hkv, NPB, bpp, 128)
     perm = torch.randperm(NPB - 1, generator=torch.Generator().manual_seed(G))
     tab = (1 + perm[:B * NB]).reshape(B, NB).to(torch.int32).to(cuda)
-    # A long row, a row of 20 pages (< K), one page, a ragged last page.
-    seq = torch.tensor([NB * bpp * page, 20 * page, 9, 1500], device=cuda,
+    # A long row, a row of 20 pages (< K), one page, a ragged last page;
+    # pages of 4 and 8 tokens put two or four pages in an attention chunk.
+    seq = torch.tensor([NB * bpp * page, 20 * page, 9,
+                        min(1500, NB * bpp * page - 7)], device=cuda,
                        dtype=torch.int32)
     q = torch.randn((B, Hkv * G, 128), generator=g, device=cuda).to(q_dtype)
     kw = dict(sm_scale=128 ** -0.5, budget_pages=K, layer=LAYER,
@@ -581,3 +584,38 @@ def test_fused_kernel_select_ties(cuda, pool, meta, case):
     assert torch.isfinite(got).all()
     tol = 2e-2 if pool == torch.bfloat16 else 2e-3
     assert card_rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,fused", [(8, True), (4, True), (4, False)])
+def test_small_page_engine_serves_on_card(cuda, page, fused):
+    """Engines whose pages the card kernels once refused serve on the
+    card: the fused kernel at pages of 8 and 4 tokens, and a bf16 pool of
+    4-token pages (prefill on the FMA kernel, decode over 16-token chunks
+    of four pages). Prefill and 6 decode steps with the sparse path live
+    (f32 model, bf16 KV), each engine fed the CPU's greedy tokens: the
+    card's greedy tokens agree with the plain CPU path at every step."""
+    cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
+                              num_kv_heads=2, dtype=torch.float32)
+    quest = QuestConfig(page_size=page, token_budget=8 * page,
+                        max_seq_len=128 * page, kv_dtype=torch.bfloat16,
+                        fused_decode=fused)
+    assert fused_gate(quest, quest.max_pages, quest.block_pages) == fused
+    params = init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in (300, 170)]
+    card = QuestEngine(cfg, quest, params, batch_size=2, device="cuda")
+    host = QuestEngine(cfg, quest, params, batch_size=2, device="cpu")
+    fused_sparse_decode.launches = 0
+    g, c = card.prefill(prompts), host.prefill(prompts)
+    for step in range(7):
+        assert np.isfinite(g).all()
+        tok = np.argmax(c, axis=-1)
+        assert np.array_equal(np.argmax(g, axis=-1), tok), step
+        if step < 6:
+            g, c = card.decode(tok), host.decode(tok)
+    torch.cuda.synchronize()
+    assert fused_sparse_decode.launches == (
+        6 * (cfg.num_layers - quest.skip_layers) if fused else 0)
+

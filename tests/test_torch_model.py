@@ -183,7 +183,9 @@ def test_port_imports_no_jax():
             "quest_tpu_torch.ops.copy_probe, quest_tpu_torch.ops.select_pieces, "
             "quest_tpu_torch.exp.dma_probe, quest_tpu_torch.exp.gather_ab, "
             "quest_tpu_torch.exp.select_compile2, "
-            "quest_tpu_torch.exp.fused_stages; "
+            "quest_tpu_torch.exp.fused_stages, "
+            "quest_tpu_torch.ops.decode_common, "
+            "quest_tpu_torch.exp.decode_ablation; "
             "bad = [m for m in sys.modules if m in ('jax', 'quest_tpu') or "
             "m.startswith(('jax.', 'quest_tpu.'))]; "
             "assert not bad, bad")
