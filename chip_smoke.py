@@ -46,7 +46,27 @@ Phases, each fatal on failure:
      each run checked against its path; the decode steps timed in turns
      and profiled, the device ops of a step checked against the path's
      (the sparse and dense kernels merge their splits in the same
-     launch).
+     launch);
+  7. the continuous-batching scheduler on the 4-layer model in f32 on
+     the card against the same scheduler on the CPU's plain path,
+     unfused and fused, over six requests on three slots (chunked
+     prefill, an oversubscribed pool, a shared prompt prefix, an EOS
+     stop, a sampled request): ticks, greedy tokens, prefix hits, block
+     tables and lengths equal; then the same requests on the card with
+     a bf16 KV pool, unfused and fused. In every run the scheduler's own
+     kernel calls, one of each kind of batch it forms (rows prefilling,
+     riding along with no new token, empty on the scratch block,
+     inactive mid-prompt, aliasing a borrowed prefix), are copied and
+     held against the plain versions within 2e-2 (:class:`KernelTap`);
+  8. the scheduler serving the full-width Llama-3.1-8B (phase 6's
+     weights) with ``serving_quest_config`` and bf16 KV: six requests on
+     four slots, 8 usable blocks of 2048 tokens, a prefix hit; every
+     tick's kernel launches checked against the path, every request's
+     token count, the pool's pages after the drain, the kernel calls
+     held against their plain versions as in phase 7 (batch 4); the
+     smoke run's prefill tokens/s, generated tokens/s and ms a decode
+     step (a few requests, mostly a draining batch: not the
+     scheduler's throughput).
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this script, it exits non-zero and prints
@@ -1144,7 +1164,9 @@ def serving_phase(kernels):
     and ``generate_ondevice``, the kernel launches of every run checked
     against its path; then the decode steps are timed in turns (each
     path, then each again in reverse order) and two steps of each are
-    profiled. ``kernels``: each kernel's wrapper by name."""
+    profiled. ``kernels``: each kernel's wrapper by name. Returns the
+    launch counts, the numbers and the weights (for the scheduler
+    phase)."""
     from quest_tpu_torch.config import llama31_8b
     from quest_tpu_torch.engine.engine import QuestEngine
     from quest_tpu_torch.models.llama import init_params
@@ -1156,7 +1178,6 @@ def serving_phase(kernels):
     engines = {path: QuestEngine(cfg, serving_quest(path), params,
                                  batch_size=2, device="cuda")
                for path in SERVING_PATHS}
-    del params
     torch.cuda.synchronize()
     pools = {path: cache_bytes(e.cache) for path, e in engines.items()}
     log(f"serving: Llama-3.1-8B, {cfg.num_layers} layers, random bf16 "
@@ -1253,21 +1274,31 @@ def serving_phase(kernels):
             f"{path}: {ops} device ops a decode step, expected "
             f"{DEVICE_OPS_PER_STEP[path]}")
     serving["token_agreement"] = same
-    return counts, serving
+    return counts, serving, params
 
 
 def profile_decode(engine, tok, label, steps=2):
-    """Where a decode step's time goes: torch.profiler over ``steps``
-    on-device greedy steps. Prints device time by kernel and the
-    device's busy share of the wall time; the trace goes to
+    """Where a decode step's time goes: :func:`profile_steps` over
+    ``steps`` on-device greedy steps of ``engine``."""
+    def run():
+        nonlocal tok
+        for _ in range(steps):
+            tok = engine.model.decode_token_step(engine.cache, tok)
+        return steps
+    return profile_steps(run, label)
+
+
+def profile_steps(run, label):
+    """torch.profiler over ``run()``, which returns the decode steps it
+    ran. Prints device time by kernel and the device's busy share of the
+    wall time; the trace goes to
     build/chip_smoke/decode_trace_<label>.json."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.time()
-        for _ in range(steps):
-            tok = engine.model.decode_token_step(engine.cache, tok)
+        steps = run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1290,6 +1321,444 @@ def profile_decode(engine, tok, label, steps=2):
     return dict(profile_wall_ms_per_step=wall_ms / steps,
                 profile_device_ms_per_step=device_ms / steps,
                 device_ops_per_step=n_launch / steps, profile_top=top)
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-8: the continuous-batching scheduler.
+# ---------------------------------------------------------------------------
+
+def scheduler_requests(vocab, bt, eos_token_id=None, seed=3):
+    """The 4-layer scheduler phase's requests, in units of ``bt`` tokens
+    (one allocation block), for the settings of :func:`scheduler_kwargs`
+    (3 slots, 6 usable blocks): more requests than slots, staggered
+    prompts; uid 0 spans three blocks and its prompt (2.5 blocks) is
+    longer than a prefill chunk; uid 1 samples (temperature 0.8); uid 2
+    stops at ``eos_token_id``; uid 3 shares uid 0's first two blocks;
+    uid 4 needs four blocks and waits for them. Also the CPU tests'
+    request set (tests/test_torch_serving.py)."""
+    from quest_tpu_torch.engine.scheduler import Request
+    rng = np.random.default_rng(seed)
+
+    def prompt(n):
+        return rng.integers(1, vocab, size=n).tolist()
+
+    p0 = prompt(2 * bt + bt // 2 + 3)
+    return [Request(0, p0, 12),
+            Request(1, prompt(bt // 2 + 5), 10, temperature=0.8),
+            Request(2, prompt(bt + 7), 8, eos_token_id=eos_token_id),
+            Request(3, p0[:2 * bt] + prompt(bt // 4), 8),
+            Request(4, prompt(3 * bt + 1), 6),
+            Request(5, prompt(bt // 4), 5)]
+
+
+def scheduler_kwargs(quest):
+    """The scheduler settings of :func:`scheduler_requests`: 3 slots,
+    bursts of 4, chunks of one block, 6 usable blocks."""
+    bt = quest.block_pages * quest.page_size
+    return dict(max_batch=3, burst=4, prefill_chunk=bt,
+                prefill_bucket=bt // 4, total_pages=6 * quest.block_pages)
+
+
+def drive_lockstep(engines, requests):
+    """Submit ``requests`` to every engine and step them together; the
+    tick kinds must agree at every step. Returns (generations by uid of
+    each engine, the tick sequence)."""
+    import copy
+    gens = [{r.uid: [] for r in requests} for _ in engines]
+    for e in engines:
+        for r in requests:
+            e.submit(copy.deepcopy(r))
+    ticks = []
+    while engines[0].has_work():
+        for e, g in zip(engines, gens):
+            for ev in e.step():
+                g[ev.uid].append(ev.token)
+        kinds = {e.last_tick for e in engines}
+        assert len(kinds) == 1, f"tick {len(ticks)}: kinds differ: {kinds}"
+        ticks.append(engines[0].last_tick)
+    assert not any(e.has_work() for e in engines), "engines drained unevenly"
+    return gens, ticks
+
+
+class KernelTap:
+    """Copies the operands and the result of chosen attention-kernel
+    calls that the model makes, by standing in for the kernels' names in
+    ``quest_tpu_torch.models.llama``, then holds each result against the
+    kernel's plain version on the copied operands. The kernel runs once,
+    as the path runs it, so the launch counts stay the path's; only the
+    pool's layer that the call reads is copied. ``want(kernel, layer)``
+    names the call's batch (a label) or returns None; the first call of
+    each (kernel, label) is taken, of calls on ``device`` only."""
+
+    NAMES = {"prefill": "prefill_attention",
+             "sparse_decode": "sparse_decode_attention",
+             "dense_decode": "dense_decode_attention",
+             "fused_decode": "fused_sparse_decode"}
+
+    def __init__(self, want, device="cuda"):
+        self.want = want
+        self.device = torch.device(device).type
+        self.calls = []
+
+    def __enter__(self):
+        import quest_tpu_torch.models.llama as llama
+        self._llama = llama
+        self._orig = {k: getattr(llama, f) for k, f in self.NAMES.items()}
+        for k, f in self.NAMES.items():
+            setattr(llama, f, self._wrap(k, self._orig[k]))
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.NAMES.items():
+            setattr(self._llama, f, self._orig[k])
+
+    def _wrap(self, kernel, fn):
+        taken = set()
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if out.device.type != self.device:
+                return out
+            label = self.want(kernel, kw["layer"])
+            if label is not None and label not in taken:
+                taken.add(label)
+                l = kw["layer"]
+                # Pool (and metadata for the fused kernel): the layer read.
+                n_pool = 3 if kernel == "fused_decode" else 1
+                args = [a[l:l + 1].clone() if 1 <= i <= n_pool else a.clone()
+                        for i, a in enumerate(args)]
+                kw = {k: v.clone() if torch.is_tensor(v) else v
+                      for k, v in kw.items()}
+                kw["layer"] = 0
+                self.calls.append((kernel, label, args, kw, out.clone()))
+            return out
+        return call
+
+    def check(self, name):
+        """Each taken call against the plain version: per row, max|d| /
+        max|plain| (max|d| where the plain row is zero, as for a row
+        with no key) within REL_TOL. Returns the cases by kernel."""
+        from quest_tpu_torch.ops.dense_decode import \
+            dense_decode_attention_plain
+        from quest_tpu_torch.ops.fused_decode import fused_sparse_decode_plain
+        from quest_tpu_torch.ops.prefill import prefill_attention_plain
+        from quest_tpu_torch.ops.sparse_decode import \
+            sparse_decode_attention_plain
+        plain = {"prefill": prefill_attention_plain,
+                 "sparse_decode": sparse_decode_attention_plain,
+                 "dense_decode": dense_decode_attention_plain,
+                 "fused_decode": fused_sparse_decode_plain}
+        cases = {}
+        for kernel, label, args, kw, out in self.calls:
+            want = plain[kernel](*args, **kw)
+            d = (out.float() - want.float()).abs().flatten(1).amax(1)
+            ref = want.float().abs().flatten(1).amax(1)
+            rows = torch.where(ref > 0, d / ref.clamp_min(1e-30), d)
+            err = float(rows.max())
+            B = out.shape[0]
+            log(f"tap[{name}, {kernel}]: B={B} rows ({label}), "
+                f"{'T=%d, ' % out.shape[1] if kernel == 'prefill' else ''}"
+                f"kv_lens {call_lens(kernel, args)}: per-row max rel err "
+                f"{err:.2e} (limit {REL_TOL})")
+            assert err <= REL_TOL, (
+                f"{kernel} disagrees with its plain version on the "
+                f"scheduler's batch ({name}: {label}): {err}")
+            cases.setdefault(kernel, []).append(dict(
+                case=f"scheduler {name}: B={B}", rows=label,
+                max_abs_err=float(d.max()), max_rel_err=err))
+        self.calls.clear()
+        return cases
+
+
+def call_lens(kernel, args):
+    """The keys each row of a taken call attends to."""
+    lens = args[3] if kernel == "prefill" else args[-1]
+    return lens.tolist()
+
+
+def scheduler_tap_rule(eng):
+    """:class:`KernelTap`'s choice for a scheduler: a prefill call at the
+    last layer, a dense one at the last dense layer and a sparse or
+    fused one at the last layer, labelled by the kinds of rows the tick
+    has (read from the host's slot state while the call runs)."""
+    L, skip = eng.cfg.num_layers, eng.quest.skip_layers
+    layer_of = {"prefill": L - 1, "dense_decode": skip - 1,
+                "sparse_decode": L - 1, "fused_decode": L - 1}
+
+    def want(kernel, layer):
+        if layer != layer_of[kernel]:
+            return None
+        kinds = set()
+        for s in eng.slots:
+            if s is None:
+                kinds.add("empty")
+            elif kernel != "prefill":
+                kinds.add("mid-prompt" if s.prefilling else "live")
+            elif not s.prefilling:
+                kinds.add("ride-along")
+            elif s.prefill_pos == 0:
+                kinds.add("prompt start")
+            elif s.prefill_pos == len(s.shared_blocks) * eng.block_tokens:
+                kinds.add("after prefix hit")
+            else:
+                kinds.add("next chunk")
+            if s is not None and s.shared_blocks:
+                kinds.add("aliased")
+        return ", ".join(sorted(kinds))
+    return want
+
+
+def check_taps(tap, name, need):
+    """:meth:`KernelTap.check`, then: every kernel of ``need`` was taken
+    on batches that together hold each of its row kinds."""
+    cases = tap.check(name)
+    for kernel, kinds in need.items():
+        seen = {k for c in cases.get(kernel, [])
+                for k in c["rows"].split(", ")}
+        assert set(kinds) <= seen, (
+            f"{name}: {kernel} was never checked on rows "
+            f"{sorted(set(kinds) - seen)} (seen {sorted(seen)})")
+    return cases
+
+
+# Row kinds each scheduler run must have held against the plain versions.
+PREFILL_KINDS = ("prompt start", "next chunk", "after prefix hit",
+                 "ride-along", "empty", "aliased")
+DECODE_KINDS = ("live", "mid-prompt", "empty", "aliased")
+
+
+def tap_needs(quest):
+    sparse = "fused_decode" if quest.fused_decode else "sparse_decode"
+    return {"prefill": PREFILL_KINDS, "dense_decode": DECODE_KINDS,
+            sparse: DECODE_KINDS}
+
+
+def small_scheduler_phase(fused=False, kv_dtype=torch.float32):
+    """The continuous-batching scheduler on a 4-layer model (head dim
+    128, GQA group 4, f32 weights, a ``kv_dtype`` KV pool) over
+    :func:`scheduler_requests`. With an f32 pool it runs on the card
+    against the same scheduler on the CPU's plain path (the EOS token is
+    the CPU's third greedy token of uid 2): the ticks must agree at every
+    step; greedy tokens per uid, the sampled request's first token, the
+    prefix hits and the final block tables and lengths must be equal.
+    With a bf16 pool it runs on the card alone (there greedy tokens
+    follow rounding at near ties): every request gives its tokens and
+    the prefix is hit. In both, :class:`KernelTap` holds the card's
+    kernel calls on each kind of batch against the plain versions. With
+    ``fused`` the sparse layers take the fused kernel (launches
+    counted). Returns the run's numbers and the tap's cases."""
+    from quest_tpu_torch.config import QuestConfig, small_tpu_model
+    from quest_tpu_torch.engine.scheduler import ContinuousBatchingEngine
+    from quest_tpu_torch.models.llama import init_params
+    from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
+    from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
+    cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
+                              num_kv_heads=2, dtype=torch.float32)
+    quest = QuestConfig(page_size=16, token_budget=64, max_seq_len=2048,
+                        block_pages=16, kv_dtype=kv_dtype,
+                        fused_decode=fused)
+    bt = quest.block_pages * quest.page_size
+    params = init_params(cfg, torch.Generator().manual_seed(5),
+                         device="cpu")
+    kw = scheduler_kwargs(quest)
+
+    def engine(device):
+        return ContinuousBatchingEngine(cfg, quest, params, device=device,
+                                        **kw)
+
+    against_cpu = kv_dtype == torch.float32
+    if against_cpu:
+        pre = engine("cpu").run(scheduler_requests(cfg.vocab_size, bt))
+        reqs = scheduler_requests(cfg.vocab_size, bt, eos_token_id=pre[2][2])
+        gpu, cpu = engine("cuda"), engine("cpu")
+    else:
+        reqs = scheduler_requests(cfg.vocab_size, bt)
+        gpu = engine("cuda")
+    fused_sparse_decode.launches = sparse_decode_attention.launches = 0
+    t = time.time()
+    with KernelTap(scheduler_tap_rule(gpu)) as tap:
+        gens, ticks = drive_lockstep([gpu, cpu] if against_cpu else [gpu],
+                                     reqs)
+    torch.cuda.synchronize()
+    launches = {"fused_decode": fused_sparse_decode.launches,
+                "sparse_decode": sparse_decode_attention.launches}
+    name = (f"{'fused' if fused else 'unfused'}, "
+            f"{str(kv_dtype).split('.')[-1]} KV")
+    g = gens[0]
+    sampled = [r.uid for r in reqs if r.temperature > 0]
+    greedy = [r.uid for r in reqs if r.temperature <= 0]
+    msg = (f"scheduler[4-layer, {name}]: {len(reqs)} requests, "
+           f"{len(ticks)} ticks ({ticks.count('prefill')} prefill) in "
+           f"{time.time() - t:.1f} s; prefix hits {gpu.prefix_hits}; "
+           f"launches {launches}")
+    if against_cpu:
+        c = gens[1]
+        log(f"{msg}; CPU prefix hits {cpu.prefix_hits}; uid 2 stopped at "
+            f"EOS after {len(c[2])} tokens; greedy uids {greedy} agree "
+            f"with the CPU: {all(g[u] == c[u] for u in greedy)}")
+        assert all(g[u] == c[u] for u in greedy), (
+            f"greedy tokens differ from the CPU path ({name}): {g} vs {c}")
+        assert all(g[u][0] == c[u][0] and len(g[u]) == len(c[u])
+                   for u in sampled)
+        assert (gpu.prefix_hits, gpu.prefix_hit_tokens) == (
+            cpu.prefix_hits, cpu.prefix_hit_tokens)
+        assert len(c[2]) < reqs[2].max_new_tokens, "uid 2 never met its EOS"
+        assert torch.equal(gpu.cache.block_tab.cpu(), cpu.cache.block_tab)
+        assert torch.equal(gpu.cache.seq_lens.cpu(), cpu.cache.seq_lens)
+        assert gpu.pool.free_pages() == cpu.pool.free_pages()
+    else:
+        log(msg)
+        assert all(len(g[r.uid]) == r.max_new_tokens
+                   and all(0 <= x < cfg.vocab_size for x in g[r.uid])
+                   for r in reqs), f"token counts or range ({name}): {g}"
+        assert not gpu.cache.block_tab.any() and not gpu.cache.seq_lens.any()
+    assert gpu.prefix_hits >= 1, "the prefix cache was never hit"
+    assert launches["fused_decode" if fused else "sparse_decode"] > 0
+    assert launches["sparse_decode" if fused else "fused_decode"] == 0
+    cases = check_taps(tap, f"4-layer {name}", tap_needs(quest))
+    return dict(ticks=len(ticks), prefix_hits=gpu.prefix_hits,
+                **launches), cases
+
+
+# Full-width scheduler phase: uid -> (prompt tokens, max_new_tokens,
+# temperature); uid 4 is uid 0's first 4096 tokens and 1500 of its own.
+FULL_REQUESTS = {0: (6000, 32, 0.0), 1: (3000, 24, 0.0), 2: (1200, 40, 0.0),
+                 3: (800, 8, 0.8), 4: (4096 + 1500, 32, 0.0),
+                 5: (4500, 16, 0.0)}
+
+
+def scheduler_phase(params, kernels, smi):
+    """The continuous-batching scheduler serving the full-width
+    Llama-3.1-8B (the serving phase's bf16 weights, not copied) with
+    ``serving_quest_config(16384)`` and bf16 KV: page 32, 64-page blocks
+    of 2048 tokens, 4 slots, bursts of 8, chunks of 2048 tokens, 8 usable
+    blocks (512 pages). :data:`FULL_REQUESTS` in uid order: uid 4 waits
+    for a slot, then for blocks until uid 0 publishes its prompt, and
+    borrows two blocks; uid 5 then waits for blocks. Every tick's kernel
+    launches are counted: 32 prefill a prefill tick, 2 dense and 30
+    sparse a decode step; :class:`KernelTap` holds the kernel calls on
+    each kind of batch against the plain versions. The rates it prints
+    are this smoke run's: six requests, mostly a draining batch, so not
+    the scheduler's throughput. Returns the run's numbers and the tap's
+    cases."""
+    from quest_tpu_torch.config import llama31_8b, serving_quest_config
+    from quest_tpu_torch.engine.scheduler import (ContinuousBatchingEngine,
+                                                  Request)
+    cfg = llama31_8b()
+    quest = serving_quest_config(16384, kv_dtype=torch.bfloat16)
+    eng = ContinuousBatchingEngine(
+        cfg, quest, params, max_batch=4, burst=8, prefill_chunk=2048,
+        prefill_bucket=256, total_pages=8 * quest.block_pages, seed=0)
+    assert eng.block_tokens == 2048 and eng.pool.total_pages == 8
+    rng = np.random.default_rng(1)
+    prompts = {u: rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for u, (n, _, _) in FULL_REQUESTS.items()}
+    prompts[4] = prompts[0][:4096] + prompts[4][4096:]
+    reqs = [Request(u, prompts[u], new, temperature=t)
+            for u, (_, new, t) in FULL_REQUESTS.items()]
+    L, skip = cfg.num_layers, quest.skip_layers
+    steps, finite, written = [0], [], []
+    model_decode, model_prefill = eng.model.decode_step, eng.model.prefill_last
+
+    def decode_step(*a, **k):
+        steps[0] += 1
+        return model_decode(*a, **k)
+
+    def prefill_last(cache, toks, new_lens):
+        out = model_prefill(cache, toks, new_lens)
+        finite.append(torch.isfinite(out[new_lens > 0]).all())
+        written.append(new_lens.sum())
+        return out
+
+    eng.model.decode_step, eng.model.prefill_last = decode_step, prefill_last
+    for r in reqs:
+        eng.submit(r)
+    gens = {r.uid: [] for r in reqs}
+    totals = dict.fromkeys(kernels, 0)
+    times = {"prefill": [], "decode": []}
+    decode_steps = generated = 0
+    torch.cuda.synchronize()
+    t_all = time.time()
+    with KernelTap(scheduler_tap_rule(eng)) as tap:
+        while eng.has_work():
+            for k in kernels.values():
+                k.launches = 0
+            steps[0] = 0
+            t = time.time()
+            events = eng.step()
+            torch.cuda.synchronize()
+            dt = time.time() - t
+            got = {n: k.launches for n, k in kernels.items()}
+            for n in got:
+                totals[n] += got[n]
+            want = dict.fromkeys(kernels, 0)
+            if eng.last_tick == "prefill":
+                want["prefill"] = L
+            else:
+                want.update(dense_decode=skip * steps[0],
+                            sparse_decode=(L - skip) * steps[0])
+                decode_steps += steps[0]
+                generated += len(events)
+            if eng.last_tick is not None:
+                times[eng.last_tick].append(dt)
+            assert got == want, (f"{eng.last_tick} tick of {steps[0]} decode "
+                                 f"steps: launches {got} != path {want}")
+            for ev in events:
+                gens[ev.uid].append(ev.token)
+    wall = time.time() - t_all
+    cases = check_taps(tap, "Llama-3.1-8B, serving bf16 KV", tap_needs(quest))
+    assert all(bool(f) for f in finite), "non-finite prefill logits"
+    prefill_tokens = int(sum(w.item() for w in written))
+    for r in reqs:
+        assert len(gens[r.uid]) == r.max_new_tokens, (r.uid, len(gens[r.uid]))
+        assert all(0 <= t < cfg.vocab_size for t in gens[r.uid])
+    assert eng.prefix_hits >= 1, "the prefix cache was never hit"
+    held = {b for ent in eng._prefix.values() for b in ent}
+    free = eng.pool.free_pages()
+    assert free + len(held) == eng.pool.total_pages, (free, held)
+    for ent in list(eng._prefix.values()):
+        eng.pool.pages_release(ent)
+    eng._prefix.clear()
+    assert eng.pool.free_pages() == eng.pool.total_pages
+    # One full burst profiled: four 3000-token prompts (all 8 blocks),
+    # prefilled, then 8 decode steps at B=4.
+    for u in range(4):
+        eng.submit(Request(10 + u, rng.integers(1, cfg.vocab_size,
+                                                size=3000).tolist(), 9))
+    while eng.num_active < 4 or any(s.prefilling for s in eng.slots):
+        eng.step()
+    assert eng.num_active == 4 and eng.pool.free_pages() == 0
+
+    def burst():
+        steps[0] = 0
+        eng.step()
+        assert eng.last_tick == "decode" and eng.num_active == 0
+        return steps[0]
+
+    prof = profile_steps(burst, "scheduler")
+    pf_s, dec_s = sum(times["prefill"]), sum(times["decode"])
+    res = dict(
+        wall_s=wall, ticks=len(times["prefill"]) + len(times["decode"]),
+        prefill_ticks=len(times["prefill"]), prefill_tokens=prefill_tokens,
+        prefill_tokens_per_s=prefill_tokens / pf_s,
+        decode_ticks=len(times["decode"]), decode_steps=decode_steps,
+        generated_tokens=generated, generated_tokens_per_s=generated / dec_s,
+        decode_ms_per_step=dec_s / decode_steps * 1e3,
+        prefix_hits=eng.prefix_hits,
+        prefix_hit_tokens=eng.prefix_hit_tokens,
+        pool_bytes=cache_bytes(eng.cache), launches=totals, **prof)
+    log(f"scheduler[Llama-3.1-8B, serving bf16 KV]: {len(reqs)} requests in "
+        f"{wall:.1f} s, {res['ticks']} ticks (smoke-run rates, not the "
+        f"scheduler's throughput); prefill {prefill_tokens} "
+        f"tokens in {res['prefill_ticks']} ticks at "
+        f"{res['prefill_tokens_per_s']:.0f} tokens/s; decode "
+        f"{decode_steps} steps in {res['decode_ticks']} bursts, "
+        f"{generated} tokens at {res['generated_tokens_per_s']:.1f} "
+        f"tokens/s, {res['decode_ms_per_step']:.2f} ms a step (B=4); "
+        f"prefix hits {eng.prefix_hits} ({eng.prefix_hit_tokens} tokens); "
+        f"pool {res['pool_bytes'] / 1e9:.3f} GB; launches {totals}; "
+        f"card {smi}")
+    return res, cases
 
 
 # name: (source, the TPU kernel it replaces, the path whose run gives its
@@ -1368,7 +1837,22 @@ def main():
                      torch.float32, serving_kv=torch.bfloat16),
                  "serving_fp8_kv": small_reference_phase(
                      torch.float32, serving_kv=torch.float8_e4m3fn)}
-    counts, serving = serving_phase(kernel_wrappers())
+    taps = []
+    for fused in (False, True):
+        for kv in (torch.float32, torch.bfloat16):
+            res, cases = small_scheduler_phase(fused, kv)
+            reference[f"scheduler_{'fused' if fused else 'unfused'}_"
+                      f"{str(kv).split('.')[-1]}_kv"] = res
+            taps.append(cases)
+    counts, serving, params = serving_phase(kernel_wrappers())
+    torch.cuda.empty_cache()
+    serving["scheduler"], cases = scheduler_phase(params, kernel_wrappers(),
+                                                  smi)
+    taps.append(cases)
+    del params
+    for cases in taps:              # the scheduler's batches, as cases
+        for kname, c in cases.items():
+            results[kname] += c
 
     kernels = []
     for kname, (src, rep, path) in KERNEL_META.items():
@@ -1382,6 +1866,7 @@ def main():
             **({"also_replaces": ALSO_REPLACES[kname]}
                if kname in ALSO_REPLACES else {}),
             launches=launches, launches_by_serving_path=by_path,
+            launches_scheduler=serving["scheduler"]["launches"][kname],
             main_path=path or "none: its device code runs inside "
             "fused_decode", max_abs_err=head["max_abs_err"],
             max_rel_err=max(c["max_rel_err"] for c in cases),

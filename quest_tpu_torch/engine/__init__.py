@@ -1,3 +1,6 @@
 from quest_tpu_torch.engine.engine import QuestEngine
+from quest_tpu_torch.engine.scheduler import (ContinuousBatchingEngine,
+                                              Request, StepEvent)
 
-__all__ = ["QuestEngine"]
+__all__ = ["ContinuousBatchingEngine", "QuestEngine", "Request",
+           "StepEvent"]

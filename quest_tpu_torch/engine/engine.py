@@ -151,6 +151,72 @@ class QuestEngine:
             res.append(row)
         return res
 
+    # -- on-device eval bursts -------------------------------------------
+    # The eval harnesses run at serving speed through these: no per-token
+    # host fetch; small results come back in bulk every ``sync_every``
+    # steps, which also bounds how far the host runs ahead of the card.
+
+    def feed_ondevice(self, tokens: np.ndarray,
+                      sync_every: int = 512) -> None:
+        """Advance the cache over known tokens [B, N] as decode steps (so
+        sparsity applies, e.g. a question after a long context) without
+        fetching any logits."""
+        tokens = np.asarray(tokens, np.int32)
+        B, N = tokens.shape
+        assert B == self.batch_size
+        self._check_decode_room(N)
+        toks = torch.from_numpy(tokens).to(self.device)
+        for t in range(N):
+            logits = self.model.decode_step(self.cache, toks[:, t])
+            if (t + 1) % sync_every == 0:
+                logits[:, 0].cpu()          # throttle the launch queue
+        self._host_lens += N
+
+    def score_ondevice(self, tokens: np.ndarray, targets: np.ndarray,
+                       sync_every: int = 256) -> np.ndarray:
+        """Teacher-forced decode NLLs: feed ``tokens[:, t]``, score
+        ``targets[:, t]`` (usually ``tokens`` shifted by one). Returns
+        [B, N] f32, fetched one stacked chunk per ``sync_every`` steps."""
+        tokens = np.asarray(tokens, np.int32)
+        targets = np.asarray(targets, np.int32)
+        B, N = tokens.shape
+        assert targets.shape == (B, N) and B == self.batch_size
+        self._check_decode_room(N)
+        toks = torch.from_numpy(tokens).to(self.device)
+        tgts = torch.from_numpy(targets).to(self.device)
+        out = np.empty((B, N), np.float32)
+        pend = []
+        base = 0
+        for t in range(N):
+            pend.append(self.model.decode_nll_step(self.cache, toks[:, t],
+                                                   tgts[:, t]))
+            if len(pend) == sync_every or t == N - 1:
+                out[:, base:base + len(pend)] = torch.stack(
+                    pend, dim=1).cpu().numpy()
+                base += len(pend)
+                pend = []
+        self._host_lens += N
+        return out
+
+    def greedy_ondevice(self, first_tokens: Sequence[int], n: int,
+                        sync_every: int = 512) -> np.ndarray:
+        """Feed ``first_tokens`` [B] and greedily generate ``n`` tokens on
+        the device (argmax fed straight back); returns [B, n] int32.
+        Unlike :meth:`generate_ondevice` this continues from the current
+        cache state (e.g. right after a fed question)."""
+        self._check_decode_room(n)
+        tok = torch.as_tensor(np.asarray(first_tokens, np.int32),
+                              device=self.device)
+        chunks = []
+        for start in range(0, n, sync_every):
+            if chunks:
+                tok.cpu()                   # throttle the launch queue
+            chunks.append(self.model.decode_token_burst(
+                self.cache, tok, min(sync_every, n - start)))
+            tok = chunks[-1][:, -1]
+        self._host_lens += n
+        return torch.cat(chunks, dim=1).cpu().numpy()
+
     @staticmethod
     def _sample(logits: np.ndarray, temperature: float,
                 gen: torch.Generator) -> np.ndarray:

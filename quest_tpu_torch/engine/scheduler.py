@@ -1,0 +1,419 @@
+"""Continuous batching over a shared physical page pool (counterpart of
+``quest_tpu/engine/scheduler.py``, whose host logic it keeps).
+
+  * The paged cache has ``max_batch`` **slots** with independent
+    ``seq_lens``. Slots map logical pages onto the SHARED physical pool
+    through their block-table rows (kv/paged_kv.py), so the pool's
+    capacity is ``total_pages``, independent of max_batch x max_seq_len.
+  * Physical blocks are owned through :class:`~quest_tpu_torch.kv.pool.
+    PagePool` at ``block_pages``-page granularity. A request's whole need (prompt + max_new_tokens) is
+    reserved at admission, so an admitted request never meets an
+    exhausted pool; admission is FIFO and waits while blocks are short.
+  * **Chunked prefill**: prompts are written in ``prefill_chunk``-token
+    chunks, a prefill tick alternating with a decode burst, so a long
+    prompt never stalls the decoding streams. Every tick runs all
+    ``max_batch`` rows: busy rows ride along with ``new_lens = 0`` (or
+    ``active = False``), and their writes land in the scratch block 0.
+  * **Prefix cache**: the full blocks of a completed prompt are
+    published under a blake2b chain of their tokens, LRU-capped; a
+    later prompt with the same leading blocks borrows them (refcounted)
+    and prefills only the rest. The min/max metadata is keyed by
+    physical block, so borrowing is host bookkeeping only.
+  * Finished slots release their blocks and reset their table row to
+    scratch and their length to 0.
+
+Decoding runs in **bursts**: ``burst`` chained steps on the device (the
+greedy step's argmax, or the sampled step's draw from a ``torch.
+Generator`` on the device, fed straight back) and ONE host fetch per
+burst. A request that finishes mid-burst over-generates into its own
+slot until the burst ends; the host drops those tokens. The first token
+of each request is taken on the host from the prefill logits, sampled
+with a per-request numpy generator seeded ``seed * 7919 + uid``, as in
+JAX.
+
+The cache is mutated in place: admission and recycling write the slot's
+``block_tab`` row and ``seq_lens`` entry directly. JAX's mesh (``dp``
+pool groups, tensor parallelism) is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from quest_tpu_torch.config import ModelConfig, QuestConfig
+from quest_tpu_torch.kv.paged_kv import init_cache
+from quest_tpu_torch.kv.pool import PagePool
+from quest_tpu_torch.models.llama import Params, QuestModel
+from quest_tpu_torch.ops.utils import resolve_device, round_up
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int = 64
+    temperature: float = 0.0
+    eos_token_id: Optional[int] = None
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Request
+    generated: List[int]
+    pending: int              # next token to feed (decode phase)
+    rng: np.random.Generator
+    sid: int                  # PagePool sequence id
+    prefill_pos: int          # prompt tokens written so far
+    # Prefix cache: physical blocks borrowed from the registry (this
+    # slot holds one pages_retain on them until it finishes).
+    shared_blocks: List[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def prefilling(self) -> bool:
+        return self.prefill_pos < len(self.req.prompt)
+
+
+@dataclasses.dataclass
+class StepEvent:
+    uid: int
+    token: int
+    finished: bool
+
+
+class ContinuousBatchingEngine:
+    """Serve many requests through a fixed-capacity slot pool.
+
+    ``total_pages``: physical pool size in pages (one scratch block is
+    added). Default ``max_batch * max_pages`` (full static reservation);
+    smaller oversubscribes, and admission then waits for blocks.
+    ``prefill_chunk``: at most this many prompt tokens a prefill tick
+    (rounded up to ``prefill_bucket``); None = the whole prompt.
+    ``device`` defaults to ``"cuda"`` and raises without a card; pass
+    ``device="cpu"`` for the plain PyTorch path.
+    """
+
+    def __init__(self, cfg: ModelConfig, quest: QuestConfig, params: Params,
+                 max_batch: int = 4, prefill_bucket: int = 256,
+                 seed: int = 0, burst: int = 16,
+                 total_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache_entries: int = 64, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.quest = quest
+        self.max_batch = max_batch
+        self.prefill_bucket = prefill_bucket
+        self.burst = max(1, burst)
+        self.prefill_chunk = prefill_chunk
+        bpp = min(quest.block_pages, quest.max_pages)
+        self.block_tokens = bpp * quest.page_size
+        self.model = QuestModel(cfg, quest, params).to(self.device)
+        if total_pages is None:
+            total_pages = max_batch * quest.max_pages
+        self.cache = init_cache(cfg, quest, max_batch,
+                                total_pages=bpp + total_pages,
+                                device=self.device)
+        # All table rows start at scratch; the allocator owns the rest.
+        self.cache.block_tab.zero_()
+        n_blocks = self.cache.kv_pages.shape[2] // bpp - 1   # - scratch
+        self.pool = PagePool(n_blocks, self.block_tokens, max_seqs=max_batch)
+        self._table_width = self.cache.block_tab.shape[1]
+        self.slots: List[Optional[_Slot]] = [None] * max_batch
+        self.queue: deque[Request] = deque()
+        self._seed = seed
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # Host mirror of per-slot lengths: burst bounds without device
+        # fetches.
+        self._hlens = np.zeros((max_batch,), np.int64)
+        self._prefer_prefill = True
+        self.last_tick: Optional[str] = None   # introspection for tests
+        # Prefix registry: chain key -> physical blocks of that prefix;
+        # each entry holds one pages_retain on its blocks, so shared KV
+        # outlives the donor request.
+        self._prefix_cap = prefix_cache_entries
+        self._prefix: OrderedDict = OrderedDict()
+        self._chains: Dict[int, List[bytes]] = {}
+        self.prefix_hits = 0            # introspection for tests
+        self.prefix_hit_tokens = 0
+
+    # ------------------------------------------------------------------
+    def _blocks_needed(self, req: Request) -> int:
+        return -(-(len(req.prompt) + req.max_new_tokens)
+                 // self.block_tokens)
+
+    def submit(self, req: Request) -> None:
+        if len(req.prompt) + req.max_new_tokens > self.quest.max_seq_len:
+            raise ValueError(f"request {req.uid} exceeds max_seq_len")
+        if self._blocks_needed(req) > self.pool.total_pages:
+            raise ValueError(
+                f"request {req.uid} needs {self._blocks_needed(req)} "
+                f"blocks; the pool holds {self.pool.total_pages}")
+        self.queue.append(req)
+
+    @property
+    def num_active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or self.num_active > 0
+
+    # ------------------------------------------------------------------
+    def _prefix_chain(self, req: Request) -> List[bytes]:
+        """Chain hashes of the prompt's full blocks, capped so at least
+        one prompt token is always prefilled (the slot needs real
+        last-token logits). blake2b content hashing: a collision would
+        alias another request's KV into the borrower. Cached per uid (a
+        queued head is examined again every tick)."""
+        cached = self._chains.get(req.uid)
+        if cached is not None:
+            return cached
+        prompt = req.prompt
+        m = (len(prompt) - 1) // self.block_tokens
+        keys, h = [], b""
+        for i in range(m):
+            chunk = np.asarray(prompt[i * self.block_tokens:
+                                      (i + 1) * self.block_tokens],
+                               np.int64).tobytes()
+            h = hashlib.blake2b(h + chunk, digest_size=16).digest()
+            keys.append(h)
+        self._chains[req.uid] = keys
+        return keys
+
+    def _prefix_lookup(self, keys: List[bytes]):
+        """(n_shared_blocks, blocks) of the longest registered prefix."""
+        for i in range(len(keys), 0, -1):
+            ent = self._prefix.get(keys[i - 1])
+            if ent is not None:
+                self._prefix.move_to_end(keys[i - 1])
+                return i, ent
+        return 0, []
+
+    def _admit_slots(self) -> None:
+        """Move queued requests into free slots (bookkeeping only; the
+        prompt is written by later prefill ticks). FIFO: a head short on
+        blocks also holds back the requests behind it (no starvation).
+        A registered prompt prefix is borrowed instead of prefilled
+        again: its physical blocks alias into the slot's table row and
+        only the rest is reserved and written."""
+        free = [b for b, s in enumerate(self.slots) if s is None]
+        while free and self.queue:
+            req = self.queue[0]
+            keys = self._prefix_chain(req) if self._prefix_cap else []
+            n_sh, shared = self._prefix_lookup(keys)
+            # Registry holds must never starve admission (submit()
+            # checked the request fits the pool): evict LRU entries, one
+            # a free slot a round as JAX does, until the head fits or
+            # the registry is empty.
+            while (self.pool.free_pages() < self._blocks_needed(req) - n_sh
+                   and self._prefix):
+                for _ in free:
+                    if self._prefix:
+                        _, old = self._prefix.popitem(last=False)
+                        self.pool.pages_release(old)
+                n_sh, shared = self._prefix_lookup(keys)
+            if self.pool.free_pages() < self._blocks_needed(req) - n_sh:
+                break
+            self.queue.popleft()
+            b = free.pop(0)
+            shared = list(shared)
+            sh_tokens = n_sh * self.block_tokens
+            if n_sh:
+                self.pool.pages_retain(shared)  # slot hold until finish
+                self.prefix_hits += 1
+                self.prefix_hit_tokens += sh_tokens
+            sid = self.pool.seq_create()
+            # Reserve the WHOLE remaining need now: an admitted request
+            # never waits for memory again.
+            self.pool.seq_extend(sid, len(req.prompt) + req.max_new_tokens
+                                 - sh_tokens)
+            raw, _ = self.pool.fill_batch_tables([sid], self._table_width,
+                                                 pad_page=-1)
+            row = np.where(raw[0] < 0, 0, raw[0] + 1).astype(np.int32)
+            row = np.concatenate([np.asarray(shared, np.int32) + 1,
+                                  row])[:self._table_width]
+            rng = np.random.default_rng(self._seed * 7919 + req.uid)
+            self.slots[b] = _Slot(req=req, generated=[], pending=-1,
+                                  rng=rng, sid=sid, prefill_pos=sh_tokens,
+                                  shared_blocks=shared)
+            self._hlens[b] = sh_tokens
+            # Borrowed blocks carry their min/max metadata (keyed by
+            # physical block): the table row IS the whole admission.
+            self.cache.block_tab[b] = torch.from_numpy(row).to(self.device)
+            self.cache.seq_lens[b] = sh_tokens
+
+    def _publish_prefix(self, s: _Slot) -> None:
+        """Register the completed prompt's full blocks for reuse. Each
+        entry takes its own pages_retain; LRU eviction releases it."""
+        if not self._prefix_cap:
+            return
+        keys = self._prefix_chain(s.req)
+        if not keys:
+            return
+        blocks = s.shared_blocks + self.pool.seq_pages(s.sid)
+        for i, key in enumerate(keys, start=1):
+            if key in self._prefix:
+                self._prefix.move_to_end(key)
+                continue
+            ent = blocks[:i]
+            self.pool.pages_retain(ent)
+            self._prefix[key] = ent
+            while len(self._prefix) > self._prefix_cap:
+                _, old = self._prefix.popitem(last=False)
+                self.pool.pages_release(old)
+
+    # ------------------------------------------------------------------
+    def _prefill_tick(self, pf: List[int]) -> List[StepEvent]:
+        """Write one prompt chunk for every prefilling slot ``pf``."""
+        B = self.max_batch
+        left = {b: len(self.slots[b].req.prompt) - self.slots[b].prefill_pos
+                for b in pf}
+        chunk = self.prefill_chunk or max(left.values())
+        T = round_up(max(min(chunk, n) for n in left.values()),
+                     self.prefill_bucket)
+        toks = np.zeros((B, T), np.int32)
+        new_lens = np.zeros((B,), np.int32)
+        for b in pf:
+            s = self.slots[b]
+            n = min(T, left[b])
+            toks[b, :n] = s.req.prompt[s.prefill_pos:s.prefill_pos + n]
+            new_lens[b] = n
+        logits = self.model.prefill_last(
+            self.cache, torch.from_numpy(toks).to(self.device),
+            torch.from_numpy(new_lens).to(self.device))
+        logits = logits[:, 0].cpu().numpy()
+
+        events: List[StepEvent] = []
+        for b in pf:
+            s = self.slots[b]
+            s.prefill_pos += int(new_lens[b])
+            self._hlens[b] += int(new_lens[b])
+            if not s.prefilling:  # prompt complete -> first token
+                self._publish_prefix(s)
+                first = self._sample(logits[b], s.req.temperature, s.rng)
+                s.generated.append(first)
+                s.pending = first
+                events.append(self._maybe_finish(b, s, first))
+        return events
+
+    def _decode_burst(self, decoding: List[int]) -> List[StepEvent]:
+        """K chained decode steps on the device for the decoding slots,
+        ONE host fetch at the end. K is bounded by the longest remaining
+        request and by every decoding slot's room before max_seq_len
+        (slots that finish mid-burst keep appending until it ends)."""
+        B = self.max_batch
+        toks = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        temps = np.zeros((B,), np.float32)
+        for b in decoding:
+            s = self.slots[b]
+            toks[b] = s.pending
+            active[b] = True
+            temps[b] = max(s.req.temperature, 0.0)
+        remaining = max(self.slots[b].req.max_new_tokens
+                        - len(self.slots[b].generated) for b in decoding)
+        headroom = min(self.quest.max_seq_len - int(self._hlens[b])
+                       for b in decoding)
+        K = max(1, min(self.burst, remaining, headroom))
+        act = torch.from_numpy(active).to(self.device)
+        tok = torch.from_numpy(toks).to(self.device)
+        if not temps.any():
+            out = self.model.decode_token_burst(self.cache, tok, K, act)
+        else:
+            temps_dev = torch.from_numpy(temps).to(self.device)
+            outs = []
+            for _ in range(K):
+                tok = self.model.decode_sample_step(self.cache, tok,
+                                                    self._gen, temps_dev,
+                                                    act)
+                outs.append(tok)
+            out = torch.stack(outs, dim=1)
+        arr = out.cpu().numpy()                                  # [B, K]
+        for b in decoding:
+            self._hlens[b] += K
+        # Emit in token-time order (step-major) so cross-request finish
+        # order matches the unbatched semantics.
+        events: List[StepEvent] = []
+        done = set()
+        for k in range(K):
+            for b in decoding:
+                if b in done:
+                    continue        # the burst's junk tail is dropped
+                slot = self.slots[b]
+                nxt = int(arr[b, k])
+                slot.generated.append(nxt)
+                slot.pending = nxt
+                ev = self._maybe_finish(b, slot, nxt)
+                events.append(ev)
+                if ev.finished:
+                    done.add(b)
+        return events
+
+    def step(self) -> List[StepEvent]:
+        """One scheduler tick; returns per-request token events."""
+        self._admit_slots()
+        prefilling = [b for b, s in enumerate(self.slots)
+                      if s is not None and s.prefilling]
+        decoding = [b for b, s in enumerate(self.slots)
+                    if s is not None and not s.prefilling]
+        # Alternate prefill chunks and decode bursts so neither phase
+        # starves the other.
+        if prefilling and (self._prefer_prefill or not decoding):
+            self._prefer_prefill = False
+            self.last_tick = "prefill"
+            return self._prefill_tick(prefilling)
+        self._prefer_prefill = True
+        if not decoding:
+            self.last_tick = None
+            return []
+        self.last_tick = "decode"
+        return self._decode_burst(decoding)
+
+    def _maybe_finish(self, b: int, slot: _Slot, token: int) -> StepEvent:
+        req = slot.req
+        done = (len(slot.generated) >= req.max_new_tokens
+                or (req.eos_token_id is not None
+                    and token == req.eos_token_id))
+        if done:
+            self.slots[b] = None
+            # Recycle: blocks back to the allocator, table row to
+            # scratch, length to 0. Borrowed prefix blocks drop this
+            # slot's hold (the registry keeps its own).
+            if slot.shared_blocks:
+                self.pool.pages_release(slot.shared_blocks)
+            self.pool.seq_release(slot.sid)
+            self._chains.pop(req.uid, None)
+            self._hlens[b] = 0
+            self.cache.block_tab[b] = 0
+            self.cache.seq_lens[b] = 0
+        return StepEvent(uid=req.uid, token=token, finished=done)
+
+    @staticmethod
+    def _sample(logits: np.ndarray, temperature: float,
+                rng: np.random.Generator) -> int:
+        if temperature <= 0.0:
+            return int(np.argmax(logits))
+        x = logits.astype(np.float64) / temperature
+        x -= x.max()
+        p = np.exp(x)
+        p /= p.sum()
+        return int(rng.choice(len(p), p=p))
+
+    # ------------------------------------------------------------------
+    def run(self, requests: Sequence[Request]) -> Dict[int, List[int]]:
+        """Submit everything, tick until drained, return generations."""
+        for r in requests:
+            self.submit(r)
+        out: Dict[int, List[int]] = {}
+        gens: Dict[int, List[int]] = {r.uid: [] for r in requests}
+        while self.has_work():
+            for ev in self.step():
+                gens[ev.uid].append(ev.token)
+                if ev.finished:
+                    out[ev.uid] = gens[ev.uid]
+        return out

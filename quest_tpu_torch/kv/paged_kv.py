@@ -43,7 +43,8 @@ def _finite(x: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class LayerKV:
-    """Per-slot view of one layer (tests and oracles, not serving)."""
+    """Per-slot view of one layer (tests and oracles, not serving), the
+    state of :func:`append_decode` and :func:`append_prefill`."""
 
     kv_pages: torch.Tensor  # [B, Hkv, P, 2, page, D]
     k_max: torch.Tensor     # [B, Hkv, P, D]
@@ -132,6 +133,79 @@ def init_cache(model: ModelConfig, quest: QuestConfig, batch_size: int = 1,
         block_tab=btab,
         seq_lens=torch.zeros((B,), dtype=torch.int32, device=dev),
     )
+
+
+def append_decode(layer: LayerKV, k_new: torch.Tensor,
+                  v_new: torch.Tensor) -> LayerKV:
+    """Per-slot oracle of :func:`append_decode_at` (``quest_tpu/kv/
+    paged_kv.py:append_decode``): write one token per sequence at
+    ``seq_lens[b]`` of a :class:`LayerKV` and fold its key into the page's
+    min/max (reset at a page's first token). ``k_new, v_new``: [B, Hkv,
+    D]. Returns a new ``LayerKV``; ``seq_lens`` does not advance. A page
+    index past the view clamps to its last page, as JAX's
+    ``dynamic_update_slice`` does."""
+    kv, kmax, kmin = (layer.kv_pages.clone(), layer.k_max.clone(),
+                      layer.k_min.clone())
+    page, P = kv.shape[-2], kv.shape[2]
+    kq = _finite(k_new).to(kv.dtype)
+    vq = _finite(v_new).to(kv.dtype)
+    for b, pos in enumerate(layer.seq_lens.tolist()):
+        p, e = min(pos // page, P - 1), pos % page
+        kv[b, :, p, K, e] = kq[b]
+        kv[b, :, p, V, e] = vq[b]
+        kf = kq[b].float()
+        if e == 0:
+            new_max = new_min = kf
+        else:
+            new_max = torch.maximum(kmax[b, :, p].float(), kf)
+            new_min = torch.minimum(kmin[b, :, p].float(), kf)
+        kmax[b, :, p] = new_max.to(kmax.dtype)
+        kmin[b, :, p] = new_min.to(kmin.dtype)
+    return LayerKV(kv, kmax, kmin, layer.seq_lens)
+
+
+def append_prefill(layer: LayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
+                   new_lens: torch.Tensor | None = None) -> LayerKV:
+    """Per-slot oracle of :func:`append_prefill_at` (``quest_tpu/kv/
+    paged_kv.py:append_prefill``): write ``T`` tokens per sequence from
+    ``seq_lens[b]`` and recompute the min/max of the touched window of
+    W = min(P, T // page + 2) pages over the tokens below ``seq_lens[b] +
+    new_lens[b]``; pages of the window with none keep their metadata.
+    ``k_new, v_new``: [B, T, Hkv, D]; ``new_lens`` defaults to T. The
+    window starts at ``min(offset // page, P - W)`` and the write start
+    inside it clamps so the T tokens fit, as JAX's
+    ``dynamic_update_slice`` does. Returns a new ``LayerKV``."""
+    kv, kmax, kmin = (layer.kv_pages.clone(), layer.k_max.clone(),
+                      layer.k_min.clone())
+    B, T, H, D = k_new.shape
+    page, P = kv.shape[-2], kv.shape[2]
+    W = min(P, T // page + 2)
+    kq = _finite(k_new).to(kv.dtype).transpose(1, 2)        # [B, Hkv, T, D]
+    vq = _finite(v_new).to(kv.dtype).transpose(1, 2)
+    lens = [T] * B if new_lens is None else new_lens.tolist()
+    for b, offset in enumerate(layer.seq_lens.tolist()):
+        p0 = min(offset // page, P - W)
+        local = min(max(offset - p0 * page, 0), W * page - T)
+        win = kv[b, :, p0:p0 + W]                           # [H, W, 2, page, D]
+        for kind, new in ((K, kq[b]), (V, vq[b])):
+            flat = win[:, :, kind].reshape(H, W * page, D).clone()
+            flat[:, local:local + T] = new
+            win[:, :, kind] = flat.reshape(H, W, page, D)
+        tok_ids = ((p0 + torch.arange(W, device=kv.device))[:, None] * page
+                   + torch.arange(page, device=kv.device))
+        valid = (tok_ids < offset + lens[b])[None, :, :, None]
+        wkf = win[:, :, K].float()                          # [H, W, page, D]
+        big = 3.0e38
+        any_valid = valid.any(dim=2)                        # [1, W, 1]
+        wmax = torch.where(valid, wkf, -big).amax(dim=2)
+        wmin = torch.where(valid, wkf, big).amin(dim=2)
+        old_max = kmax[b, :, p0:p0 + W].float()
+        old_min = kmin[b, :, p0:p0 + W].float()
+        kmax[b, :, p0:p0 + W] = torch.where(any_valid, wmax,
+                                            old_max).to(kmax.dtype)
+        kmin[b, :, p0:p0 + W] = torch.where(any_valid, wmin,
+                                            old_min).to(kmin.dtype)
+    return LayerKV(kv, kmax, kmin, layer.seq_lens)
 
 
 def append_decode_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,

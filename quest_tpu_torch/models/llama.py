@@ -242,3 +242,52 @@ class QuestModel(nn.Module):
         tokens [B] int32, with no host synchronisation."""
         logits = self.decode_step(cache, tokens, active)
         return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def decode_token_burst(self, cache: PagedKVCache, tokens: torch.Tensor,
+                           n: int, active: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """``n`` greedy decode steps, each argmax fed straight back, with
+        no host synchronisation: tokens [B] -> all_tokens [B, n] int32."""
+        outs = []
+        for _ in range(n):
+            tokens = self.decode_token_step(cache, tokens, active)
+            outs.append(tokens)
+        return torch.stack(outs, dim=1)
+
+    def decode_nll_step(self, cache: PagedKVCache, tokens: torch.Tensor,
+                        targets: torch.Tensor,
+                        active: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """Teacher-forced decode step: the negative log-likelihood of
+        ``targets`` [B] under the step's logits, ``logsumexp - logit
+        [target]`` [B] f32, left on the device."""
+        logits = self.decode_step(cache, tokens, active).float()
+        tgt = torch.gather(logits, 1, targets.long()[:, None])[:, 0]
+        return torch.logsumexp(logits, dim=-1) - tgt
+
+    def decode_sample_step(self, cache: PagedKVCache, tokens: torch.Tensor,
+                           generator: torch.Generator, temps: torch.Tensor,
+                           active: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """:meth:`decode_token_step` with sampling on the device: rows
+        with ``temps > 0`` draw from ``softmax(logits / temp)``, the
+        others take the argmax (:func:`sample_tokens`). ``generator``
+        lives on the model's device and advances with each call, so a
+        sampled burst needs no host round trip."""
+        logits = self.decode_step(cache, tokens, active)
+        return sample_tokens(logits, temps, generator)
+
+
+def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Per-row sampling of logits [B, V] by Gumbel-max, the method of
+    ``jax.random.categorical``: ``argmax(logits / t + g)`` with ``g =
+    -log(E)``, ``E ~ Exp(1)`` drawn from ``generator``, for rows with
+    ``temps > 0``; the argmax for the others. Returns [B] int32. The
+    distribution is JAX's, the random bits are not."""
+    logits = logits.float()
+    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))[:, None]
+    gumbel = -torch.empty_like(logits).exponential_(generator=generator).log()
+    drawn = torch.argmax(logits / safe_t + gumbel, dim=-1)
+    greedy = torch.argmax(logits, dim=-1)
+    return torch.where(temps > 0, drawn, greedy).to(torch.int32)

@@ -185,7 +185,9 @@ def test_port_imports_no_jax():
             "quest_tpu_torch.exp.select_compile2, "
             "quest_tpu_torch.exp.fused_stages, "
             "quest_tpu_torch.ops.decode_common, "
-            "quest_tpu_torch.exp.decode_ablation; "
+            "quest_tpu_torch.exp.decode_ablation, "
+            "quest_tpu_torch.kv.pool, quest_tpu_torch.engine.scheduler, "
+            "quest_tpu_torch.exp.scheduler_load; "
             "bad = [m for m in sys.modules if m in ('jax', 'quest_tpu') or "
             "m.startswith(('jax.', 'quest_tpu.'))]; "
             "assert not bad, bad")
