@@ -66,7 +66,36 @@ Phases, each fatal on failure:
      held against their plain versions as in phase 7 (batch 4); the
      smoke run's prefill tokens/s, generated tokens/s and ms a decode
      step (a few requests, mostly a draining batch: not the
-     scheduler's throughput).
+     scheduler's throughput);
+  9. the weight-only quantized products: ``qgemv`` (decode rows) and
+     ``dequant`` (prefill rows) against their plain versions at every
+     full-width linear of Llama-3.1-8B (wq/wo, wk/wv, w_gate/w_up,
+     w_down, and the lm_head with an f32 activation), int8 and int4, M =
+     1, 2, 4 and 16 rows: within 2e-2 (bf16) or 1e-5 (f32), dequant bit
+     for bit; each timed beside its bound, its plain version and the bf16
+     ``torch.matmul`` over the unquantized weight;
+ 10. the 4-layer f32 model with int8 and with int4 weights on the card
+     against the CPU's plain path (greedy tokens equal over prefill and 8
+     decode steps, logits within 2e-3, the weight kernels' launches the
+     path's); AWQ at int4 on the card over the 4-layer model with salient
+     activation channels: on held-out rows no linear's output error above
+     RTN's;
+ 11. the full-width Llama-3.1-8B (phase 6's weights) quantized on the
+     card to int8 and to int4, each served by a QuestEngine at B=2
+     beside a bf16 engine on the same weights: launches checked (225
+     qgemv and no dequant a decode step; 224 dequant and one qgemv a
+     prefill chunk), finite logits, weight and pool bytes, prefill
+     tokens/s and decode ms a step in turns with the bf16 engine, a
+     profile, and the last prefill logits' correlation with the bf16
+     engine's;
+ 12. the checkpoint loader: phase 6's weights as an HF-named state dict
+     and Llama-3.1-8B's published config fields, loaded back on the card
+     bit for bit;
+ 13. the eval harnesses at full width (random bf16 weights, the byte
+     tokenizer; their accuracies mean nothing): perplexity with the
+     sparse path live and under the dense control, passkey at two
+     depths, LongBench on two synthetic tasks, every call's launches
+     checked against the path.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this script, it exits non-zero and prints
@@ -1065,7 +1094,7 @@ PROMPT_SEED = 7
 
 
 def small_reference_phase(dtype, tol=None, steps=8, fused=False,
-                          serving_kv=None):
+                          serving_kv=None, bits=None):
     """A 4-layer model with GQA group 4 and head dim 128, its weights
     and KV pool in ``dtype``, served on the card and on the CPU's plain
     path from the same weights and prompts, both fed the CPU's greedy
@@ -1078,12 +1107,17 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
     model's gate opens), and the card's fused launches must be 2 a
     step. With ``serving_kv`` (a KV dtype) the engines run the serving
     configuration instead: page 32, fp8 e4m3 metadata, a 4-page budget,
-    that KV dtype."""
+    that KV dtype. With ``bits`` (8 or 4) the weights are quantized (RTN)
+    first and the card's weight kernels' launches must be the path's: a
+    prefill's layer linears dequantize, its lm_head and every decode
+    step's products take qgemv."""
     from quest_tpu_torch.config import (QuestConfig, serving_quest_config,
                                         small_tpu_model)
     from quest_tpu_torch.engine.engine import QuestEngine
     from quest_tpu_torch.models.llama import init_params
+    from quest_tpu_torch.models.quantize import quantize_params
     from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
+    from quest_tpu_torch.ops.qdot import dequant, qgemv
     cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
                               num_kv_heads=2, dtype=dtype)
     if serving_kv is not None:
@@ -1095,12 +1129,14 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
                             kv_dtype=dtype, fused_decode=fused)
     params = init_params(cfg, torch.Generator().manual_seed(5),
                          device="cpu")
+    if bits:
+        params = quantize_params(params, bits)
     rng = np.random.default_rng(PROMPT_SEED)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                for n in (300, 170)]
     gpu = QuestEngine(cfg, quest, params, batch_size=2, device="cuda")
     cpu = QuestEngine(cfg, quest, params, batch_size=2, device="cpu")
-    fused_sparse_decode.launches = 0
+    fused_sparse_decode.launches = qgemv.launches = dequant.launches = 0
     g, c = gpu.prefill(prompts), cpu.prefill(prompts)
     errs, same = [], []
     assert all(-(-len(p) // quest.page_size) > quest.page_budget
@@ -1114,16 +1150,22 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
             g, c = gpu.decode(tok), cpu.decode(tok)
     torch.cuda.synchronize()
     launches = fused_sparse_decode.launches
+    weight_launches = dict(qgemv=qgemv.launches, dequant=dequant.launches)
     name = str(dtype).split(".")[-1] + ("/fused" if fused else "") + (
         f"/serving {str(serving_kv).split('.')[-1]} KV" if serving_kv
-        else "")
+        else "") + (f"/int{bits} weights" if bits else "")
     log(f"reference[{name}]: 4-layer model on the card vs the plain CPU "
         f"path over prefill + {steps} sparse decode steps: greedy tokens "
         f"agree at {sum(same)} of {len(same)} steps, max logits rel err "
         f"{max(errs):.2e} (limit {tol if tol else 'none'}; per step "
-        f"{' '.join(f'{e:.1e}' for e in errs)}); fused launches {launches}")
+        f"{' '.join(f'{e:.1e}' for e in errs)}); fused launches {launches}"
+        + (f", weight kernels {weight_launches}" if bits else ""))
     want = steps * (cfg.num_layers - quest.skip_layers) if fused else 0
     assert launches == want, f"fused launches {launches} != path {want}"
+    want = (quant_launches(cfg, steps, 1) if bits
+            else dict(qgemv=0, dequant=0))
+    assert weight_launches == want, (
+        f"weight kernel launches {weight_launches} != path {want}")
     assert all(same), f"greedy tokens differ from the CPU path ({name})"
     assert tol is None or max(errs) <= tol, (
         f"card path disagrees with the CPU path: {max(errs)}")
@@ -1761,6 +1803,528 @@ def scheduler_phase(params, kernels, smi):
     return res, cases
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the weight-only quantized products.
+# ---------------------------------------------------------------------------
+
+# The full-width linears of Llama-3.1-8B: (label, in, out); the lm_head
+# product takes an f32 activation, the others bf16.
+QUANT_SHAPES = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
+                ("w_gate/w_up", 4096, 14336), ("w_down", 14336, 4096),
+                ("lm_head", 4096, 128256))
+QUANT_ROWS = (1, 2, 4, 16)
+F32_KERNEL_TOL = 1e-5          # f32 kernel vs plain, max|d| / max|plain|
+F32_FLOPS = 67e12              # f32 outside the tensor cores
+
+
+def quant_bound(M, K, N, bits, x_dtype, out_bytes=None):
+    """(ms, bound_by): the packed weights, s, x and out each moved once
+    over the memory rate, or 2 M K N operations over the peak of x's type
+    (bf16 tensor cores, or f32 FMA), the larger. ``out_bytes`` replaces
+    the product's x and out (the dequant pass writes the whole matrix)."""
+    esz = torch.empty((), dtype=x_dtype).element_size()
+    nbytes = K * N * bits // 8 + 4 * N + (
+        out_bytes if out_bytes is not None else M * (K + N) * esz)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if out_bytes is not None:
+        return t_bytes, "bytes"
+    peak = BF16_FLOPS if x_dtype == torch.bfloat16 else F32_FLOPS
+    t_ops = 2 * M * K * N / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def weight_kernel_phase(timer, gen):
+    """``qgemv`` and ``dequant`` against their plain versions at every
+    full-width linear of Llama-3.1-8B, int8 and int4 (RTN of a random
+    bf16 weight, quantized on the card): ``qgemv`` at M = 1, 2, 4, 16 rows
+    within 2e-2 (bf16) or 1e-5 (f32, the lm_head), ``dequant`` bitwise;
+    each timed beside its bound, its plain version and the bf16
+    ``torch.matmul`` over the unquantized weight that quantization must
+    beat (the lm_head also beside the f32 product of the unquantized
+    model). Returns each kernel's cases, the main path's first (w_gate
+    at M = 2 in int8)."""
+    from quest_tpu_torch.models.quantize import quantize_weight
+    from quest_tpu_torch.ops.qdot import (dequant, dequant_plain, qgemv,
+                                          qgemv_plain)
+    gemv, deq = [], []
+    for label, K, N in QUANT_SHAPES:
+        xdt = torch.float32 if label == "lm_head" else torch.bfloat16
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             / math.sqrt(K)).to(torch.bfloat16)
+        w32 = w.float() if xdt == torch.float32 else None
+        for bits in (8, 4):
+            qw = quantize_weight(w, bits)
+            for M in QUANT_ROWS:
+                x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
+                got = qgemv(x, qw.q, qw.s, None, bits)
+                want = qgemv_plain(x, qw.q, qw.s, None, bits, xdt)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                tol = REL_TOL if xdt == torch.bfloat16 else F32_KERNEL_TOL
+                xb = x.to(torch.bfloat16)
+                bound, by = quant_bound(M, K, N, bits, xdt)
+                case = dict(
+                    case=f"{label} {K}x{N} int{bits} M={M} "
+                         f"{str(xdt).split('.')[-1]} x",
+                    max_abs_err=float((got - want).abs().max()),
+                    max_rel_err=err,
+                    ms=timer(lambda: qgemv(x, qw.q, qw.s, None, bits)),
+                    plain_ms=timer(lambda: qgemv_plain(x, qw.q, qw.s, None,
+                                                       bits, xdt)),
+                    library_ms=timer(lambda: xb @ w), bound_ms=bound,
+                    bound_by=by)
+                if w32 is not None:
+                    case["f32_matmul_ms"] = timer(lambda: x @ w32)
+                gemv.append(case)
+                log(f"qgemv[{case['case']}]: rel err {err:.2e}, "
+                    f"{case['ms'] * 1e3:.1f} us (bound {bound * 1e3:.1f} us "
+                    f"{by}, plain {case['plain_ms'] * 1e3:.1f} us, bf16 "
+                    f"matmul {case['library_ms'] * 1e3:.1f} us"
+                    + (f", f32 matmul {case['f32_matmul_ms'] * 1e3:.1f} us"
+                       if w32 is not None else "") + ")")
+                assert err <= tol, f"qgemv disagrees ({case['case']}): {err}"
+            got = dequant(qw.q, qw.s, None, bits, xdt)
+            want = dequant_plain(qw.q, qw.s, None, bits, xdt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"dequant {label} int{bits}"
+            out_bytes = K * N * got.element_size()
+            bound, by = quant_bound(0, K, N, bits, xdt, out_bytes)
+            case = dict(
+                case=f"{label} {K}x{N} int{bits} -> "
+                     f"{str(xdt).split('.')[-1]}",
+                max_abs_err=0.0, max_rel_err=0.0,
+                ms=timer(lambda: dequant(qw.q, qw.s, None, bits, xdt,
+                                         out=got)),
+                plain_ms=timer(lambda: dequant_plain(qw.q, qw.s, None, bits,
+                                                     xdt)),
+                library_ms=None, bound_ms=bound, bound_by=by)
+            deq.append(case)
+            log(f"dequant[{case['case']}]: bitwise, {case['ms'] * 1e3:.1f} "
+                f"us (bound {bound * 1e3:.1f} us, plain "
+                f"{case['plain_ms'] * 1e3:.1f} us)")
+            del qw, got, want
+        del w, w32
+        torch.cuda.empty_cache()
+    gemv.sort(key=lambda c: not c["case"].startswith(
+        "w_gate/w_up 4096x14336 int8 M=2 "))
+    deq.sort(key=lambda c: not c["case"].startswith(
+        "w_gate/w_up 4096x14336 int8"))
+    return {"qgemv": gemv, "dequant": deq}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: quantized models, 4 layers, card against CPU; AWQ on the card.
+# ---------------------------------------------------------------------------
+
+def quant_launches(cfg, decode_steps, prefill_calls):
+    """qgemv and dequant launches of a quantized model's run: each of the
+    7 layer linears and the lm_head a call; a prefill's layer linears
+    take the dequant route (more than 16 rows), its lm_head (one row a
+    sequence) and every decode step's products take qgemv."""
+    L = cfg.num_layers
+    return dict(qgemv=(7 * L + 1) * decode_steps + prefill_calls,
+                dequant=7 * L * prefill_calls)
+
+
+def small_awq_phase(device="cuda", n_grid=20):
+    """AWQ at int4 over the 4-layer f32 model of phase 5, given the
+    salient activation channels that AWQ exists for: 8 channels of the
+    residual stream scaled by 6 in the embedding and in every norm's
+    weight, and 1 in 32 output columns of wv and w_up scaled by 6 (so the
+    o- and down-projections' inputs have outliers too). Calibrated on one
+    batch of 4 x 64 tokens, then every linear of every layer is held on
+    the rows of a second, held-out batch: AWQ's output error must be at
+    most RTN's. (With only the embedding scaled, as tests/
+    test_quantize.py's AWQ case, the stream's outliers fade after the
+    first layer, and on held-out rows AWQ lost to RTN by up to 16% on 15
+    of 29 linears: alphas fitted to noise.) Returns the summed errors."""
+    from quest_tpu_torch.config import QuestConfig, small_tpu_model
+    from quest_tpu_torch.kv.paged_kv import init_cache
+    from quest_tpu_torch.models import awq
+    from quest_tpu_torch.models.llama import QuestModel, init_params
+    from quest_tpu_torch.models.quantize import (QUANT_KEYS, qdot,
+                                                 quantize_weight)
+    cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
+                              num_kv_heads=2, dtype=torch.float32)
+    quest = QuestConfig(page_size=16, token_budget=64, max_seq_len=1024,
+                        kv_dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    rng = np.random.default_rng(9)
+
+    def salient(n, count):
+        b = torch.ones(n)
+        b[rng.choice(n, count, replace=False)] = 6.0
+        return b
+
+    boost = salient(cfg.hidden_size, 8)
+    params["embed"] = params["embed"] * boost
+    params["final_norm"] = params["final_norm"] * boost
+    lay = params["layers"]
+    for k in ("ln_attn", "ln_mlp"):
+        lay[k] = lay[k] * boost
+    for k in ("wv", "w_up"):
+        lay[k] = lay[k] * salient(lay[k].shape[-1], lay[k].shape[-1] // 32)
+    params = {k: ({kk: vv.to(device) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.to(device))
+              for k, v in params.items()}
+    model = QuestModel(cfg, quest, params)
+    toks = [torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(4, 64))
+                             ).to(device) for _ in range(2)]
+    t = time.time()
+    aparams = awq.awq_quantize_params(
+        model, params, init_cache(cfg, quest, batch_size=4, device=device),
+        toks[0], bits=4, n_grid=n_grid)
+    held = awq.awq_calibrate(model, init_cache(cfg, quest, batch_size=4,
+                                               device=device), toks[1])
+    sums, worse = {"awq": 0.0, "rtn": 0.0}, []
+    for name in QUANT_KEYS + ("lm_head",):
+        for l, ent in enumerate(held[name]):
+            w = (params["lm_head"] if name == "lm_head"
+                 else params["layers"][name][l])
+            a = aparams[name] if name == "lm_head" else (
+                aparams["layers"][name].layer(l))
+            x = ent["rows"]
+            ref = x @ w
+            e_awq = float(((qdot(x, a) - ref) ** 2).mean())
+            e_rtn = float(((qdot(x, quantize_weight(w, 4)) - ref) ** 2)
+                          .mean())
+            sums["awq"] += e_awq
+            sums["rtn"] += e_rtn
+            if e_awq > e_rtn:
+                worse.append((name, l, e_awq, e_rtn))
+    log(f"awq[4-layer, int4, {device}]: calibrated and searched (n_grid "
+        f"{n_grid}) in {time.time() - t:.1f} s; held-out output MSE summed "
+        f"over {len(QUANT_KEYS) * cfg.num_layers + 1} linears: AWQ "
+        f"{sums['awq']:.4e}, RTN {sums['rtn']:.4e}; linears where AWQ is "
+        f"worse: {worse}")
+    assert not worse, f"AWQ loses to RTN on held-out rows: {worse}"
+    return sums
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: full-width quantized engines.
+# ---------------------------------------------------------------------------
+
+def quantized_serving_phase(params, kernels, smi):
+    """Llama-3.1-8B (the serving phase's bf16 weights) quantized on the
+    card, one layer's tensor at a time, to int8 and to int4 (RTN), each
+    served by a ``QuestEngine`` (default ``QuestConfig``, max_seq_len
+    16384, B=2) beside a bf16 engine on the same weights: prefill of
+    prompts of 5000 and 2500 tokens, then 32 greedy tokens by
+    ``generate_ondevice`` with every kernel's launches checked against the
+    path (a prefill's layer linears dequantize, 224 launches; its lm_head
+    and each decode step's 225 products are qgemv); then prefill and 16
+    decode steps timed in turns (bf16, int8, int4, then in reverse), the
+    quantized steps' launches checked (225 qgemv and no dequant a step),
+    and two steps of each quantized engine profiled. Prints weight and
+    pool bytes, prefill tokens/s, decode ms a step, device busy and ops a
+    step, and the correlation of the last prefill logits with the bf16
+    engine's. Returns the numbers and the int8 run's launches."""
+    from quest_tpu_torch.config import QuestConfig, llama31_8b
+    from quest_tpu_torch.engine.engine import QuestEngine
+    from quest_tpu_torch.models.quantize import quantize_params, weight_bytes
+    cfg = llama31_8b()
+    quest = QuestConfig(max_seq_len=16384)
+    L, skip, N = cfg.num_layers, quest.skip_layers, 32
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in (5000, 2500)]
+    n_prompt = sum(map(len, prompts))
+    engines, wbytes, t_quant, run_counts, t_gen = {}, {}, {}, {}, {}
+    engines["bf16"] = QuestEngine(cfg, quest, params, batch_size=2,
+                                  device="cuda")
+    wbytes["bf16"] = weight_bytes(params)
+    ref = engines["bf16"].prefill(prompts)
+    for bits in (8, 4):
+        name = f"int{bits}"
+        torch.cuda.synchronize()
+        t = time.time()
+        qparams = quantize_params(params, bits)
+        torch.cuda.synchronize()
+        t_quant[name] = time.time() - t
+        engines[name] = QuestEngine(cfg, quest, qparams, batch_size=2,
+                                    device="cuda")
+        wbytes[name] = weight_bytes(qparams)
+        del qparams
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.time()
+        toks = engines[name].generate_ondevice(prompts, max_new_tokens=N)
+        torch.cuda.synchronize()
+        t_gen[name] = time.time() - t
+        got = {n: k.launches for n, k in kernels.items()}
+        want = dict.fromkeys(kernels, 0)
+        want.update(prefill=L, dense_decode=skip * (N - 1),
+                    sparse_decode=(L - skip) * (N - 1),
+                    **quant_launches(cfg, N - 1, 1))
+        log(f"quantized[{name}, generate_ondevice]: prompts "
+            f"{[len(p) for p in prompts]}, {N} tokens each in "
+            f"{t_gen[name]:.2f} s; launches {got}")
+        assert got == want, f"{name} launches {got} != path {want}"
+        assert all(len(r) == N and all(0 <= x < cfg.vocab_size for x in r)
+                   for r in toks), "tokens out of range"
+        run_counts[bits] = got
+    order = list(engines)
+    prefill_s, decode_ms, corr, last = {}, {}, {}, {}
+    for name in order + order[::-1]:
+        engine = engines[name]
+        engine.clear()
+        torch.cuda.synchronize()
+        t = time.time()
+        logits = engine.prefill(prompts)
+        prefill_s.setdefault(name, []).append(time.time() - t)
+        assert np.isfinite(logits).all(), "non-finite prefill logits"
+        corr[name] = [float(np.corrcoef(logits[b], ref[b])[0, 1])
+                      for b in range(2)]
+        tk = torch.as_tensor(np.argmax(logits, axis=-1).astype(np.int32),
+                             device="cuda")
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(16):
+            tk = engine.model.decode_token_step(engine.cache, tk)
+        torch.cuda.synchronize()
+        decode_ms.setdefault(name, []).append((time.time() - t) / 16 * 1e3)
+        want = (7 * L + 1) * 16 if name != "bf16" else 0
+        assert (kernels["qgemv"].launches, kernels["dequant"].launches
+                ) == (want, 0), f"{name} decode-step launches"
+        last[name] = tk
+    out = {}
+    for name in order:
+        res = dict(weight_bytes=wbytes[name],
+                   pool_bytes=cache_bytes(engines[name].cache),
+                   prefill_tokens_per_s=[n_prompt / x
+                                         for x in prefill_s[name]],
+                   decode_ms_per_step=decode_ms[name],
+                   logits_corr_vs_bf16=corr[name])
+        if name != "bf16":
+            res.update(quantize_s=t_quant[name],
+                       generate_ondevice_s=t_gen[name],
+                       **profile_decode(engines[name], last[name], name))
+        log(f"quantized[{name}]: weights {wbytes[name] / 1e9:.3f} GB"
+            + (f", quantized in {t_quant[name]:.2f} s" if name != "bf16"
+               else "")
+            + f"; pool {res['pool_bytes'] / 1e9:.3f} GB; prefill "
+            f"{' / '.join(f'{x:.0f}' for x in res['prefill_tokens_per_s'])} "
+            f"tokens/s; decode "
+            f"{' / '.join(f'{x:.2f}' for x in decode_ms[name])} ms/step "
+            f"at B=2 (in turns: bf16, int8, int4, then reversed)"
+            + (f"; device busy {res['profile_device_ms_per_step']:.2f} ms "
+               f"and {res['device_ops_per_step']:.0f} ops a step; last "
+               f"prefill logits' correlation with bf16 "
+               f"{corr[name][0]:.4f} / {corr[name][1]:.4f} (random weights)"
+               if name != "bf16" else "")
+            + f"; card {smi}")
+        out[name] = res
+    del engines
+    torch.cuda.empty_cache()
+    return out, run_counts[8]
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the checkpoint loader on the card.
+# ---------------------------------------------------------------------------
+
+def hf_state_dict(params):
+    """The parameters under HF Llama names, [out, in] (views, no copy)."""
+    from quest_tpu_torch.models.loader import HF_LAYER_NAMES
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["final_norm"],
+          "lm_head.weight": params["lm_head"].T}
+    for k, (name, tr) in HF_LAYER_NAMES.items():
+        for i, w in enumerate(params["layers"][k]):
+            sd[f"model.layers.{i}.{name}"] = w.T if tr else w
+    return sd
+
+
+def llama31_8b_hf_config():
+    """Llama-3.1-8B's published config.json fields, as a namespace (the
+    card machine has no transformers)."""
+    import types
+    return types.SimpleNamespace(
+        vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        head_dim=128, rms_norm_eps=1e-5, rope_theta=500000.0,
+        max_position_embeddings=131072, tie_word_embeddings=False,
+        rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                      "original_max_position_embeddings": 8192})
+
+
+def loader_phase(params):
+    """An HF-named state dict of the serving phase's weights loaded back
+    by ``params_from_state_dict`` on the card: the config from the
+    published fields equals the preset, the loaded parameters equal the
+    originals bit for bit."""
+    from quest_tpu_torch.config import llama31_8b
+    from quest_tpu_torch.models.loader import (config_from_hf,
+                                               params_from_state_dict)
+    cfg = config_from_hf(llama31_8b_hf_config())
+    assert cfg == llama31_8b(), cfg
+    torch.cuda.synchronize()
+    t = time.time()
+    got = params_from_state_dict(hf_state_dict(params), cfg, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    same = [torch.equal(got[k], params[k])
+            for k in ("embed", "final_norm", "lm_head")]
+    same += [torch.equal(got["layers"][k], v)
+             for k, v in params["layers"].items()]
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 [got["embed"], got["final_norm"], got["lm_head"],
+                  *got["layers"].values()])
+    log(f"loader: {len(same)} stacked tensors ({nbytes / 1e9:.2f} GB) from "
+        f"{32 * 9 + 3} HF tensors in {dt:.2f} s; config equals llama31_8b(); "
+        f"bitwise equal: {all(same)}")
+    assert all(same), "the loaded parameters differ from the originals"
+    return dict(load_s=dt, bytes=nbytes)
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the eval harnesses at full width.
+# ---------------------------------------------------------------------------
+
+def synthetic_longbench(path, paragraphs=12):
+    """Two LongBench-schema tasks of two samples each, written as
+    ``passage_count.jsonl`` and ``hotpotqa.jsonl`` under ``path``:
+    ``paragraphs`` paragraphs of 60 random words and 3 of them repeated
+    (~5000 bytes at 12), a question, the answers."""
+    rng = np.random.default_rng(4)
+    words = [f"w{i}" for i in range(200)]
+
+    def para():
+        return " ".join(rng.choice(words, size=60))
+
+    for task in ("passage_count", "hotpotqa"):
+        with open(Path(path) / f"{task}.jsonl", "w") as f:
+            for i in range(2):
+                ps = [para() for _ in range(paragraphs)]
+                ps += [ps[j] for j in rng.choice(paragraphs, 3)]
+                ctx = "\n\n".join(f"Paragraph {j + 1}: {p}"
+                                  for j, p in enumerate(ps))
+                print(json.dumps({
+                    "context": ctx, "input": f"Which paragraph names "
+                    f"{words[i]}?", "answers": [str(paragraphs)]
+                    if task == "passage_count" else [words[i]],
+                    "all_classes": None}), file=f)
+
+
+def eval_phase(cfg, params, kernels, device="cuda", warmup=3000,
+               eval_tokens=128, n_garbage=12000, lb_prompt=8000):
+    """The three harnesses on the port's engines, random weights and the
+    byte tokenizer (accuracies mean nothing here): perplexity
+    (``warmup`` prefilled tokens, then ``eval_tokens`` predictions, of
+    which all but the first are teacher-forced decode steps) with the
+    sparse path live and under the dense control (``skip_layers`` = all
+    layers); passkey on two prompts of ``n_garbage`` filler bytes at
+    depths 0.3 and 0.7, 8 new tokens; LongBench on two synthetic tasks of
+    two samples each. Every call's kernel launches are checked against
+    the path. Returns the numbers."""
+    import tempfile
+    from quest_tpu_torch.config import QuestConfig
+    from quest_tpu_torch.engine.engine import QuestEngine
+    from quest_tpu_torch.evals import (evaluate_longbench, evaluate_passkey,
+                                       evaluate_perplexity)
+    from quest_tpu_torch.ops.utils import round_up
+    from quest_tpu_torch.utils.cli import ByteTokenizer
+    L = cfg.num_layers
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(11)
+    text = " ".join(rng.choice(["the", "quick", "brown", "fox", "jumps",
+                                "over", "lazy", "dog", "and", "runs"],
+                               size=warmup))
+    ids = tok.encode(text)[:warmup + eval_tokens]
+    assert len(ids) == warmup + eval_tokens
+    res = {}
+
+    def counted(engine, fn):
+        """fn() with the launches counted and the prefill timed apart."""
+        for k in kernels.values():
+            k.launches = 0
+        pre, steps = [0.0, 0], [0]
+        prefill, decode = engine.prefill, engine.model.decode_step
+
+        def timed_prefill(*a, **kw):
+            sync()
+            t = time.time()
+            out = prefill(*a, **kw)
+            pre[0] += time.time() - t
+            pre[1] += 1
+            return out
+
+        def counted_decode(*a, **kw):
+            steps[0] += 1
+            return decode(*a, **kw)
+
+        engine.prefill, engine.model.decode_step = timed_prefill, counted_decode
+        try:
+            sync()
+            t = time.time()
+            value = fn()
+            sync()
+            wall = time.time() - t
+        finally:
+            del engine.prefill, engine.model.decode_step
+        got = {n: k.launches for n, k in kernels.items()}
+        skip = engine.quest.skip_layers
+        want = dict.fromkeys(kernels, 0)
+        if kernels:
+            want.update(prefill=L * pre[1],
+                        dense_decode=min(skip, L) * steps[0],
+                        sparse_decode=max(L - skip, 0) * steps[0])
+        assert got == want, f"launches {got} != path {want}"
+        return value, dict(wall_s=wall, prefill_s=pre[0],
+                           prefill_calls=pre[1], decode_steps=steps[0],
+                           decode_ms_per_token=(wall - pre[0]) / max(
+                               steps[0], 1) * 1e3, launches=got)
+
+    # Room for the longest request: a passkey prompt is the filler plus
+    # ~250 bytes, a LongBench prompt at most lb_prompt tokens.
+    max_seq = round_up(max(warmup + eval_tokens, n_garbage + 1024,
+                           lb_prompt + 256), 2048)
+    for label, skip in (("sparse", 2), ("dense_control", L)):
+        quest = QuestConfig(max_seq_len=max_seq, skip_layers=skip)
+        engine = QuestEngine(cfg, quest, params, device=device)
+        ppl, r = counted(engine, lambda: evaluate_perplexity(
+            engine, ids, num_eval_tokens=eval_tokens, warmup_prefill=warmup))
+        assert math.isfinite(ppl), ppl
+        assert r["decode_steps"] == eval_tokens - 1
+        res[f"perplexity_{label}"] = dict(ppl=ppl, **r)
+        log(f"evals[perplexity, {label}, budget {quest.token_budget}, "
+            f"skip_layers {skip}]: ppl {ppl:.2f} over {eval_tokens} tokens "
+            f"after {warmup} prefilled (random weights: the value means "
+            f"nothing); {r['decode_ms_per_token']:.2f} ms a decode token; "
+            f"launches {r['launches']}")
+        if label == "sparse":
+            pk, r = counted(engine, lambda: evaluate_passkey(
+                engine, tok, n_garbage=n_garbage, iterations=2,
+                max_new_tokens=8, depth_ratios=[0.3, 0.7]))
+            assert pk.total == 2
+            res["passkey"] = dict(correct=pk.correct, total=pk.total, **r)
+            log(f"evals[passkey]: {pk.correct}/{pk.total} (random weights), "
+                f"{r['prefill_calls']} prompts of ~{n_garbage} bytes, "
+                f"{r['decode_steps']} decode steps at "
+                f"{r['decode_ms_per_token']:.2f} ms a token")
+            with tempfile.TemporaryDirectory() as d:
+                synthetic_longbench(d)
+                scores, r = counted(engine, lambda: evaluate_longbench(
+                    engine, tok, d, ["passage_count", "hotpotqa"], lb_prompt))
+            assert set(scores) == {"passage_count", "hotpotqa"} and all(
+                0.0 <= v <= 100.0 for v in scores.values()), scores
+            assert r["prefill_calls"] == 4
+            res["longbench"] = dict(scores=scores, **r)
+            log(f"evals[longbench]: scores {scores} (random weights), "
+                f"{r['prefill_calls']} samples, {r['decode_steps']} decode "
+                f"steps at {r['decode_ms_per_token']:.2f} ms a token")
+        del engine
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
 # name: (source, the TPU kernel it replaces, the path whose run gives its
 # launch count: a serving engine, "probe" for the probe path, None where
 # no path launches it)
@@ -1781,6 +2345,11 @@ KERNEL_META = {
                    "exp/gather_ab.py:88", "probe"),
     "select_pieces": ("quest_tpu_torch/csrc/select_pieces.cu",
                       "exp/select_compile2.py:73", "probe"),
+    # No Pallas counterpart: they replace XLA's fusion of the JAX qdot.
+    "qgemv": ("quest_tpu_torch/csrc/qgemv.cu",
+              "quest_tpu/models/quantize.py:84", "quantized"),
+    "dequant": ("quest_tpu_torch/csrc/qgemv.cu",
+                "quest_tpu/models/quantize.py:84", "quantized"),
 }
 # A second TPU kernel that the same CUDA kernel replaces.
 ALSO_REPLACES = {"copy_probe": "exp/dma_probe.py:111"}
@@ -1794,6 +2363,7 @@ def kernel_wrappers():
     from quest_tpu_torch.ops.fused_decode import (exact_topk_select,
                                                   fused_sparse_decode)
     from quest_tpu_torch.ops.prefill import prefill_attention
+    from quest_tpu_torch.ops.qdot import dequant, qgemv
     from quest_tpu_torch.ops.select_pieces import select_pieces
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return {"sparse_decode": sparse_decode_attention,
@@ -1801,7 +2371,8 @@ def kernel_wrappers():
             "prefill": prefill_attention, "estimate": page_scores_kernel,
             "topk_select": exact_topk_select,
             "fused_decode": fused_sparse_decode,
-            "copy_probe": copy_probe, "select_pieces": select_pieces}
+            "copy_probe": copy_probe, "select_pieces": select_pieces,
+            "qgemv": qgemv, "dequant": dequant}
 
 
 def main():
@@ -1810,6 +2381,7 @@ def main():
               "False); this script runs only on the card", file=sys.stderr)
         return 1
     import quest_tpu_torch  # noqa: F401  (fails outside the checkout)
+    from quest_tpu_torch.config import llama31_8b
     from quest_tpu_torch.utils.benchmarking import Timer
 
     name, smi = device_phase()
@@ -1849,16 +2421,33 @@ def main():
     serving["scheduler"], cases = scheduler_phase(params, kernel_wrappers(),
                                                   smi)
     taps.append(cases)
-    del params
     for cases in taps:              # the scheduler's batches, as cases
         for kname, c in cases.items():
             results[kname] += c
+    torch.cuda.empty_cache()
+    timer = Timer()
+    results.update(weight_kernel_phase(timer, gen))
+    del timer
+    torch.cuda.empty_cache()
+    for bits in (8, 4):
+        reference[f"f32_int{bits}_weights"] = small_reference_phase(
+            torch.float32, F32_TOL, bits=bits)
+    reference["awq_int4_held_out_mse"] = small_awq_phase()
+    serving["quantized"], quant_counts = quantized_serving_phase(
+        params, kernel_wrappers(), smi)
+    torch.cuda.empty_cache()
+    serving["loader"] = loader_phase(params)
+    torch.cuda.empty_cache()
+    serving["evals"] = eval_phase(llama31_8b(), params, kernel_wrappers())
+    del params
+    torch.cuda.empty_cache()
 
     kernels = []
     for kname, (src, rep, path) in KERNEL_META.items():
         cases = results[kname]
         head = cases[0]
         launches = (probe_launches[kname] if path == "probe"
+                    else quant_counts[kname] if path == "quantized"
                     else counts[(path or "fused", "generate")][kname])
         by_path = {p: counts[(p, "generate")][kname] for p in SERVING_PATHS}
         kernels.append(dict(
@@ -1867,8 +2456,10 @@ def main():
                if kname in ALSO_REPLACES else {}),
             launches=launches, launches_by_serving_path=by_path,
             launches_scheduler=serving["scheduler"]["launches"][kname],
-            main_path=path or "none: its device code runs inside "
-            "fused_decode", max_abs_err=head["max_abs_err"],
+            main_path=("quantized int8 engine (generate_ondevice)"
+                       if path == "quantized" else path
+                       or "none: its device code runs inside fused_decode"),
+            max_abs_err=head["max_abs_err"],
             max_rel_err=max(c["max_rel_err"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],

@@ -2,7 +2,8 @@
 ``quest_tpu/models/llama.py``).
 
 ``QuestModel`` is an ``nn.Module`` holding stacked ``[L, in, out]``
-weights as buffers. Each layer runs RMSNorm, the q/k/v projections,
+weights as buffers, plain or int8/int4 quantized (every linear is a
+``models.quantize.qdot``). Each layer runs RMSNorm, the q/k/v projections,
 rope, then either the prefill path (append the chunk, causal prefill
 attention) or the decode path (append one token; the first
 ``skip_layers`` layers attend densely, the others run estimate ->
@@ -22,6 +23,8 @@ from torch import nn
 from quest_tpu_torch.config import ModelConfig, QuestConfig
 from quest_tpu_torch.kv.paged_kv import (PagedKVCache, append_decode_at,
                                          append_prefill_at)
+from quest_tpu_torch.models.quantize import (QuantizedLinear, qdot,
+                                             stack_linears)
 from quest_tpu_torch.ops.dense_decode import dense_decode_attention
 from quest_tpu_torch.ops.estimate import page_scores_physical
 from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
@@ -40,23 +43,32 @@ LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: Optional[torch.dtype] = None,
-                device="cuda") -> Params:
+                device="cuda", linear_wrap=None) -> Params:
     """Random parameters made on ``device`` from ``generator`` (which
     must live on that device), in the JAX package's pytree layout:
     ``{"embed", "layers": {...}, "final_norm", "lm_head"}`` with stacked
     ``[L, in, out]`` layer weights. Each weight is N(0, 1/fan_in) drawn
-    in f32 one layer at a time, so the f32 transient stays one layer."""
+    in f32 one layer at a time, so the f32 transient stays one layer.
+
+    ``linear_wrap(name, w) -> leaf`` is applied to every linear weight
+    as it is made, one layer at a time (``models/quantize.py:
+    init_params_quantized`` quantizes there), and the wrapped layers are
+    stacked; the draws do not depend on it."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     L, H, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     hid, inter, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    lw = linear_wrap or (lambda name, w: w)
 
     def normal(shape, fan_in, scale=1.0):
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
         return (w * (scale / math.sqrt(fan_in))).to(dtype)
 
-    def stacked(per_shape, fan_in):
+    def stacked(name, per_shape, fan_in):
+        if linear_wrap is not None:
+            return stack_linears([lw(name, normal(per_shape, fan_in))
+                                  for _ in range(L)])
         out = torch.empty((L,) + per_shape, dtype=dtype, device=dev)
         for l in range(L):
             out[l] = normal(per_shape, fan_in)
@@ -65,18 +77,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return {
         "embed": normal((V, hid), 1.0, 0.02),
         "layers": {
-            "wq": stacked((hid, H * D), hid),
-            "wk": stacked((hid, Hkv * D), hid),
-            "wv": stacked((hid, Hkv * D), hid),
-            "wo": stacked((H * D, hid), H * D),
-            "w_gate": stacked((hid, inter), hid),
-            "w_up": stacked((hid, inter), hid),
-            "w_down": stacked((inter, hid), inter),
+            "wq": stacked("wq", (hid, H * D), hid),
+            "wk": stacked("wk", (hid, Hkv * D), hid),
+            "wv": stacked("wv", (hid, Hkv * D), hid),
+            "wo": stacked("wo", (H * D, hid), H * D),
+            "w_gate": stacked("w_gate", (hid, inter), hid),
+            "w_up": stacked("w_up", (hid, inter), hid),
+            "w_down": stacked("w_down", (inter, hid), inter),
             "ln_attn": torch.ones((L, hid), dtype=dtype, device=dev),
             "ln_mlp": torch.ones((L, hid), dtype=dtype, device=dev),
         },
         "final_norm": torch.ones((hid,), dtype=dtype, device=dev),
-        "lm_head": normal((hid, V), hid),
+        "lm_head": lw("lm_head", normal((hid, V), hid)),
     }
 
 
@@ -101,9 +113,19 @@ class QuestModel(nn.Module):
     """The decoder bound to its configuration and weights.
 
     ``params`` is the pytree of :func:`init_params` or
-    ``models.convert.params_from_numpy``; its tensors become buffers.
-    The f32 ``lm_head`` product of the JAX model is kept by casting the
-    head to f32 once here (the bf16 copy is not kept).
+    ``models.convert.params_from_numpy``; its tensors become buffers. A
+    linear may be a ``models.quantize.QuantizedLinear`` (int8 or int4):
+    its ``q``, ``s`` and ``inv_s`` become buffers ``<name>_q``,
+    ``<name>_s`` and ``<name>_inv_s`` and every product with it goes
+    through ``models.quantize.qdot``. The f32 ``lm_head`` product of the
+    JAX model is kept by casting a plain head to f32 once here (the bf16
+    copy is not kept); a quantized head stays packed and ``qdot`` makes
+    its product in f32.
+
+    ``linear_hook``, None unless set, is called as ``linear_hook(name,
+    layer, x, w)`` in place of ``qdot(x, w)`` for every linear (``layer``
+    None for ``lm_head``): AWQ's calibration records the activations
+    there (``models/awq.py``).
 
     On the card, building the model switches TF32 off for CUDA matrix
     products (``torch.backends.cuda.matmul.allow_tf32 = False``, for the
@@ -115,16 +137,47 @@ class QuestModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.quest = quest
+        self.linear_hook = None
+        self._bits: Dict[str, int] = {}
         if params["embed"].is_cuda:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.register_buffer("embed", params["embed"])
         for k in LAYER_KEYS:
-            self.register_buffer(k, params["layers"][k])
+            self._register_weight(k, params["layers"][k])
         self.register_buffer("final_norm", params["final_norm"])
-        self.register_buffer("lm_head", params["lm_head"].float())
+        head = params["lm_head"]
+        self._register_weight("lm_head", head if isinstance(
+            head, QuantizedLinear) else head.float())
         inv_freq, self._pos_scale, self._attn_scale = compute_rope_params(
             cfg.rope, cfg.head_dim)
         self.register_buffer("inv_freq", inv_freq.to(self.embed.device))
+
+    def _register_weight(self, name: str, w) -> None:
+        if isinstance(w, QuantizedLinear):
+            self._bits[name] = w.bits
+            for part, t in w.tensors().items():
+                self.register_buffer(f"{name}_{part}", t)
+        else:
+            self.register_buffer(name, w)
+
+    def weight(self, name: str, layer: Optional[int] = None):
+        """Linear ``name`` (of layer ``layer``, or the whole stack): a
+        tensor view, or a :class:`QuantizedLinear` of views."""
+        bits = self._bits.get(name)
+        if bits is None:
+            w = getattr(self, name)
+            return w if layer is None else w[layer]
+        w = QuantizedLinear(q=getattr(self, name + "_q"),
+                            s=getattr(self, name + "_s"), bits=bits,
+                            inv_s=getattr(self, name + "_inv_s", None))
+        return w if layer is None else w.layer(layer)
+
+    def _linear(self, x, name: str, layer: Optional[int] = None,
+                dtype: Optional[torch.dtype] = None):
+        w = self.weight(name, layer)
+        if self.linear_hook is not None:
+            return self.linear_hook(name, layer, x, w)
+        return qdot(x, w, dtype)
 
     # ------------------------------------------------------------------
     def _attn_decode(self, q, cache: PagedKVCache, layer: int,
@@ -164,9 +217,9 @@ class QuestModel(nn.Module):
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         sm = 1.0 / math.sqrt(D)
         h = rms_norm(x, self.ln_attn[l], cfg.rms_norm_eps)
-        q = (h @ self.wq[l]).reshape(B, T, H, D)
-        k = (h @ self.wk[l]).reshape(B, T, Hkv, D)
-        v = (h @ self.wv[l]).reshape(B, T, Hkv, D)
+        q = self._linear(h, "wq", l).reshape(B, T, H, D)
+        k = self._linear(h, "wk", l).reshape(B, T, Hkv, D)
+        v = self._linear(h, "wv", l).reshape(B, T, Hkv, D)
         q = rotate(q, *rope)
         k = rotate(k, *rope)
 
@@ -184,10 +237,10 @@ class QuestModel(nn.Module):
                                      cache.seq_lens + 1)[:, None]
 
         attn = attn.to(x.dtype).reshape(B, T, H * D)
-        x = x + attn @ self.wo[l]
+        x = x + self._linear(attn, "wo", l)
         h2 = rms_norm(x, self.ln_mlp[l], cfg.rms_norm_eps)
-        mlp = (torch.nn.functional.silu(h2 @ self.w_gate[l])
-               * (h2 @ self.w_up[l])) @ self.w_down[l]
+        gate = torch.nn.functional.silu(self._linear(h2, "w_gate", l))
+        mlp = self._linear(gate * self._linear(h2, "w_up", l), "w_down", l)
         return x + mlp
 
     @torch.no_grad()
@@ -212,7 +265,7 @@ class QuestModel(nn.Module):
         if last_only:
             last = (new_lens.long() - 1).clamp(min=0)
             x = x[torch.arange(B, device=dev), last][:, None]
-        logits = x.float() @ self.lm_head
+        logits = self._linear(x.float(), "lm_head", dtype=torch.float32)
         cache.seq_lens += new_lens
         return logits
 

@@ -44,6 +44,9 @@ SIGNATURES = {
     "fused_decode": ("fused_decode_launch", [_P] * 8 + [_I] * 12 + [_F, _P]),
     "copy_probe": ("copy_probe_launch", [_P] * 5 + [_I] * 9 + [_P]),
     "select_pieces": ("select_pieces_launch", [_P] * 2 + [_I] * 2 + [_P]),
+    # The library's second entry point, dequant_launch, is bound by
+    # ops/qdot.py.
+    "qgemv": ("qgemv_launch", [_P] * 7 + [_I] * 7 + [_P]),
 }
 KERNELS = tuple(SIGNATURES)
 
