@@ -150,10 +150,11 @@ def device_phase():
 
 
 def build_phase():
+    """Builds every kernel library; returns the compiler log of each."""
     from quest_tpu_torch.ops import _build
     t0 = time.time()
     logs = _build.build()
-    log(f"build: {len(logs)} kernel libraries in {time.time() - t0:.1f} s "
+    log(f"build: {len(logs)} kernel libraries ready in {time.time() - t0:.1f} s "
         f"(nvcc -gencode arch=compute_90a,code=sm_90a)")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "ptxas.log").write_text(
@@ -165,6 +166,50 @@ def build_phase():
                   "loads" not in ln]
         log(f"  {k}: {len(regs)} kernels, at most {max(regs)} registers, "
             f"{len(spills)} with spills")
+    return logs
+
+
+def ptxas_kernels(text):
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from an ``-Xptxas -v`` log."""
+    out, name, spill = {}, None, (0, 0)
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+        elif "spill stores" in ln and name is not None:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            spill = (nums[1], nums[2])
+        elif "Used" in ln and "registers" in ln and name is not None:
+            regs = int(ln.split("Used")[1].split()[0])
+            out[name] = (regs,) + spill
+            spill = (0, 0)
+    return out
+
+
+def weight_instantiation(kind, bits, M=None, x_dtype=None):
+    """The part of the mangled name of the ``csrc/qgemv.cu`` kernel a
+    ``qgemv`` or ``dequant`` call launches: ``qgemv_ring_kernel<bits,
+    MT>`` (bf16 x), ``qgemv_kernel<bits, MR, MG>`` (f32 x),
+    ``dequant_kernel<T, bits>``."""
+    if kind == "dequant":
+        t = "13__nv_bfloat16" if x_dtype == torch.bfloat16 else "f"
+        return f"14dequant_kernelI{t}Li{bits}EE"
+    if x_dtype == torch.bfloat16:
+        return f"17qgemv_ring_kernelILi{bits}ELi{8 if M <= 8 else 16}EE"
+    mr, mg = next((mr, mg) for top, mr, mg in ((1, 1, 1), (2, 2, 1),
+                                                (4, 4, 1), (8, 4, 2),
+                                                (16, 4, 4)) if M <= top)
+    return f"12qgemv_kernelILi{bits}ELi{mr}ELi{mg}EE"
+
+
+def registers_of(ptxas, key):
+    """'R regs, S/L spill bytes' of the kernel whose mangled name holds
+    ``key``, from ``ptxas_kernels``."""
+    hit = [v for k, v in ptxas.items() if key in k]
+    if not hit:
+        return "registers not in this build's log"
+    regs, st, ld = hit[0]
+    return f"{regs} registers, {st}/{ld} bytes spilled (stores/loads)"
 
 
 # ---------------------------------------------------------------------------
@@ -1813,6 +1858,7 @@ QUANT_SHAPES = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
                 ("w_gate/w_up", 4096, 14336), ("w_down", 14336, 4096),
                 ("lm_head", 4096, 128256))
 QUANT_ROWS = (1, 2, 4, 16)
+PREFILL_CHUNK_ROWS = 2048      # rows of x the dequant pair's matmul takes
 F32_KERNEL_TOL = 1e-5          # f32 kernel vs plain, max|d| / max|plain|
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 
@@ -1833,7 +1879,7 @@ def quant_bound(M, K, N, bits, x_dtype, out_bytes=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def weight_kernel_phase(timer, gen):
+def weight_kernel_phase(timer, gen, ptxas):
     """``qgemv`` and ``dequant`` against their plain versions at every
     full-width linear of Llama-3.1-8B, int8 and int4 (RTN of a random
     bf16 weight, quantized on the card): ``qgemv`` at M = 1, 2, 4, 16 rows
@@ -1841,8 +1887,13 @@ def weight_kernel_phase(timer, gen):
     each timed beside its bound, its plain version and the bf16
     ``torch.matmul`` over the unquantized weight that quantization must
     beat (the lm_head also beside the f32 product of the unquantized
-    model). Returns each kernel's cases, the main path's first (w_gate
-    at M = 2 in int8)."""
+    model). Each case prints the registers and spills of the kernel
+    instantiation it launches (``ptxas``: ``ptxas_kernels`` of the qgemv
+    library's build log). Each bf16 ``dequant`` is also timed followed
+    by the ``torch.matmul`` of a 2048-row prefill chunk with the L2 left
+    as the kernel leaves it (the pair), beside that matmul alone.
+    Returns each kernel's cases, the main path's first (w_gate at M = 2
+    in int8)."""
     from quest_tpu_torch.models.quantize import quantize_weight
     from quest_tpu_torch.ops.qdot import (dequant, dequant_plain, qgemv,
                                           qgemv_plain)
@@ -1876,12 +1927,15 @@ def weight_kernel_phase(timer, gen):
                 if w32 is not None:
                     case["f32_matmul_ms"] = timer(lambda: x @ w32)
                 gemv.append(case)
+                case["registers"] = registers_of(
+                    ptxas, weight_instantiation("qgemv", bits, M, xdt))
                 log(f"qgemv[{case['case']}]: rel err {err:.2e}, "
                     f"{case['ms'] * 1e3:.1f} us (bound {bound * 1e3:.1f} us "
                     f"{by}, plain {case['plain_ms'] * 1e3:.1f} us, bf16 "
                     f"matmul {case['library_ms'] * 1e3:.1f} us"
                     + (f", f32 matmul {case['f32_matmul_ms'] * 1e3:.1f} us"
-                       if w32 is not None else "") + ")")
+                       if w32 is not None else "")
+                    + f"); {case['registers']}")
                 assert err <= tol, f"qgemv disagrees ({case['case']}): {err}"
             got = dequant(qw.q, qw.s, None, bits, xdt)
             want = dequant_plain(qw.q, qw.s, None, bits, xdt)
@@ -1897,11 +1951,25 @@ def weight_kernel_phase(timer, gen):
                                          out=got)),
                 plain_ms=timer(lambda: dequant_plain(qw.q, qw.s, None, bits,
                                                      xdt)),
-                library_ms=None, bound_ms=bound, bound_by=by)
+                library_ms=None, bound_ms=bound, bound_by=by,
+                registers=registers_of(ptxas, weight_instantiation(
+                    "dequant", bits, x_dtype=xdt)))
+            pair = ""
+            if xdt == torch.bfloat16:
+                xs = torch.randn((PREFILL_CHUNK_ROWS, K), generator=gen,
+                                 device="cuda").to(xdt)
+                case["pair_ms"] = timer(lambda: xs @ dequant(
+                    qw.q, qw.s, None, bits, xdt, out=got), flush=False)
+                case["pair_matmul_ms"] = timer(lambda: xs @ got, flush=False)
+                pair = (f"; then a {PREFILL_CHUNK_ROWS}-row matmul, L2 "
+                        f"kept: {case['pair_ms'] * 1e3:.1f} us, the matmul "
+                        f"alone {case['pair_matmul_ms'] * 1e3:.1f} us")
+                del xs
             deq.append(case)
             log(f"dequant[{case['case']}]: bitwise, {case['ms'] * 1e3:.1f} "
                 f"us (bound {bound * 1e3:.1f} us, plain "
-                f"{case['plain_ms'] * 1e3:.1f} us)")
+                f"{case['plain_ms'] * 1e3:.1f} us){pair}; "
+                f"{case['registers']}")
             del qw, got, want
         del w, w32
         torch.cuda.empty_cache()
@@ -2385,7 +2453,7 @@ def main():
     from quest_tpu_torch.utils.benchmarking import Timer
 
     name, smi = device_phase()
-    build_phase()
+    ptxas = ptxas_kernels(build_phase().get("qgemv", ""))
     torch.manual_seed(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
@@ -2426,7 +2494,7 @@ def main():
             results[kname] += c
     torch.cuda.empty_cache()
     timer = Timer()
-    results.update(weight_kernel_phase(timer, gen))
+    results.update(weight_kernel_phase(timer, gen, ptxas))
     del timer
     torch.cuda.empty_cache()
     for bits in (8, 4):

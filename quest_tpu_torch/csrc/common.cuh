@@ -220,6 +220,15 @@ __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// The two halves of a cluster barrier: arrive (relaxed: orders nothing)
+// and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // Orders this CTA's generic-proxy accesses of shared memory before later
 // bulk copies into it (a slot that was read is refilled).
 __device__ __forceinline__ void fence_proxy_async() {

@@ -183,15 +183,6 @@ __device__ __forceinline__ void load4(const T* p, float* f) {
   }
 }
 
-// The two halves of a cluster barrier: arrive (relaxed: orders nothing)
-// and wait.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 // T: pool dtype; M: metadata dtype, also the dtype QK and PV run in.
 template <typename T, typename M, int G>
 __global__ void __cluster_dims__(kCluster, 1, 1)

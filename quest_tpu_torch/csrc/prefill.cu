@@ -136,18 +136,6 @@ __device__ __forceinline__ uint4 load_q8(const void* q, int64_t at, int q_bf16,
                     pack_bf16(x[6] * sm_scale, x[7] * sm_scale));
 }
 
-// One box of the tensor map (columns x.., rows y..) into shared memory,
-// completing on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
 // 2^x on the special-function unit (one instruction; exp2f adds range
 // handling). Underflows to +0, as the masked scores need.
 __device__ __forceinline__ float fast_exp2(float x) {

@@ -1,9 +1,12 @@
 // cuTensorMapEncodeTiled, found at run time through the runtime's
-// entry-point query (no -lcuda), for the kernels that load by TMA.
+// entry-point query (no -lcuda), for the kernels that load by TMA, and
+// their 2-D box copy.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -29,4 +32,16 @@ inline EncodeTiled tensor_map_encoder() {
       encode = reinterpret_cast<EncodeTiled>(fn);
   }
   return encode;
+}
+
+// One box of the tensor map (columns x.., rows y..) into shared memory,
+// completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_u32(bar))
+      : "memory");
 }

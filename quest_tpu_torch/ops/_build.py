@@ -46,7 +46,7 @@ SIGNATURES = {
     "select_pieces": ("select_pieces_launch", [_P] * 2 + [_I] * 2 + [_P]),
     # The library's second entry point, dequant_launch, is bound by
     # ops/qdot.py.
-    "qgemv": ("qgemv_launch", [_P] * 7 + [_I] * 7 + [_P]),
+    "qgemv": ("qgemv_launch", [_P] * 7 + [_I] * 9 + [_P, _P]),
 }
 KERNELS = tuple(SIGNATURES)
 
@@ -99,6 +99,7 @@ def _finish(name: str, job) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)       # atomic: concurrent builders never see a
     return log                 # half-written library
 
@@ -106,11 +107,17 @@ def _finish(name: str, job) -> str:
 def build(names: Iterable[str] = KERNELS,
           defines: tuple = ()) -> Dict[str, str]:
     """Build the given kernels, one ``nvcc`` per source, all started
-    together. Returns the compiler log (``-Xptxas -v``) per kernel
-    built; an up-to-date library is not rebuilt."""
+    together. Returns the compiler log (``-Xptxas -v``) per kernel; an
+    up-to-date library is not rebuilt, and its log is the one kept beside
+    it when it was built."""
     jobs = {n: _start(n, defines) for n in names}
     try:
-        return {n: _finish(n, j) for n, j in jobs.items() if j is not None}
+        logs = {n: _finish(n, j) for n, j in jobs.items() if j is not None}
+        for n, j in jobs.items():
+            kept = _lib_path(n, defines).with_suffix(".log")
+            if j is None and kept.exists():
+                logs[n] = kept.read_text()
+        return logs
     finally:                   # a failed build stops the other compilers
         for j in jobs.values():
             if j is not None and j[2].poll() is None:

@@ -18,12 +18,24 @@ class Timer:
     """Median of per-launch CUDA-event times of the device work of
     ``fn``. All launches are queued behind a sleep kernel, so the host's
     enqueue time does not enter the events; the 50 MB L2 is flushed
-    between launches, as a decode step finds each layer's pages cold."""
+    between launches, as a decode step finds each layer's pages cold.
+    ``flush="memset"`` (the default, every PR's tables) writes 256 MB,
+    which leaves the L2 full of dirty lines that the timed kernel's
+    misses write back (up to 50 MB of extra traffic); ``flush="read"``
+    reads 256 MB instead, which leaves clean lines."""
 
-    def __init__(self):
+    def __init__(self, flush="memset"):
+        if flush not in ("memset", "read"):
+            raise ValueError(f"flush={flush!r}; expected 'memset' or 'read'")
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        if flush == "read":
+            self.flush.zero_()
+        self.kind = flush
 
-    def __call__(self, fn, iters=20, warmup=3):
+    def __call__(self, fn, iters=20, warmup=3, flush=True):
+        """Median ms of ``fn``'s device work; ``flush=False`` keeps the L2
+        as the previous launch left it (a consumer right after its
+        producer)."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
@@ -32,7 +44,10 @@ class Timer:
                   for _ in range(iters)]
         torch.cuda._sleep(100_000_000)   # ~50 ms: the host queues ahead
         for start, end in events:
-            self.flush.zero_()
+            if flush and self.kind == "memset":
+                self.flush.zero_()
+            elif flush:
+                self.flush.view(torch.int32).sum()
             start.record()
             fn()
             end.record()

@@ -200,11 +200,15 @@ def test_init_params_quantized_equals_quantize_params():
 
 
 def test_qgemv_plan_fills_the_card():
-    """At every full-width linear, both widths, M = 1..16 and both
-    kernels: the splits cover the input rows in the kernel's steps, the
-    staged x slice fits 48 KB, and the CTAs cover at least 80% of 132
-    SMs; the lm_head (f32 x) at M <= 2 takes no split (501 column
-    tiles)."""
+    """At every full-width linear, both widths and M = 1..16, for both
+    kernels: the splits cover every q row exactly once. bf16 x (the ring
+    kernel): the tile is whole 64-column TMA boxes and a stage whole
+    64-row boxes, the chunk whole stages, the cluster at most 8 CTAs, the
+    ring (at least the 2 KB a row of x the warps' sums take after the
+    loop) plus x plus the receive slots within the 227 KB of one CTA, and
+    the CTAs cover at least 80% of 132 SMs. f32 x: the staged x slice
+    within 48 KB, the CTAs over 80% of the SMs, and the lm_head at M <= 2
+    takes no split (501 column tiles)."""
     sms = 132
     for K, N in [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                  (4096, 128256)]:
@@ -212,21 +216,61 @@ def test_qgemv_plan_fills_the_card():
             k_rows = K // 2 if bits == 4 else K
             for M in range(1, 17):
                 for bf16 in (True, False):
-                    chunk, ksplit = tops.qgemv_plan(k_rows, N, sms, M, bits,
-                                                    bf16)
+                    p = tops.qgemv_plan(k_rows, N, sms, M, bits, bf16)
+                    starts = [i * p.chunk for i in range(p.ksplit)]
+                    rows = [r for a in starts
+                            for r in range(a, min(a + p.chunk, k_rows))]
+                    assert rows == list(range(k_rows))
+                    ctas = -(-N // p.tile_n) * p.ksplit
+                    assert ctas >= 0.8 * sms
                     if bf16:
-                        mt, xbytes, step = (8 if M <= 8 else 16), 2, 64
+                        stage_rows = tops.RING_STAGE_BYTES // p.tile_n
+                        assert p.tile_n in tops.RING_TILES
+                        assert p.tile_n % 64 == 0 and stage_rows % 64 == 0
+                        assert p.chunk % stage_rows == 0
+                        assert 1 <= p.ksplit <= tops.RING_MAX_CLUSTER
+                        assert p.stages * tops.RING_STAGE_BYTES >= 2048 * M
+                        assert (tops.ring_smem(bits, M, p.chunk, p.ksplit,
+                                               p.tile_n, p.stages)
+                                + tops.RING_STATIC_BYTES
+                                <= tops.BLOCK_SHARED_BYTES)
                     else:
                         mt = next(m for m in (1, 2, 4, 8, 16) if m >= M)
-                        xbytes, step = 4, 16
-                    assert chunk % step == 0
-                    assert (ksplit - 1) * chunk < k_rows <= ksplit * chunk
-                    assert (mt * (2 if bits == 4 else 1) * chunk * xbytes
-                            <= 48 << 10)
-                    assert -(-N // tops.TILE_N) * ksplit >= 0.8 * sms
+                        assert p.chunk % 16 == 0 and p.stages == 0
+                        assert (mt * (2 if bits == 4 else 1) * p.chunk * 4
+                                <= 48 << 10)
     for bits in (8, 4):
         assert tops.qgemv_plan(4096 // (8 // bits), 128256, sms, 2, bits,
-                               False)[1] == 1
+                               False).ksplit == 1
+
+
+def test_qgemv_scale_after_sum_order_at_full_width():
+    """The bf16 kernel's order of arithmetic, q exact in bf16, the
+    products summed in f32 and the column scale applied once, ``(s *
+    (x @ q)).to(bf16)``, against JAX's per-weight rounding
+    (``qgemv_plain``) at Llama-3.1-8B's widths, int8 and int4, M = 2 and
+    16: within the 1e-2 (max |d| / max |plain|) that ROADMAP queue 3 o
+    states (4.3e-3 to 6.1e-3 on these random codes; 3.2e-3 to 7.0e-3 on
+    RTN weights of a random bf16 matrix)."""
+    rng = np.random.default_rng(12)
+    for K, N in [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]:
+        s = torch.from_numpy(rng.uniform(0.5, 1.5, (1, N)).astype(
+            np.float32)) / (127 * K ** 0.5)
+        for bits in (8, 4):
+            lo = -127 if bits == 8 else -128
+            q = torch.from_numpy(rng.integers(lo, 128, (
+                K * bits // 8, N), dtype=np.int8))
+            qf = q.float() if bits == 8 else torch.cat(
+                [((q << 4) >> 4).float(), (q >> 4).float()])
+            for M in (2, 16):
+                x = torch.from_numpy(rng.standard_normal((M, K)).astype(
+                    np.float32)).bfloat16()
+                got = ((x.float() @ qf) * s).bfloat16()
+                want = tops.qgemv_plain(x, q, s, None, bits, torch.bfloat16)
+                err = float((got.float() - want.float()).abs().max()
+                            / want.float().abs().max())
+                assert err <= 1e-2, (K, N, bits, M, err)
+            del q, qf
 
 
 # -- AWQ -----------------------------------------------------------------------
@@ -417,6 +461,82 @@ def test_qgemv_layer_shapes_on_card(cuda, bits, shape):
             got = qdot(x, one)
             want = tops.qgemv_plain(x, one.q, one.s, None, bits, dt)
             assert _rel(got, want) <= (2e-2 if dt == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("shape", [(4096, 1040), (128, 48), (144, 528),
+                                   (4136, 272)],
+                         ids=["n1040", "n48", "box_plus_8", "k4136"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qgemv_ring_edges_on_card(cuda, bits, shape, M):
+    """The bf16 kernel where its tiling meets edges: N not a multiple of
+    the tile (1040, 48), q a few rows past a 64-row box (144 input rows
+    in int8, 72 q rows in int4), K past a stage, int4 with the AWQ fold;
+    two calls in a row bitwise equal, within 2e-2 of the plain
+    expression."""
+    K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(K + N + M + bits)
+    w = quantize_weight(torch.randn((K, N), generator=g, device=cuda), bits)
+    inv = (torch.rand((K,), generator=g, device=cuda) + 0.5) if (
+        bits == 4) else None
+    x = torch.randn((M, K), generator=g, device=cuda).bfloat16()
+    got = tops.qgemv(x, w.q, w.s, inv, bits)
+    again = tops.qgemv(x, w.q, w.s, inv, bits)
+    want = tops.qgemv_plain(x, w.q, w.s, inv, bits, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [64, 128, 256])
+@pytest.mark.parametrize("ksplit", [1, 3, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qgemv_ring_plans_on_card(cuda, bits, ksplit, tile_n):
+    """Every tile width, cluster size and ring depth (1-3 stages, fewer
+    than the chunk's stages, so slots are refilled) of the bf16 kernel on
+    one weight, M = 2 and 16, against the plain expression; the cluster's
+    merge adds its splits in split order, so every plan of one shape and
+    the same split is bitwise stable across two calls."""
+    K, N = 1536, 784
+    g = torch.Generator(device=cuda).manual_seed(ksplit * 10 + bits)
+    w = quantize_weight(torch.randn((K, N), generator=g, device=cuda), bits)
+    q_rows = w.q.shape[-2]
+    rows = tops.RING_STAGE_BYTES // tile_n
+    chunk = -(-q_rows // ksplit)
+    chunk = -(-chunk // rows) * rows
+    for M in (2, 16):
+        x = torch.randn((M, K), generator=g, device=cuda).bfloat16()
+        want = tops.qgemv_plain(x, w.q, w.s, None, bits, torch.bfloat16)
+        for stages in (1, 2, 3):
+            if stages * tops.RING_STAGE_BYTES < 2048 * M:
+                continue
+            plan = tops.QgemvPlan(chunk, -(-q_rows // chunk), tile_n, stages)
+            got = tops.qgemv(x, w.q, w.s, None, bits, plan=plan)
+            again = tops.qgemv(x, w.q, w.s, None, bits, plan=plan)
+            torch.cuda.synchronize()
+            assert _rel(got, want) <= 2e-2, (M, stages)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qgemv_stacked_layers_on_card(cuda, bits):
+    """Each layer of a stacked [L, in, out] weight through its own cached
+    tensor map (layer 0 first, then 3, 1, 3 again): each against its
+    plain product."""
+    L, K, N = 4, 1024, 512
+    g = torch.Generator(device=cuda).manual_seed(40 + bits)
+    stacked = quantize_weight(torch.randn((L, K, N), generator=g,
+                                          device=cuda), bits)
+    x = torch.randn((2, K), generator=g, device=cuda).bfloat16()
+    for l in (0, 3, 1, 3):
+        one = stacked.layer(l)
+        got = qdot(x, one)
+        want = tops.qgemv_plain(x, one.q, one.s, None, bits, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 2e-2, l
 
 
 @pytest.mark.cuda
