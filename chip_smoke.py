@@ -95,7 +95,18 @@ Phases, each fatal on failure:
      tokenizer; their accuracies mean nothing): perplexity with the
      sparse path live and under the dense control, passkey at two
      depths, LongBench on two synthetic tasks, every call's launches
-     checked against the path.
+     checked against the path;
+ 14. the tools (``quest_tpu_torch/scripts``) at full width over phase 6's
+     weights, each through its ``run_*`` with the launches counted:
+     bench_textgen at 32K (the default engine with its full-cache
+     control, fused, fp8 KV and metadata at page 32, bursts of 8;
+     launches equal to the path's), bench_kernels at its defaults and at
+     32/8 heads (no reading above 3.35 TB/s or 989 TFLOP/s; each stage's
+     kernel launched once a call), bench_serving (tokens generated and
+     prefix hits), profile_textgen (every range of the unfused path with
+     device time), accuracy_delta (the control's delta 0, every row
+     finite), accuracy_proxies on the card against the CPU (rows within
+     1e-3) and the two examples.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this script, it exits non-zero and prints
@@ -1390,9 +1401,10 @@ def profile_steps(run, label):
         wall_ms = (time.time() - t) * 1e3
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(OUT_DIR / f"decode_trace_{label}.json"))
-    from torch.autograd import DeviceType
-    events = [e for e in prof.key_averages()      # kernels, memcpys, memsets
-              if e.device_type == DeviceType.CUDA]
+    # The model's trace ranges come back as device events too
+    # (gpu_user_annotation); device_ops leaves them out.
+    from quest_tpu_torch.scripts.profile_textgen import device_ops
+    events = device_ops(prof.key_averages())
     events.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     n_launch = sum(e.count for e in events)
@@ -2393,6 +2405,211 @@ def eval_phase(cfg, params, kernels, device="cuda", warmup=3000,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the tools (quest_tpu_torch/scripts), each through its run_*.
+# ---------------------------------------------------------------------------
+
+TEXTGEN_RUNS = {"default": ["--ab-full"], "fused": ["--fused"],
+                "fp8": ["--kv-dtype", "fp8", "--meta-dtype", "fp8",
+                        "--page", "32"],
+                "burst8": ["--burst", "8"]}
+
+
+def counted_launches(kernels, fn):
+    """fn() with every kernel's count set to 0 just before and read just
+    after: (fn's value, {kernel: launches})."""
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    value = fn()
+    torch.cuda.synchronize()
+    return value, {n: k.launches for n, k in kernels.items() if k.launches}
+
+
+def tools_phase(params, kernels, smi):
+    """The tools at full Llama-3.1-8B width over phase 6's bf16 weights:
+    bench_textgen (32 layers, ctx 32768, budget 2048, B=1, 32 decode
+    tokens: the default engine with its full-cache control, fused, fp8
+    KV and metadata at page 32, bursts of 8), bench_kernels (its defaults
+    and 32/8 heads), bench_serving (4 slots, 8 requests of 1024 tokens
+    with a 512-token shared prefix, 32 generated), profile_textgen (ctx
+    8192, 8 decode tokens), accuracy_delta (ctx 4096, 64 eval tokens,
+    budgets 512 and 1024 and the control), accuracy_proxies on the card
+    against the CPU (ctx 2048) and both examples (byte tokenizer). Each
+    run's kernel launches are counted and checked against its path.
+    Returns the numbers."""
+    from quest_tpu_torch.config import llama31_8b
+    from quest_tpu_torch.models.llama import TRACE_RANGES
+    from quest_tpu_torch.scripts import (accuracy_delta, accuracy_proxies,
+                                         bench_kernels, bench_serving,
+                                         bench_textgen, example_demo,
+                                         example_textgen, profile_textgen)
+    from quest_tpu_torch.utils.cli import build_engine
+    t_phase = time.time()
+    cfg = llama31_8b()
+    L, res = cfg.num_layers, {}
+
+    def done(name, t):
+        log(f"tools[{name}]: {time.time() - t:.1f} s; card {smi}")
+
+    # bench_textgen: launches are the path's, per engine: prefill (4
+    # chunks of 8192) twice, the control's once; one warm-up burst and N
+    # timed steps.
+    for label, extra in TEXTGEN_RUNS.items():
+        t = time.time()
+        args = bench_textgen.parse_args(
+            ["--layers", "0", "--ctx", "32768", "--budget", "2048",
+             "--batch", "1", "--decode-tokens", "32"] + extra)
+        out, got = counted_launches(kernels, lambda: bench_textgen.
+                                    run_bench_textgen(cfg, params, args))
+        nb = args.burst
+        steps = nb + -(-args.decode_tokens // nb) * nb
+        chunks = -(-out["ctx"] // args.prefill_chunk)
+        skip, ab = args.skip_layers, "full_cache_ms_per_token" in out
+        want = {"prefill": L * chunks * (3 if ab else 2),
+                "dense_decode": skip * steps + (L * steps if ab else 0),
+                "fused_decode" if args.fused else "sparse_decode":
+                    (L - skip) * steps}
+        log(f"tools[bench_textgen, {label}]: {json.dumps(out)}; launches "
+            f"{got}")
+        assert got == want, f"launches {got} != path {want}"
+        assert all(math.isfinite(v) and v > 0 for k, v in out.items()
+                   if k.endswith(("_ms", "_per_token", "_per_s",
+                                  "speedup"))), out
+        res[f"bench_textgen_{label}"] = dict(out, launches=got)
+        done(f"bench_textgen, {label}", t)
+        torch.cuda.empty_cache()
+
+    # bench_kernels: rates under the card's peaks, and each stage's kernel
+    # launched once a timed or warm-up call (none for the plain stages).
+    for label, extra in (("32/32 heads", []), ("32/8 heads",
+                                              ["--kv-heads", "8"])):
+        t = time.time()
+        detail = {}
+        args = bench_kernels.parse_args(extra)
+        out = bench_kernels.run_bench_kernels(args, detail)
+        log(f"tools[bench_kernels, {label}]: {json.dumps(out)}")
+        for stage, row in detail.items():
+            assert row.get("gbps", 0) <= HBM_BYTES_PER_S / 1e9, (stage, row)
+            assert row.get("tflops", 0) <= BF16_FLOPS / 1e12, (stage, row)
+            want = row["calls"] if row["kernel"] else 0
+            assert row["launches"] == want, (stage, row)
+            log(f"  {stage:16s} {row['us']:9.1f} us  " + (
+                f"{row['tflops']:7.1f} TFLOP/s" if "tflops" in row else
+                f"{row['gbps']:7.1f} GB/s") + f"  {row['launches']} "
+                f"launches of {row['kernel']} in {row['calls']} calls")
+        res[f"bench_kernels_{label}"] = dict(us=out, detail=detail)
+        done(f"bench_kernels, {label}", t)
+        torch.cuda.empty_cache()
+
+    t = time.time()
+    args = bench_serving.parse_args(
+        ["--layers", str(L), "--max-batch", "4", "--requests", "8",
+         "--prompt-len", "1024", "--gen-len", "32", "--shared-prefix", "512",
+         "--ab-rounds", "1", "--block-pages", "16"])
+    (cell,), got = counted_launches(kernels, lambda: bench_serving.
+                                    run_bench_serving(cfg, params, args))
+    log(f"tools[bench_serving]: {json.dumps(cell)}; launches {got}")
+    assert cell["generated_tokens"] == args.requests * args.gen_len, cell
+    assert cell["prefix_hits"] > 0, cell
+    assert got.get("prefill", 0) > 0 and got.get("sparse_decode", 0) > 0, got
+    res["bench_serving"] = dict(cell, launches=got)
+    done("bench_serving", t)
+    torch.cuda.empty_cache()
+
+    t = time.time()
+    args = profile_textgen.parse_args(
+        ["--layers", str(L), "--ctx", "8192", "--decode-tokens", "8",
+         "--trace-dir", str(OUT_DIR / "profile_textgen")])
+    out, got = counted_launches(kernels, lambda: profile_textgen.
+                                run_profile_textgen(cfg, params, args))
+    ranges = out["ranges"]
+    missing = [r for r in TRACE_RANGES if r != "quest_fused_decode" and not (
+        r in ranges and ranges[r]["calls"] > 0
+        and ranges[r]["device_ms"] > 0)]
+    log(f"tools[profile_textgen]: device {out['device_ms']:.1f} ms in "
+        f"{out['device_ops']} ops over 3 passes' last; ranges "
+        + ", ".join(f"{n} {r['device_ms']:.2f} ms" for n, r in sorted(
+            ranges.items(), key=lambda kv: -kv[1]["device_ms"]))
+        + f"; launches {got}")
+    assert not missing, f"ranges with no device time: {missing}"
+    res["profile_textgen"] = dict(out, launches=got)
+    done("profile_textgen", t)
+    torch.cuda.empty_cache()
+
+    def build(a):
+        return build_engine(a, params=params)
+
+    t = time.time()
+    args = accuracy_delta.parse_args(
+        ["--random", "--preset", "llama31-8b", "--ctx", "4096",
+         "--eval-tokens", "64", "--gen-tokens", "16", "--budgets",
+         "512,1024"])
+    out, got = counted_launches(kernels, lambda: accuracy_delta.
+                                run_accuracy_delta(args, build))
+    control = max(out["rows"], key=lambda r: r["budget"])
+    log(f"tools[accuracy_delta]: {json.dumps(out['rows'])}; launches {got}")
+    assert control["delta_ppl"] == 0 and control["mean_abs_delta_nll"] == 0
+    assert all(math.isfinite(v) for r in out["rows"] for v in r.values()
+               if isinstance(v, float)), out["rows"]
+    assert got.get("sparse_decode", 0) > 0, got
+    res["accuracy_delta"] = dict(out, launches=got)
+    done("accuracy_delta", t)
+    torch.cuda.empty_cache()
+
+    t = time.time()
+    proxies = {}
+    for dev in ("cuda", "cpu"):
+        proxies[dev] = accuracy_proxies.run_accuracy_proxies(
+            accuracy_proxies.parse_args(
+                ["--device", dev, "--ctx", "2048", "--heads", "8",
+                 "--seeds", "1", "--out",
+                 str(OUT_DIR / f"accuracy_proxies_{dev}.json")]))
+    worst, rows = 0.0, 0
+    for key in ("config_rows", "kernel_vs_sim", "gqa_rows", "passkey_rows"):
+        a, b = proxies["cuda"][key], proxies["cpu"][key]
+        assert len(a) == len(b) and len(a) > 0, key
+        rows += len(a)
+        for ra, rb in zip(a, b):
+            for f, va in ra.items():
+                if isinstance(va, float):
+                    worst = max(worst, abs(va - rb[f]))
+                else:
+                    assert va == rb[f], (key, ra, rb)
+    log(f"tools[accuracy_proxies]: card against CPU over {rows} rows: "
+        f"worst float gap {worst:.2e}")
+    assert worst <= 1e-3, worst
+    res["accuracy_proxies_max_gap"] = worst
+    done("accuracy_proxies", t)
+
+    t = time.time()
+    args = example_textgen.parse_args(
+        ["--random", "--preset", "llama31-8b", "--max-new-tokens", "16",
+         "--max-seq-len", "4096"])
+    out, got = counted_launches(kernels, lambda: example_textgen.
+                                run_example_textgen(*build(args), args))
+    assert len(out["tokens"]) == 16 and got.get("prefill") == L, (out, got)
+    args = example_demo.parse_args(
+        ["--random", "--preset", "llama31-8b", "--max-new-tokens", "16",
+         "--max-seq-len", "4096"])
+    demo, got2 = counted_launches(kernels, lambda: example_demo.
+                                  run_example_demo(*build(args), args))
+    assert len(demo["quest_tokens"]) == len(demo["full_tokens"]) == 16, demo
+    log(f"tools[examples]: textgen launches {got}; demo launches {got2}, "
+        f"agreement {demo['agreement']}/16, decode "
+        f"{demo['quest_decode_ms']:.2f} / {demo['full_decode_ms']:.2f} ms a "
+        f"token (Quest / full cache)")
+    res["examples"] = dict(textgen_launches=got, demo_launches=got2,
+                           demo_agreement=demo["agreement"],
+                           demo_decode_ms=[demo["quest_decode_ms"],
+                                           demo["full_decode_ms"]])
+    done("examples", t)
+    torch.cuda.empty_cache()
+    res["seconds"] = time.time() - t_phase
+    log(f"tools: phase 14 took {res['seconds']:.1f} s")
+    return res
+
+
 # name: (source, the TPU kernel it replaces, the path whose run gives its
 # launch count: a serving engine, "probe" for the probe path, None where
 # no path launches it)
@@ -2507,6 +2724,8 @@ def main():
     serving["loader"] = loader_phase(params)
     torch.cuda.empty_cache()
     serving["evals"] = eval_phase(llama31_8b(), params, kernel_wrappers())
+    torch.cuda.empty_cache()
+    serving["tools"] = tools_phase(params, kernel_wrappers(), smi)
     del params
     torch.cuda.empty_cache()
 

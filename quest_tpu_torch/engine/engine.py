@@ -24,7 +24,8 @@ class QuestEngine:
 
     ``device`` defaults to ``"cuda"`` and raises when there is no card;
     pass ``device="cpu"`` for the plain PyTorch path. ``params`` are
-    moved to the device.
+    moved to the device; ``self.params`` keeps the tree as given, so a
+    second engine (another budget) can share the weights.
     """
 
     def __init__(self, cfg: ModelConfig, quest: QuestConfig, params: Params,
@@ -33,6 +34,7 @@ class QuestEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.quest = quest
+        self.params = params
         self.batch_size = batch_size
         self.prefill_bucket = prefill_bucket
         # Long prompts prefill in chunks of at most this many tokens, so

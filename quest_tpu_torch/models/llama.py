@@ -9,11 +9,14 @@ attention) or the decode path (append one token; the first
 ``skip_layers`` layers attend densely, the others run estimate ->
 top-k -> sparse attention, or the fused kernel where :func:`fused_gate`
 allows it), then the o-projection and the SwiGLU MLP. The cache is
-updated in place.
+updated in place. Each stage runs inside a trace range named as the JAX
+model's ``jax.named_scope`` (:data:`TRACE_RANGES`), opened only while a
+profiler is active (:func:`trace_range`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional
 
@@ -39,6 +42,21 @@ from quest_tpu_torch.ops.utils import resolve_device
 Params = Dict[str, object]
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "ln_attn", "ln_mlp")
+# The layer's trace ranges, the JAX model's ``jax.named_scope`` names.
+TRACE_RANGES = ("qkv_proj", "rope", "append_kv_prefill", "prefill_attn",
+                "append_kv_decode", "quest_fused_decode", "quest_estimate",
+                "quest_topk", "quest_sparse_attn", "dense_decode_attn",
+                "o_proj", "mlp")
+
+
+def trace_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler is active, else a ``nullcontext``: a decode step opens ~12
+    ranges a layer, and building them unprofiled would cost host time on
+    a host-bound step."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -188,25 +206,32 @@ class QuestModel(nn.Module):
         sm = 1.0 / math.sqrt(cfg.head_dim)
         if use_sparse and fused_gate(quest, cache.max_pages,
                                      cache.block_pages):
-            return fused_sparse_decode(
-                q, cache.kv_pages, cache.k_max, cache.k_min, seq_lens,
-                sm_scale=sm, budget_pages=quest.page_budget,
-                group_agg=quest.group_agg, layer=layer,
-                block_tab=cache.block_tab, block_pages=cache.block_pages)
+            with trace_range("quest_fused_decode"):
+                return fused_sparse_decode(
+                    q, cache.kv_pages, cache.k_max, cache.k_min, seq_lens,
+                    sm_scale=sm, budget_pages=quest.page_budget,
+                    group_agg=quest.group_agg, layer=layer,
+                    block_tab=cache.block_tab, block_pages=cache.block_pages)
         if use_sparse:
             per_q = quest.selection == "per_q_head"
-            scores = page_scores_physical(
-                q, cache.k_max[layer], cache.k_min[layer], cache.block_tab,
-                group_agg=quest.group_agg, per_q_head=per_q)
-            idx, num_valid = select_pages(scores, seq_lens, quest.page_size,
-                                          quest.page_budget)
-            return sparse_decode_attention(
-                q, cache.kv_pages, idx, num_valid, seq_lens, sm_scale=sm,
-                layer=layer, block_tab=cache.block_tab,
-                block_pages=cache.block_pages, per_q_head=per_q)
-        return dense_decode_attention(
-            q, cache.kv_pages, seq_lens, sm_scale=sm, layer=layer,
-            block_tab=cache.block_tab, block_pages=cache.block_pages)
+            with trace_range("quest_estimate"):
+                scores = page_scores_physical(
+                    q, cache.k_max[layer], cache.k_min[layer],
+                    cache.block_tab, group_agg=quest.group_agg,
+                    per_q_head=per_q)
+            with trace_range("quest_topk"):
+                idx, num_valid = select_pages(scores, seq_lens,
+                                              quest.page_size,
+                                              quest.page_budget)
+            with trace_range("quest_sparse_attn"):
+                return sparse_decode_attention(
+                    q, cache.kv_pages, idx, num_valid, seq_lens, sm_scale=sm,
+                    layer=layer, block_tab=cache.block_tab,
+                    block_pages=cache.block_pages, per_q_head=per_q)
+        with trace_range("dense_decode_attn"):
+            return dense_decode_attention(
+                q, cache.kv_pages, seq_lens, sm_scale=sm, layer=layer,
+                block_tab=cache.block_tab, block_pages=cache.block_pages)
 
     def _layer(self, x, l: int, cache: PagedKVCache, use_sparse: bool,
                rope, is_prefill: bool, new_lens):
@@ -216,31 +241,39 @@ class QuestModel(nn.Module):
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         sm = 1.0 / math.sqrt(D)
-        h = rms_norm(x, self.ln_attn[l], cfg.rms_norm_eps)
-        q = self._linear(h, "wq", l).reshape(B, T, H, D)
-        k = self._linear(h, "wk", l).reshape(B, T, Hkv, D)
-        v = self._linear(h, "wv", l).reshape(B, T, Hkv, D)
-        q = rotate(q, *rope)
-        k = rotate(k, *rope)
+        with trace_range("qkv_proj"):
+            h = rms_norm(x, self.ln_attn[l], cfg.rms_norm_eps)
+            q = self._linear(h, "wq", l).reshape(B, T, H, D)
+            k = self._linear(h, "wk", l).reshape(B, T, Hkv, D)
+            v = self._linear(h, "wv", l).reshape(B, T, Hkv, D)
+        with trace_range("rope"):
+            q = rotate(q, *rope)
+            k = rotate(k, *rope)
 
         if is_prefill:
-            append_prefill_at(cache, l, k, v, new_lens=new_lens)
-            attn = prefill_attention(
-                q, cache.kv_pages, cache.seq_lens, cache.seq_lens + new_lens,
-                sm_scale=sm, layer=l, block_tab=cache.block_tab,
-                block_pages=cache.block_pages)
+            with trace_range("append_kv_prefill"):
+                append_prefill_at(cache, l, k, v, new_lens=new_lens)
+            with trace_range("prefill_attn"):
+                attn = prefill_attention(
+                    q, cache.kv_pages, cache.seq_lens,
+                    cache.seq_lens + new_lens, sm_scale=sm, layer=l,
+                    block_tab=cache.block_tab, block_pages=cache.block_pages)
         else:
-            # Inactive slots (new_lens == 0) must not fold their garbage
-            # key into the page metadata.
-            append_decode_at(cache, l, k[:, 0], v[:, 0], active=new_lens > 0)
+            with trace_range("append_kv_decode"):
+                # Inactive slots (new_lens == 0) must not fold their
+                # garbage key into the page metadata.
+                append_decode_at(cache, l, k[:, 0], v[:, 0],
+                                 active=new_lens > 0)
             attn = self._attn_decode(q[:, 0], cache, l, use_sparse,
                                      cache.seq_lens + 1)[:, None]
 
-        attn = attn.to(x.dtype).reshape(B, T, H * D)
-        x = x + self._linear(attn, "wo", l)
-        h2 = rms_norm(x, self.ln_mlp[l], cfg.rms_norm_eps)
-        gate = torch.nn.functional.silu(self._linear(h2, "w_gate", l))
-        mlp = self._linear(gate * self._linear(h2, "w_up", l), "w_down", l)
+        with trace_range("o_proj"):
+            attn = attn.to(x.dtype).reshape(B, T, H * D)
+            x = x + self._linear(attn, "wo", l)
+        with trace_range("mlp"):
+            h2 = rms_norm(x, self.ln_mlp[l], cfg.rms_norm_eps)
+            gate = torch.nn.functional.silu(self._linear(h2, "w_gate", l))
+            mlp = self._linear(gate * self._linear(h2, "w_up", l), "w_down", l)
         return x + mlp
 
     @torch.no_grad()

@@ -81,8 +81,10 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                     help="weight-only quantization bits (0 = off)")
 
 
-def build_engine(args) -> Tuple["QuestEngine", object]:
-    """Returns (engine, tokenizer)."""
+def build_engine(args, params=None) -> Tuple["QuestEngine", object]:
+    """Returns (engine, tokenizer). ``params``, with ``--random``, are
+    weights already made for the preset's geometry (at ``--layers``), used
+    in place of a new random draw."""
     from quest_tpu_torch.engine.engine import QuestEngine
     from quest_tpu_torch.models.llama import init_params
     from quest_tpu_torch.ops.utils import resolve_device
@@ -98,7 +100,6 @@ def build_engine(args) -> Tuple["QuestEngine", object]:
         cfg = PRESETS[args.preset]()
         if args.preset == "tiny":
             cfg = dataclasses.replace(cfg, vocab_size=259)
-        params = None
         tok = ByteTokenizer()
     else:
         raise SystemExit("pass --model-path DIR or --random")

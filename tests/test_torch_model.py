@@ -187,7 +187,15 @@ def test_port_imports_no_jax():
             "quest_tpu_torch.ops.decode_common, "
             "quest_tpu_torch.exp.decode_ablation, "
             "quest_tpu_torch.kv.pool, quest_tpu_torch.engine.scheduler, "
-            "quest_tpu_torch.exp.scheduler_load; "
+            "quest_tpu_torch.exp.scheduler_load, "
+            "quest_tpu_torch.scripts.bench_kernels, "
+            "quest_tpu_torch.scripts.bench_textgen, "
+            "quest_tpu_torch.scripts.bench_serving, "
+            "quest_tpu_torch.scripts.profile_textgen, "
+            "quest_tpu_torch.scripts.accuracy_delta, "
+            "quest_tpu_torch.scripts.accuracy_proxies, "
+            "quest_tpu_torch.scripts.example_textgen, "
+            "quest_tpu_torch.scripts.example_demo; "
             "bad = [m for m in sys.modules if m in ('jax', 'quest_tpu') or "
             "m.startswith(('jax.', 'quest_tpu.'))]; "
             "assert not bad, bad")
