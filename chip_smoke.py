@@ -1025,6 +1025,163 @@ def fp8_cases(timer, gen):
 # Phase 4: the probe path (the copy probe and the select pieces).
 # ---------------------------------------------------------------------------
 
+GROUPS = (4, 3, 6, 16, 32)      # 4: the preset's group, in the same turn
+
+
+def group_cases(timer, gen):
+    """Every GQA group the kernels pad (3 and 6: to 4 and 8 heads a CTA),
+    a whole 16-head CTA and two sub-groups of 16 (32), beside the
+    preset's 4 in the same turn: the sparse, dense, estimate, fused and
+    prefill kernels at the main path's shapes with 8 KV heads and 8 G
+    query heads (B=2, 32768 + 7001 tokens, page 16; prefill T=2048 at
+    offset 0, bf16 and fp8 pools), each held to its plain version within
+    2e-2 (the estimate 1e-5, the fused ids with no flip outside the 1e-5
+    band) and timed beside its bound; then ``qgemv`` (M = 2) and
+    ``dequant`` over a 4096 x 1000 weight, int8 and int4, whose rows are
+    not 16-byte multiples. Returns each kernel's cases."""
+    from quest_tpu_torch.models.quantize import quantize_weight
+    from quest_tpu_torch.ops.dense_decode import (
+        dense_decode_attention, dense_decode_attention_plain)
+    from quest_tpu_torch.ops.estimate import (page_scores_kernel,
+                                              page_scores_kernel_plain,
+                                              page_scores_physical)
+    from quest_tpu_torch.ops.fused_decode import (fused_sparse_decode,
+                                                  fused_sparse_decode_plain,
+                                                  slot_page_scores)
+    from quest_tpu_torch.ops.prefill import (prefill_attention,
+                                             prefill_attention_plain)
+    from quest_tpu_torch.ops.qdot import (dequant, dequant_plain, qgemv,
+                                          qgemv_plain)
+    from quest_tpu_torch.ops.reference import selection_flips
+    from quest_tpu_torch.ops.sparse_decode import (
+        sparse_decode_attention, sparse_decode_attention_plain)
+    from quest_tpu_torch.ops.topk import select_pages
+    out = {k: [] for k in ("sparse_decode", "dense_decode", "estimate",
+                           "fused_decode", "prefill", "qgemv", "dequant")}
+
+    def record(kname, label, got, want, ms, nbytes, flops=0, tol=REL_TOL,
+               **extra):
+        err = rel_err(got, want)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        by = "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S \
+            else "bytes"
+        out[kname].append(dict(
+            case=label, max_abs_err=float((got.float() - want.float()).abs()
+                                          .max()),
+            max_rel_err=err, ms=ms, plain_ms=None, library_ms=None,
+            bound_ms=bound, bound_by=by, **extra))
+        log(f"{kname}[{label}]: rel err {err:.2e}, {ms * 1e3:.1f} us "
+            f"(bound {bound * 1e3:.1f} us)" + "".join(
+                f", {k} {v}" for k, v in extra.items()))
+        assert err <= tol, f"{kname} disagrees ({label}): {err}"
+
+    cfg, quest, cache = make_pool(32768, 2, gen)
+    fp8_pool = cache.kv_pages.to(torch.float8_e4m3fn)
+    seq = torch.tensor([32768, 7001], dtype=torch.int32, device="cuda")
+    B, Hkv, D, page = 2, cfg.num_kv_heads, cfg.head_dim, quest.page_size
+    S, agg, P = quest.page_budget, quest.group_agg, cache.max_pages
+    n = (seq.long() + page - 1) // page
+    npr = n.repeat_interleave(Hkv)
+    kw = dict(sm_scale=1.0 / math.sqrt(D), layer=0,
+              block_tab=cache.block_tab, block_pages=cache.block_pages)
+    phys = (cache.block_tab.long()[:, :, None] * cache.block_pages
+            + torch.arange(cache.block_pages, device="cuda")).reshape(B, P)
+    km = cache.k_max[0].reshape(Hkv, -1, D)[:, phys].transpose(0, 1).contiguous()
+    kn = cache.k_min[0].reshape(Hkv, -1, D)[:, phys].transpose(0, 1).contiguous()
+    for G in GROUPS:
+        Hq = Hkv * G
+        tag = f"G={G} ({Hq}/{Hkv} heads)"
+        q = torch.randn((B, Hq, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        qbytes = q.numel() * (2 + 4)
+        scores = page_scores_physical(q, cache.k_max[0], cache.k_min[0],
+                                      cache.block_tab, group_agg=agg)
+        idx, nv = select_pages(scores, seq, page, S)
+        got = sparse_decode_attention(q, cache.kv_pages, idx, nv, seq, **kw)
+        want = sparse_decode_attention_plain(q, cache.kv_pages, idx, nv, seq,
+                                             **kw)
+        torch.cuda.synchronize()
+        record("sparse_decode", tag, got, want, timer(
+            lambda: sparse_decode_attention(q, cache.kv_pages, idx, nv, seq,
+                                            **kw)),
+               int(nv.sum()) * Hkv * 2 * page * D * 2 + idx.numel() * 4
+               + qbytes)
+        got = dense_decode_attention(q, cache.kv_pages, seq, **kw)
+        want = dense_decode_attention_plain(q, cache.kv_pages, seq, **kw)
+        torch.cuda.synchronize()
+        record("dense_decode", tag, got, want, timer(
+            lambda: dense_decode_attention(q, cache.kv_pages, seq, **kw)),
+               int(seq.sum()) * Hkv * 2 * D * 2 + qbytes
+               + cache.block_tab.numel() * 4)
+        got = page_scores_kernel(q, km, kn, agg)
+        want = page_scores_kernel_plain(q, km, kn, agg)
+        torch.cuda.synchronize()
+        record("estimate", tag, got, want, timer(
+            lambda: page_scores_kernel(q, km, kn, agg)),
+               2 * km.numel() * 2 + q.numel() * 2 + B * Hkv * P * 4,
+               flops=2 * 2 * B * Hq * P * D, tol=1e-5)
+        fkw = dict(kw, budget_pages=S, group_agg=agg)
+        args = (cache.kv_pages, cache.k_max, cache.k_min, seq)
+        got, ids = fused_sparse_decode(q, *args, return_ids=True, **fkw)
+        want, want_ids = fused_sparse_decode_plain(q, *args, return_ids=True,
+                                                   **fkw)
+        plain_scores = slot_page_scores(q, cache.k_max, cache.k_min,
+                                        layer=0, block_tab=cache.block_tab,
+                                        block_pages=cache.block_pages,
+                                        group_agg=agg)
+        flips, gap = selection_flips(ids.reshape(B * Hkv, S),
+                                     want_ids.reshape(B * Hkv, S),
+                                     plain_scores.reshape(B * Hkv, P), npr)
+        assert flips == 0 or gap <= 1e-5, f"fused {tag}: {flips} ids, {gap}"
+        record("fused_decode", tag, got, want, timer(
+            lambda: fused_sparse_decode(q, *args, **fkw)),
+               Hkv * int(n.sum()) * 2 * D * 2
+               + Hkv * int(n.clamp(max=S).sum()) * 2 * page * D * 2
+               + q.numel() * 2 + B * Hq * D * 4, flipped_ids=flips)
+        # Prefill: one row, 2048 fresh tokens, bf16 then fp8 pool.
+        T = 2048
+        qp = torch.randn((1, T, Hq, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        off = torch.zeros(1, dtype=torch.int32, device="cuda")
+        pkw = dict(kw, block_tab=cache.block_tab[:1])
+        flops = 4 * Hq * D * causal_pairs(T, 0, T)
+        for pool, pname, esz in ((cache.kv_pages, "bf16", 2),
+                                 (fp8_pool, "fp8", 1)):
+            got = prefill_attention(qp, pool, off, off + T, **pkw)
+            want = prefill_attention_plain(qp, pool, off, off + T, **pkw)
+            torch.cuda.synchronize()
+            record("prefill", f"{tag}, {pname}, T=2048 offset 0", got, want,
+                   timer(lambda: prefill_attention(qp, pool, off, off + T,
+                                                   **pkw)),
+                   T * Hkv * 2 * D * esz + qp.numel() * (2 + 4), flops=flops)
+        del qp, got, want
+    del cache, fp8_pool, km, kn
+    # The weight kernels at an out width of 1000 (bf16 x, M = 2).
+    K, N, M = 4096, 1000, 2
+    w = (torch.randn((K, N), generator=gen, device="cuda")
+         / math.sqrt(K)).to(torch.bfloat16)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    for bits in (8, 4):
+        qw = quantize_weight(w, bits)
+        tag = f"{K}x{N} int{bits}"
+        got = qgemv(x, qw.q, qw.s, None, bits)
+        want = qgemv_plain(x, qw.q, qw.s, None, bits, torch.bfloat16)
+        torch.cuda.synchronize()
+        record("qgemv", f"{tag}, M={M}", got, want,
+               timer(lambda: qgemv(x, qw.q, qw.s, None, bits)),
+               K * N * bits // 8 + 4 * N + M * (K + N) * 2,
+               flops=2 * M * K * N)
+        got = dequant(qw.q, qw.s, None, bits, torch.bfloat16)
+        want = dequant_plain(qw.q, qw.s, None, bits, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"dequant {tag} is not bitwise"
+        record("dequant", f"{tag}, bf16, bitwise", got, want,
+               timer(lambda: dequant(qw.q, qw.s, None, bits,
+                                     torch.bfloat16)),
+               K * N * bits // 8 + 4 * N + K * N * 2, tol=0.0)
+    return out
+
+
 COPY_PAGES_KB = (8, 16, 32)    # one bf16 K+V page at page 16, 32, 64
 COPY_TOTAL_MB = 256            # five times the 50 MB L2
 SELECT_SG = 16                 # one [16, 128] band a (row, KV head) of
@@ -1704,7 +1861,7 @@ def small_scheduler_phase(fused=False, kv_dtype=torch.float32):
         assert len(c[2]) < reqs[2].max_new_tokens, "uid 2 never met its EOS"
         assert torch.equal(gpu.cache.block_tab.cpu(), cpu.cache.block_tab)
         assert torch.equal(gpu.cache.seq_lens.cpu(), cpu.cache.seq_lens)
-        assert gpu.pool.free_pages() == cpu.pool.free_pages()
+        assert gpu.pools[0].free_pages() == cpu.pools[0].free_pages()
     else:
         log(msg)
         assert all(len(g[r.uid]) == r.max_new_tokens
@@ -1748,7 +1905,7 @@ def scheduler_phase(params, kernels, smi):
     eng = ContinuousBatchingEngine(
         cfg, quest, params, max_batch=4, burst=8, prefill_chunk=2048,
         prefill_bucket=256, total_pages=8 * quest.block_pages, seed=0)
-    assert eng.block_tokens == 2048 and eng.pool.total_pages == 8
+    assert eng.block_tokens == 2048 and eng.pools[0].total_pages == 8
     rng = np.random.default_rng(1)
     prompts = {u: rng.integers(1, cfg.vocab_size, size=n).tolist()
                for u, (n, _, _) in FULL_REQUESTS.items()}
@@ -1812,13 +1969,13 @@ def scheduler_phase(params, kernels, smi):
         assert len(gens[r.uid]) == r.max_new_tokens, (r.uid, len(gens[r.uid]))
         assert all(0 <= t < cfg.vocab_size for t in gens[r.uid])
     assert eng.prefix_hits >= 1, "the prefix cache was never hit"
-    held = {b for ent in eng._prefix.values() for b in ent}
-    free = eng.pool.free_pages()
-    assert free + len(held) == eng.pool.total_pages, (free, held)
-    for ent in list(eng._prefix.values()):
-        eng.pool.pages_release(ent)
-    eng._prefix.clear()
-    assert eng.pool.free_pages() == eng.pool.total_pages
+    held = {b for ent in eng._prefixes[0].values() for b in ent}
+    free = eng.pools[0].free_pages()
+    assert free + len(held) == eng.pools[0].total_pages, (free, held)
+    for ent in list(eng._prefixes[0].values()):
+        eng.pools[0].pages_release(ent)
+    eng._prefixes[0].clear()
+    assert eng.pools[0].free_pages() == eng.pools[0].total_pages
     # One full burst profiled: four 3000-token prompts (all 8 blocks),
     # prefilled, then 8 decode steps at B=4.
     for u in range(4):
@@ -1826,7 +1983,7 @@ def scheduler_phase(params, kernels, smi):
                                                 size=3000).tolist(), 9))
     while eng.num_active < 4 or any(s.prefilling for s in eng.slots):
         eng.step()
-    assert eng.num_active == 4 and eng.pool.free_pages() == 0
+    assert eng.num_active == 4 and eng.pools[0].free_pages() == 0
 
     def burst():
         steps[0] = 0
@@ -2610,6 +2767,382 @@ def tools_phase(params, kernels, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: multi-GPU over torch.distributed.
+# ---------------------------------------------------------------------------
+
+PHASE15_DIR = OUT_DIR / "phase15"
+RANK_DEADLINE_S = 300           # a spawned phase's whole run, start included
+DECODE_FORCED = 8               # 15b's teacher-forced decode steps
+TP_F32_TOL = 1e-4               # 15b's f32 logits, max|d| / max|ref|
+TP_DTYPES = {"bf16": (torch.bfloat16, REL_TOL),
+             "f32": (torch.float32, TP_F32_TOL)}   # 15b's runs: dtype, gate
+
+
+def pool_pages(eng):
+    """[free, total, held by the prefix registry] pages of each dp group's
+    pool: after a drain, free + held == total."""
+    return [[p.free_pages(), p.total_pages,
+             len({b for e in reg.values() for b in e})]
+            for p, reg in zip(eng.pools, eng._prefixes)]
+
+
+def padded_batch(prompts, bucket=256):
+    """Prompts as a [B, T] int32 batch (T a bucket multiple) and lengths."""
+    T = -(-max(map(len, prompts)) // bucket) * bucket
+    toks = np.zeros((len(prompts), T), np.int32)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = p
+    return toks, np.asarray([len(p) for p in prompts], np.int32)
+
+
+def greedy(prefill, decode, toks, lens, steps):
+    """Prefill (full logits [B, T, V]), then ``steps - 1`` greedy decode
+    steps: the [B, steps] tokens."""
+    logits = prefill(toks, lens)
+    tok = logits[torch.arange(len(lens), device=logits.device),
+                 lens.long() - 1].argmax(-1).to(torch.int32)
+    del logits
+    out = [tok]
+    for _ in range(steps - 1):
+        tok = decode(tok).argmax(-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, 1)
+
+
+def world1_phase(params, kernels):
+    """15a: a world of 1 over NCCL in this process (``file://`` init under
+    a temporary directory, ``make_mesh(1, 1)``): the full-width
+    Llama-3.1-8B (phase 6's weights, the default QuestConfig, B = 2,
+    phase 6's first prompts) through ``make_sharded_fns`` against the
+    unsharded model doing the same calls, and through
+    ``ContinuousBatchingEngine(mesh=...)`` against the unsharded
+    scheduler: greedy tokens and every kernel's launches equal; decode
+    ms a step of the two in turns (printed, not gated)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from quest_tpu_torch.config import QuestConfig, llama31_8b
+    from quest_tpu_torch.engine.scheduler import (ContinuousBatchingEngine,
+                                                  Request)
+    from quest_tpu_torch.kv.paged_kv import init_cache
+    from quest_tpu_torch.models.llama import QuestModel
+    from quest_tpu_torch.parallel import (init_sharded_cache, make_mesh,
+                                          make_sharded_fns, shard_params)
+    cfg, quest = llama31_8b(), QuestConfig(max_seq_len=16384)
+    PHASE15_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=PHASE15_DIR)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                            rank=0, world_size=1)
+    res = {}
+    try:
+        mesh = make_mesh(1, 1)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                   for n in (6000, 3000)]                 # phase 6's first
+        toks_np, lens_np = padded_batch(prompts)
+        toks = torch.from_numpy(toks_np).cuda()
+        lens = torch.from_numpy(lens_np).cuda()
+        N = 32
+        model = QuestModel(cfg, quest, params)
+        cache = init_cache(cfg, quest, 2)
+        prefill_fn, decode_fn = make_sharded_fns(cfg, quest, mesh)
+        sp = shard_params(params, mesh)      # tp = 1: the same tensors
+        scache = init_sharded_cache(cfg, quest, mesh, 2)
+        runs = {
+            "unsharded": lambda: greedy(
+                lambda t, n: model.prefill(cache, t, n),
+                lambda t: model.decode_step(cache, t), toks, lens, N),
+            "sharded": lambda: greedy(
+                lambda t, n: prefill_fn(sp, scache, t, n)[0],
+                lambda t: decode_fn(sp, scache, t)[0], toks, lens, N)}
+        got = {k: counted_launches(kernels, f) for k, f in runs.items()}
+        (tu, cu), (ts, cs) = got["unsharded"], got["sharded"]
+        log(f"15a: world 1 over NCCL, make_sharded_fns vs the unsharded "
+            f"model, {N} greedy tokens of prompts {lens_np.tolist()}: "
+            f"tokens equal {bool(torch.equal(tu, ts))}; launches {cs}")
+        assert torch.equal(tu, ts), "15a: sharded tokens differ"
+        assert cs == cu, f"15a: launches {cs} != unsharded {cu}"
+        want = dict(prefill=cfg.num_layers,
+                    dense_decode=quest.skip_layers * (N - 1),
+                    sparse_decode=(cfg.num_layers - quest.skip_layers)
+                    * (N - 1))
+        assert cs == want, f"15a: launches {cs} != the path's {want}"
+        # Decode ms a step, in turns (unsharded, sharded, sharded,
+        # unsharded), 16 steps from the current state each.
+        steps, ms = 16, {"unsharded": [], "sharded": []}
+        tok = tu[:, -1].contiguous()
+        for name in ("unsharded", "sharded", "sharded", "unsharded"):
+            step = ((lambda t: model.decode_step(cache, t))
+                    if name == "unsharded" else
+                    (lambda t: decode_fn(sp, scache, t)[0]))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            t = tok
+            for _ in range(steps):
+                t = step(t).argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            ms[name].append((time.time() - t0) / steps * 1e3)
+        log(f"15a: decode ms/step at B=2 in turns: unsharded "
+            f"{' / '.join(f'{x:.2f}' for x in ms['unsharded'])}, sharded "
+            f"(world 1) {' / '.join(f'{x:.2f}' for x in ms['sharded'])}")
+        del model, cache, scache
+        torch.cuda.empty_cache()
+        # The scheduler with and without the mesh, on the same requests.
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, (32, 24)))]
+        sched = {}
+        for name, kw in (("unsharded", dict(device="cuda")),
+                         ("mesh", dict(mesh=mesh))):
+            eng = ContinuousBatchingEngine(cfg, quest, params, max_batch=2,
+                                           **kw)
+            outs, c = counted_launches(kernels, lambda: eng.run(
+                [dataclasses.replace(r) for r in reqs]))
+            drained = all(f + h == t for f, t, h in pool_pages(eng))
+            sched[name] = (outs, c, drained)
+            del eng
+            torch.cuda.empty_cache()
+        (ou, cu, _), (om, cm, dm) = sched["unsharded"], sched["mesh"]
+        log(f"15a: ContinuousBatchingEngine(mesh=(1, 1)) vs unsharded: "
+            f"tokens equal {om == ou}, launches {cm}, pools drained {dm}")
+        assert om == ou, "15a: the mesh scheduler's tokens differ"
+        assert cm == cu, f"15a: scheduler launches {cm} != {cu}"
+        assert dm, "15a: the mesh scheduler's pool is not drained"
+        res = dict(tokens_equal=True, launches=cs,
+                   decode_ms_per_step=ms, scheduler_launches=cm)
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def spawn_ranks(fn, world, root):
+    """``fn(rank, world, root)`` on ``world`` spawned ranks; the ranks are
+    killed and the phase fails at RANK_DEADLINE_S or when one fails."""
+    ctx = torch.multiprocessing.start_processes(
+        fn, args=(world, str(root)), nprocs=world, join=False,
+        start_method="spawn")
+    deadline = time.time() + RANK_DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.time())):
+            if time.time() > deadline:
+                raise RuntimeError(f"{fn.__name__}: the ranks passed their "
+                                   f"{RANK_DEADLINE_S} s deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def rank_group(rank, world, root, name):
+    """A spawned rank's setup: one thread, the one card, gloo over a
+    ``file://`` store (gloo takes CUDA tensors in its collectives by
+    staging them through the host; NCCL refuses two ranks on one card),
+    a 60 s collective timeout."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{root}/init_{name}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+
+
+def four_layer_config(dtype):
+    from quest_tpu_torch.config import llama31_8b
+    return dataclasses.replace(llama31_8b(), num_layers=4, dtype=dtype)
+
+
+def tp_model(dtype):
+    """15b's model in ``dtype``: the full-width 4-layer config, the pool in
+    the same dtype, weights from the parent's seed."""
+    from quest_tpu_torch.config import QuestConfig
+    from quest_tpu_torch.models.llama import init_params
+    cfg = four_layer_config(dtype)
+    quest = QuestConfig(max_seq_len=16384, kv_dtype=dtype)
+    return cfg, quest, init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(15), device="cuda")
+
+
+def rank_tp(rank, world, root):
+    """15b's rank, for each of TP_DTYPES: its tp = 2 shard of the
+    full-width 4-layer model, the prefill's last logits
+    (``make_serving_fns``) and DECODE_FORCED decode steps
+    (``make_sharded_fns``) fed the unsharded engine's tokens; writes its
+    logits and launches."""
+    import torch.distributed as dist
+    from quest_tpu_torch.parallel import (init_sharded_cache, make_mesh,
+                                          make_serving_fns, make_sharded_fns,
+                                          shard_params)
+    root = Path(root)
+    rank_group(rank, world, root, "tp")
+    try:
+        mesh = make_mesh(1, world)
+        for name, (dtype, _) in TP_DTYPES.items():
+            cfg, quest, params = tp_model(dtype)
+            sp = shard_params(params, mesh)
+            del params
+            prefill_last, _, _ = make_serving_fns(cfg, quest, mesh)
+            _, decode_fn = make_sharded_fns(cfg, quest, mesh)
+            inp = np.load(root / f"tp_inputs_{name}.npz")
+            toks, lens, forced = (torch.from_numpy(inp[k]).cuda()
+                                  for k in ("toks", "lens", "forced"))
+            cache = init_sharded_cache(cfg, quest, mesh, toks.shape[0])
+
+            def run():
+                last, _ = prefill_last(sp, cache, toks, lens)
+                logits = [last[:, 0]]
+                for t in forced:
+                    logits.append(decode_fn(sp, cache, t)[0])
+                return torch.stack(logits)
+            logits, launches = counted_launches(kernel_wrappers(), run)
+            np.save(root / f"tp_logits_{name}_r{rank}.npy",
+                    logits.float().cpu().numpy())
+            (root / f"tp_launches_{name}_r{rank}.json").write_text(
+                json.dumps(launches))
+            del sp, cache
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_requests(vocab):
+    """15c's requests: four prompts of 700-2300 tokens."""
+    from quest_tpu_torch.engine.scheduler import Request
+    rng = np.random.default_rng(15)
+    return [Request(uid=i, prompt=rng.integers(1, vocab, size=n).tolist(),
+                    max_new_tokens=k)
+            for i, (n, k) in enumerate(zip((1500, 700, 2300, 900),
+                                           (16, 24, 8, 12)))]
+
+
+def dp_engine(mesh=None):
+    """15c's scheduler: the full-width 4-layer model in f32 (f32 pool), 4
+    slots, prompts in chunks of 1024 tokens."""
+    from quest_tpu_torch.config import QuestConfig
+    from quest_tpu_torch.engine.scheduler import ContinuousBatchingEngine
+    from quest_tpu_torch.models.llama import init_params
+    cfg = four_layer_config(torch.float32)
+    quest = QuestConfig(max_seq_len=4096, kv_dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(16),
+                         device="cuda")
+    kw = dict(mesh=mesh) if mesh is not None else dict(device="cuda")
+    return cfg, ContinuousBatchingEngine(cfg, quest, params, max_batch=4,
+                                         prefill_chunk=1024, **kw)
+
+
+def rank_dp(rank, world, root):
+    """15c's rank: ``ContinuousBatchingEngine(mesh=(2, 1))`` over the
+    requests; writes every request's tokens, each group pool's pages and
+    its launches."""
+    import torch.distributed as dist
+    from quest_tpu_torch.parallel import make_mesh
+    root = Path(root)
+    rank_group(rank, world, root, "dp")
+    try:
+        cfg, eng = dp_engine(make_mesh(world, 1))
+        outs, launches = counted_launches(kernel_wrappers(),
+                                 lambda: eng.run(dp_requests(cfg.vocab_size)))
+        (root / f"dp_r{rank}.json").write_text(json.dumps(dict(
+            outs={str(k): v for k, v in outs.items()}, launches=launches,
+            pools=pool_pages(eng))))
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_rank_phase(kernels):
+    """15b and 15c: two ranks on the one card over gloo, spawned after
+    every kernel is built (the ranks load the libraries), in a directory
+    of their own (a fresh ``file://`` store each run). 15b: tp = 2, the
+    full-width 4-layer model in bf16 and in f32, each teacher-forced
+    against the unsharded engine's prefill and DECODE_FORCED decode
+    steps: logits within TP_DTYPES' gate (max |d| / max |ref|) and each
+    rank's launches equal to the unsharded path's; the greedy tokens
+    that agree are printed. 15c: (dp, tp) = (2, 1), the 4-layer f32
+    scheduler: every request's tokens equal to the unsharded scheduler's
+    and both groups' pools drained."""
+    import tempfile
+
+    from quest_tpu_torch.kv.paged_kv import init_cache
+    from quest_tpu_torch.models.llama import QuestModel
+    PHASE15_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=PHASE15_DIR))
+    res = {}
+    # 15b references: the unsharded 4-layer engine, greedy, per dtype.
+    refs = {}
+    for name, (dtype, _) in TP_DTYPES.items():
+        cfg, quest, params = tp_model(dtype)
+        model = QuestModel(cfg, quest, params)
+        rng = np.random.default_rng(1)
+        toks_np, lens_np = padded_batch([
+            rng.integers(1, cfg.vocab_size, size=n).tolist()
+            for n in (5000, 2500)])                         # phase 6's shape
+        toks, lens = torch.from_numpy(toks_np).cuda(), torch.from_numpy(
+            lens_np).cuda()
+        cache = init_cache(cfg, quest, 2)
+
+        def reference():
+            logits = [model.prefill_last(cache, toks, lens)[:, 0]]
+            forced = []
+            for _ in range(DECODE_FORCED):
+                forced.append(logits[-1].argmax(-1).to(torch.int32))
+                logits.append(model.decode_step(cache, forced[-1]))
+            return torch.stack(logits), torch.stack(forced)
+        (ref, forced), want = counted_launches(kernels, reference)
+        np.savez(root / f"tp_inputs_{name}.npz", toks=toks_np, lens=lens_np,
+                 forced=forced.cpu().numpy())
+        refs[name] = (ref.float().cpu().numpy(), want)
+        del model, params, cache, ref
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    spawn_ranks(rank_tp, 2, root)
+    log(f"15b: tp = 2 over gloo on one card, 4 layers at full width, "
+        f"prefill of {lens_np.tolist()} + {DECODE_FORCED} teacher-forced "
+        f"decode steps, {' and '.join(TP_DTYPES)}, in "
+        f"{time.time() - t0:.1f} s")
+    for name, (ref, want) in refs.items():
+        tol = TP_DTYPES[name][1]
+        errs, agree = [], []
+        for r in range(2):
+            got = np.load(root / f"tp_logits_{name}_r{r}.npy")
+            errs.append(float(np.abs(got - ref).max() / np.abs(ref).max()))
+            agree.append(int((got.argmax(-1) == ref.argmax(-1)).sum()))
+            launches = json.loads(
+                (root / f"tp_launches_{name}_r{r}.json").read_text())
+            assert launches == want, \
+                f"15b {name} rank {r}: launches {launches} != {want}"
+        log(f"15b {name}: logits rel err "
+            f"{', '.join(f'{e:.2e}' for e in errs)} (limit {tol}); greedy "
+            f"tokens equal at {agree} of {ref.shape[0] * ref.shape[1]} "
+            f"positions; launches {want} on each rank")
+        assert max(errs) <= tol, f"15b {name}: sharded logits differ: {errs}"
+        res[f"15b_{name}"] = dict(rel_err=errs, limit=tol,
+                                  greedy_agree=agree, launches=want,
+                                  positions=ref.shape[0] * ref.shape[1])
+    # 15c: the scheduler at (dp, tp) = (2, 1) against the unsharded one.
+    cfg, eng = dp_engine()
+    outs, want = counted_launches(kernels, lambda: eng.run(dp_requests(
+        cfg.vocab_size)))
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    spawn_ranks(rank_dp, 2, root)
+    outs = {str(k): v for k, v in outs.items()}
+    for r in range(2):
+        got = json.loads((root / f"dp_r{r}.json").read_text())
+        assert got["outs"] == outs, f"15c rank {r}: tokens differ"
+        assert all(f + h == t for f, t, h in got["pools"]), \
+            f"15c rank {r}: pools not drained {got['pools']}"
+    log(f"15c: (dp, tp) = (2, 1) scheduler over gloo, 4 layers f32, "
+        f"{len(outs)} requests in {time.time() - t0:.1f} s: every request's "
+        f"tokens equal to the unsharded scheduler's, both groups' pools "
+        f"drained (rank launches {got['launches']}, unsharded {want})")
+    res["15c"] = dict(requests=len(outs), tokens_equal=True,
+                      launches_rank=got["launches"], launches_unsharded=want)
+    return res
+
+
 # name: (source, the TPU kernel it replaces, the path whose run gives its
 # launch count: a serving engine, "probe" for the probe path, None where
 # no path launches it)
@@ -2680,6 +3213,10 @@ def main():
                **fused_slice_cases(timer, gen)}
     for kname, cases in fp8_cases(timer, gen).items():
         results[kname] += cases
+    group = group_cases(timer, gen)
+    for kname in ("sparse_decode", "dense_decode", "estimate",
+                  "fused_decode", "prefill"):
+        results[kname] += group.pop(kname)
     probe_results, probe_launches, copy_gbps = probe_phase(timer)
     results.update(probe_results)
     del timer
@@ -2712,6 +3249,8 @@ def main():
     torch.cuda.empty_cache()
     timer = Timer()
     results.update(weight_kernel_phase(timer, gen, ptxas))
+    for kname, cases in group.items():      # qgemv, dequant at out 1000
+        results[kname] += cases
     del timer
     torch.cuda.empty_cache()
     for bits in (8, 4):
@@ -2726,8 +3265,13 @@ def main():
     serving["evals"] = eval_phase(llama31_8b(), params, kernel_wrappers())
     torch.cuda.empty_cache()
     serving["tools"] = tools_phase(params, kernel_wrappers(), smi)
+    torch.cuda.empty_cache()
+    t15 = time.time()
+    serving["multi_gpu"] = {"15a": world1_phase(params, kernel_wrappers())}
     del params
     torch.cuda.empty_cache()
+    serving["multi_gpu"].update(multi_rank_phase(kernel_wrappers()))
+    log(f"phase 15 took {time.time() - t15:.1f} s")
 
     kernels = []
     for kname, (src, rep, path) in KERNEL_META.items():

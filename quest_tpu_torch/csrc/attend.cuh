@@ -2,8 +2,9 @@
 // tensor cores, shared by the sparse and dense decode kernels
 // (decode_common.cuh) and the fused decode kernel (fused_decode.cu).
 //
-// mma.sync m16n8k16 with the G <= 8 query heads of a group as the rows
-// (padded to 16; lane l holds head l / 4): QK^T takes K^T as B (8 tokens a
+// mma.sync m16n8k16 with the query heads of a group as the rows (G <= 8
+// padded to 16, lane l holding head l / 4; or 16 heads, lane l holding
+// heads l / 4 and l / 4 + 8): QK^T takes K^T as B (8 tokens a
 // tile, straight from the K rows); its C fragments, rounded to bf16,
 // are PV's A (16 tokens a step), and V comes in through ldmatrix.trans.
 // The warp keeps its own online softmax (m, l, acc), so no CTA barrier
@@ -72,24 +73,36 @@ struct SwizzledRows {
   }
 };
 
+// kHi: 16 head rows (lane l holds heads l / 4 and l / 4 + 8), for groups
+// of 9-16 heads; otherwise 8 rows (the mma's rows 8-15 are zeros).
+template <bool kHi = false>
 struct WarpAttn {
-  float m, l;          // head gid's running maximum and sum
-  float acc[16][4];    // head gid's output dims 8 j + 2 tig, + 1 (and the
-                       // padded head gid + 8's in [2], [3])
-  uint32_t qa[8][2];   // head gid's query row as mma A fragments
+  static constexpr int R = kHi ? 2 : 1;  // head rows a lane
+  float m[R], l[R];    // head gid's (and gid + 8's) running maximum and sum
+  float acc[16][4];    // head gid's output dims 8 j + 2 tig, + 1 in [0],
+                       // [1]; head gid + 8's in [2], [3]
+  uint32_t qa[8][2 * R];  // the lanes' query rows as mma A fragments
 
-  // qrow: the lane's head row (G <= 8 rows, f32 holding bf16 values), or
-  // null for a padded head.
-  __device__ __forceinline__ void init(const float* qrow) {
+  // q0, q1: the lane's head rows gid and gid + 8 (f32 holding bf16
+  // values), or null for a padded head (zeros).
+  __device__ __forceinline__ void init(const float* q0,
+                                       const float* q1 = nullptr) {
     const int tig = threadIdx.x & 3;
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
-      const float* qr = qrow + kk * 16 + 2 * tig;
-      qa[kk][0] = qrow != nullptr ? pack_bf16(qr[0], qr[1]) : 0u;
-      qa[kk][1] = qrow != nullptr ? pack_bf16(qr[8], qr[9]) : 0u;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float* qrow = r == 0 ? q0 : q1;
+        const float* qr = qrow + kk * 16 + 2 * tig;
+        qa[kk][2 * r] = qrow != nullptr ? pack_bf16(qr[0], qr[1]) : 0u;
+        qa[kk][2 * r + 1] = qrow != nullptr ? pack_bf16(qr[8], qr[9]) : 0u;
+      }
     }
-    m = QT_MASK_VALUE;
-    l = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      m[r] = QT_MASK_VALUE;
+      l[r] = 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < 16; ++j)
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -107,42 +120,60 @@ struct WarpAttn {
     for (int kk = 0; kk < 8; ++kk) {
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        mma_bf16(sc[j], qa[kk][0], 0u, qa[kk][1], 0u, ld_u32(rows.k(j, kk, 0)),
+        mma_bf16(sc[j], qa[kk][0], kHi ? qa[kk][2] : 0u, qa[kk][1],
+                 kHi ? qa[kk][3] : 0u, ld_u32(rows.k(j, kk, 0)),
                  ld_u32(rows.k(j, kk, 1)));
     }
-    // Online softmax of head gid over the chunk's 16 tokens (4 lanes hold
-    // them).
-    float mx = QT_MASK_VALUE;
+    // Online softmax of head gid (and gid + 8) over the chunk's 16 tokens
+    // (4 lanes hold them).
+    float mx[R], sum[R], alpha[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) mx[r] = QT_MASK_VALUE;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        sc[j][e] = (valid >> (8 * j + 2 * tig + e)) & 1u ? sc[j][e] * s_mul
-                                                          : QT_MASK_VALUE;
-        mx = fmaxf(mx, sc[j][e]);
+        const bool ok = (valid >> (8 * j + 2 * tig + e)) & 1u;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float& v = sc[j][2 * r + e];
+          v = ok ? v * s_mul : QT_MASK_VALUE;
+          mx[r] = fmaxf(mx[r], v);
+        }
       }
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mx[r] = fmaxf(m[r], mx[r]);  // the new maximum
+      sum[r] = 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float pr = sc[j][e] == QT_MASK_VALUE ? 0.f
-                                                   : expf(sc[j][e] - m_new);
-        sum += pr;
-        sc[j][e] = pr;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float& v = sc[j][2 * r + e];
+          const float pr = v == QT_MASK_VALUE ? 0.f : expf(v - mx[r]);
+          sum[r] += pr;
+          v = pr;
+        }
       }
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float alpha = expf(m - m_new);
-    l = alpha * l + sum;
-    m = m_new;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      alpha[r] = expf(m[r] - mx[r]);
+      l[r] = alpha[r] * l[r] + sum[r];
+      m[r] = mx[r];
+    }
     const uint32_t a0 = pack_bf16(sc[0][0], sc[0][1]);
     const uint32_t a2 = pack_bf16(sc[1][0], sc[1][1]);
+    const uint32_t a1 = kHi ? pack_bf16(sc[0][2], sc[0][3]) : 0u;
+    const uint32_t a3 = kHi ? pack_bf16(sc[1][2], sc[1][3]) : 0u;
 #pragma unroll
     for (int d16 = 0; d16 < 8; ++d16) {
       uint32_t bv[4];
@@ -150,28 +181,37 @@ struct WarpAttn {
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         float* o = acc[2 * d16 + t];
-        o[0] *= alpha;
-        o[1] *= alpha;
-        mma_bf16(o, a0, 0u, a2, 0u, bv[2 * t], bv[2 * t + 1]);
+        o[0] *= alpha[0];
+        o[1] *= alpha[0];
+        if (kHi) {
+          o[2] *= alpha[R - 1];
+          o[3] *= alpha[R - 1];
+        }
+        mma_bf16(o, a0, a1, a2, a3, bv[2 * t], bv[2 * t + 1]);
       }
     }
   }
 
-  // The warp's partial of its G heads: numerators into part[g * D + d]
-  // (f32) and (m, l) into wm[g], wl[g].
+  // The warp's partial of its G heads (G <= 8, or G = 16 with kHi):
+  // numerators into part[g * D + d] (f32) and (m, l) into wm[g], wl[g].
   template <int G>
   __device__ __forceinline__ void store(float* part, float* wm,
                                         float* wl) const {
+    static_assert(kHi ? G == 16 : G <= 8, "rows of the warp's heads");
     const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-    if (gid < G) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        part[gid * 128 + 8 * j + 2 * tig] = acc[j][0];
-        part[gid * 128 + 8 * j + 2 * tig + 1] = acc[j][1];
-      }
-      if (tig == 0) {
-        wm[gid] = m;
-        wl[gid] = l;
+    for (int r = 0; r < R; ++r) {
+      const int g = gid + 8 * r;
+      if (g < G) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          part[g * 128 + 8 * j + 2 * tig] = acc[j][2 * r];
+          part[g * 128 + 8 * j + 2 * tig + 1] = acc[j][2 * r + 1];
+        }
+        if (tig == 0) {
+          wm[g] = m[r];
+          wl[g] = l[r];
+        }
       }
     }
   }

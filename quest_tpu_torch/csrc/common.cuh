@@ -8,6 +8,16 @@
 
 #define QT_MASK_VALUE (-1e30f)  // finite, as MASK_VALUE in ops/utils.py
 
+// The query heads a CTA takes of a GQA group of G: the next of 1, 2, 4, 8
+// and 16 (ops/utils.py:padded_group); groups above 16 run sub_groups(G)
+// CTAs of 16. Padded heads hold a zero query and are never written.
+__host__ __device__ constexpr int padded_group(int G) {
+  return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : G <= 8 ? 8 : 16;
+}
+__host__ __device__ constexpr int sub_groups(int G) {
+  return (G + padded_group(G) - 1) / padded_group(G);
+}
+
 // Every library exports this so the ctypes wrapper can name a CUDA error.
 extern "C" const char* qt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -37,6 +37,14 @@
 //   a row's pages or valid slots exit at once and take no ticket.
 // f32 pools keep the FMA body: decode_partial, then decode_merge.
 //
+// Any GQA group G: a CTA takes a sub-group of at most 16 of the
+// selection head's G query heads, padded to GP in {1, 2, 4, 8, 16} (the
+// kernels' template). Padded rows hold a zero query, are never read
+// from q and never written to out; a group of more than 16 heads runs
+// nsub = ceil(G / 16) sub-groups, each a CTA row of its own that reads
+// the head's pages again. Partials, (m, l) and tickets are kept a unit
+// (row, selection head, sub-group) of GP heads.
+//
 // Numerics follow the JAX kernels: the un-scaled q (bf16 or f32) is
 // multiplied by the softmax scale in f32 and rounded to the pool dtype
 // (bf16 for an fp8 pool) before QK; scores and the softmax run in f32
@@ -62,13 +70,31 @@ struct DecodeArgs {
   const int* seq_lens;   // [B]
   const int* indices;    // sparse: [B, Hsel, S] logical page ids
   const int* num_valid;  // sparse: [B]
-  float* part_o;         // [B, Hsel, nsplit, G, D] split partials
-  float* part_ml;        // [B, Hsel, nsplit, G, 2]
-  int* tickets;          // [B, Hsel], zero between launches (decode_ring)
+  float* part_o;         // [B, Hsel*nsub, nsplit, GP, D] split partials
+  float* part_ml;        // [B, Hsel*nsub, nsplit, GP, 2]
+  int* tickets;          // [B, Hsel*nsub], zero between launches (decode_ring)
   float* out;            // [B, Hsel*G, D]
   int Hsel, kvdiv, NP, page, NB, bpp, S, nsplit, per_split;
   float sm_scale;
   int q_bf16;            // q dtype: 1 = bf16, 0 = f32
+  int G, nsub;           // query heads a selection head; its sub-groups
+};
+
+// Where a CTA's sub-group lies: blockIdx.y = hsel * nsub + sub.
+struct DecodeUnit {
+  int hsel, g0, ng;      // selection head, first head, real heads
+  int64_t unit, qrow0;   // unit index (partials, tickets); q/out row
+  template <int GP>
+  __device__ __forceinline__ static DecodeUnit of(const DecodeArgs& a,
+                                                  int b) {
+    DecodeUnit u;
+    u.hsel = blockIdx.y / a.nsub;
+    u.g0 = (blockIdx.y % a.nsub) * GP;
+    u.ng = min(GP, a.G - u.g0);
+    u.unit = static_cast<int64_t>(b) * a.Hsel * a.nsub + blockIdx.y;
+    u.qrow0 = (static_cast<int64_t>(b) * a.Hsel + u.hsel) * a.G + u.g0;
+    return u;
+  }
 };
 
 // Pages (dense) or valid selection slots (sparse) of batch row b.
@@ -82,7 +108,7 @@ __device__ __forceinline__ int decode_items(const DecodeArgs& a, int b) {
 // ``per_split`` consecutive pages (dense) or selection slots (sparse).
 template <typename T, int G, bool kSparse>
 __global__ void __launch_bounds__(kThreads)
-decode_partial(DecodeArgs a) {
+decode_partial(DecodeArgs a) {  // G: the padded sub-group GP
   using S = typename TileElem<T>::type;              // tile element
   constexpr int GCH = Elem<T>::kPerChunk;            // pool elements per 16 B
   constexpr int GCPR = kD / GCH;                     // pool chunks per row
@@ -99,7 +125,9 @@ decode_partial(DecodeArgs a) {
   __shared__ int64_t rowoff[TT];
   __shared__ int valid_s[TT];
 
-  const int split = blockIdx.x, hsel = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const DecodeUnit u = DecodeUnit::of<G>(a, b);
+  const int hsel = u.hsel;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T* kv = static_cast<const T*>(a.kv);
   const int page = a.page;
@@ -109,12 +137,13 @@ decode_partial(DecodeArgs a) {
   const int first = split * a.per_split;
   const int ntok = max(0, min(first + a.per_split, n_items) - first) * page;
 
-  const int64_t qbase = (static_cast<int64_t>(b) * a.Hsel + hsel) * G * kD;
+  const int64_t qbase = u.qrow0 * kD;
   for (int i = tid; i < G * kD; i += kThreads) {
-    const float x =
-        a.q_bf16
-            ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[qbase + i])
-            : static_cast<const float*>(a.q)[qbase + i];
+    float x = 0.f;  // padded heads: a zero query
+    if (i / kD < u.ng)
+      x = a.q_bf16 ? __bfloat162float(
+                         static_cast<const __nv_bfloat16*>(a.q)[qbase + i])
+                   : static_cast<const float*>(a.q)[qbase + i];
     qs[i / kD][i % kD] = Elem<S>::round(x * a.sm_scale);
   }
   if (tid < G) {
@@ -210,7 +239,7 @@ decode_partial(DecodeArgs a) {
     __syncthreads();
   }
 
-  const int64_t part = (static_cast<int64_t>(b) * a.Hsel + hsel) * a.nsplit + split;
+  const int64_t part = u.unit * a.nsplit + split;
 #pragma unroll
   for (int g = 0; g < G; ++g) a.part_o[(part * G + g) * kD + tid] = acc[g];
   if (tid < G) {
@@ -234,20 +263,24 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return v;
 }
 
-// Merge the splits of one query head: grid (G, Hsel, B), dynamic
-// shared memory of nsplit floats. The threads share out the splits to
-// find the largest m and each split's weight exp(m_j - M); then thread d
-// sums the weighted partials of output dim d. Empty splits carry
-// m = -1e30, l = 0 and weigh nothing.
+// Merge the splits of one query head: grid (GP, Hsel * nsub, B), dynamic
+// shared memory of nsplit floats; padded heads exit. The threads share
+// out the splits to find the largest m and each split's weight
+// exp(m_j - M); then thread d sums the weighted partials of output dim
+// d. Empty splits carry m = -1e30, l = 0 and weigh nothing.
 template <int G>
 __global__ void __launch_bounds__(kThreads)
-decode_merge(const float* part_o, const float* part_ml, float* out,
-             int Hsel, int nsplit) {
+decode_merge(const DecodeArgs a) {
   extern __shared__ float w_s[];
   __shared__ float red[kThreads / 32];
-  const int g = blockIdx.x, hsel = blockIdx.y, b = blockIdx.z;
+  const int g = blockIdx.x, b = blockIdx.z;
+  const DecodeUnit u = DecodeUnit::of<G>(a, b);
+  if (g >= u.ng) return;  // a padded head (the same in the whole CTA)
+  const float* part_o = a.part_o;
+  const float* part_ml = a.part_ml;
+  const int nsplit = a.nsplit;
   const int tid = threadIdx.x;
-  const int64_t base = (static_cast<int64_t>(b) * Hsel + hsel) * nsplit;
+  const int64_t base = u.unit * nsplit;
   float mx = QT_MASK_VALUE;
   for (int j = tid; j < nsplit; j += kThreads)
     mx = fmaxf(mx, part_ml[((base + j) * G + g) * 2]);
@@ -263,8 +296,7 @@ decode_merge(const float* part_o, const float* part_ml, float* out,
 #pragma unroll 4
   for (int j = 0; j < nsplit; ++j)
     num += w_s[j] * part_o[((base + j) * G + g) * kD + tid];
-  out[((static_cast<int64_t>(b) * Hsel + hsel) * G + g) * kD + tid] =
-      den > 0.f ? num / den : 0.f;
+  a.out[(u.qrow0 + g) * kD + tid] = den > 0.f ? num / den : 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -282,14 +314,16 @@ constexpr int kSlotBytes = 8 << 10;                    // a ring stage
 // aligned places; 4 KB of fp8: whole pages back to back, one bulk copy a
 // page), 64 KB either way; and the warps' buffers: each warp's padded
 // bf16 chunk (fp8, which is widened there) or its partial (bf16).
-template <typename T>
+template <typename T, int GP = 8>
 struct Ring {
   static constexpr bool kTma = sizeof(T) == 2;
   static constexpr int kRowBytes = kD * sizeof(T);
   static constexpr int kSlot = kTma ? kSlotBytes : kSlotBytes / 2;
   static constexpr int kStages = kTma ? 8 : 16;
   static constexpr int kBytes = kStages * kSlot;
-  static constexpr int kWarpBytes = kTma ? 8 * kD * 4 : kPrivBytes;
+  static constexpr int kWarpBytes =
+      kTma ? (GP > 8 ? GP : 8) * kD * 4 : kPrivBytes;
+  static_assert(kWarpBytes >= GP * kD * 4, "a warp's partial fits");
 };
 
 // Dynamic shared memory of decode_ring: 1024 bytes of alignment, the
@@ -346,8 +380,9 @@ __device__ __forceinline__ void tma_page(void* dst, const CUtensorMap* map,
 template <typename T, int G, bool kSparse>
 __global__ void __launch_bounds__(kRingThreads, 2)
 decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
+  // G: the padded sub-group GP.
   using bf16 = __nv_bfloat16;
-  using R = Ring<T>;
+  using R = Ring<T, G>;
   constexpr int GCH = Elem<T>::kPerChunk;  // pool elements per 16 B
   constexpr int GCPR = kD / GCH;           // 16-byte pieces of a pool row
   constexpr int kStages = R::kStages;
@@ -361,7 +396,9 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
                                                           // cannot hold
   __shared__ int is_last;
 
-  const int split = blockIdx.x, hsel = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const DecodeUnit u = DecodeUnit::of<G>(a, b);
+  const int hsel = u.hsel;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int page = a.page;
   const int first = split * a.per_split;
@@ -402,10 +439,11 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
       reinterpret_cast<uint4*>(zero_row)[i] = make_uint4(0, 0, 0, 0);
   }
   for (int i = tid; i < G * kD; i += kRingThreads) {
-    const int64_t at = grp * G * kD + i;
-    const float x =
-        a.q_bf16 ? __bfloat162float(static_cast<const bf16*>(a.q)[at])
-                 : static_cast<const float*>(a.q)[at];
+    const int64_t at = u.qrow0 * kD + i;
+    float x = 0.f;  // padded heads: a zero query
+    if (i / kD < u.ng)
+      x = a.q_bf16 ? __bfloat162float(static_cast<const bf16*>(a.q)[at])
+                   : static_cast<const float*>(a.q)[at];
     qs[i / kD][i % kD] = Elem<bf16>::round(x * a.sm_scale);
   }
   __syncthreads();
@@ -472,8 +510,8 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
   } else {  // consumer warps: stages warp, warp + kConsumers, ...
     unsigned char* wb = wbuf + warp * R::kWarpBytes;
     const int gid = lane >> 2;
-    WarpAttn att;
-    att.init(gid < G ? qs[gid] : nullptr);
+    WarpAttn<(G > 8)> att;
+    att.init(gid < G ? qs[gid] : nullptr, G > 8 ? qs[(gid + 8) % G] : nullptr);
     // The lane's token of a stage (lane < 16) and its rows' offsets in a
     // stage, the same in every stage.
     const int lq = lane / sm.pg, lr = lane % sm.pg;
@@ -556,9 +594,9 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
     if (w == 0) mg[g] = mx;
   }
   __syncthreads();
-  float* out = a.out + grp * G * kD;
-  float* po = a.part_o + (grp * a.nsplit + split) * G * kD;
-  float* pml = a.part_ml + (grp * a.nsplit + split) * G * 2;
+  float* out = a.out + u.qrow0 * kD;
+  float* po = a.part_o + (u.unit * a.nsplit + split) * G * kD;
+  float* pml = a.part_ml + (u.unit * a.nsplit + split) * G * 2;
   for (int i = tid; i < G * kD; i += kRingThreads) {
     const int g = i / kD;
     float den = 0.f, num = 0.f;
@@ -569,7 +607,7 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
              reinterpret_cast<const float*>(wbuf + w * R::kWarpBytes)[i];
     }
     if (active == 1) {
-      out[i] = den > 0.f ? num / den : 0.f;
+      if (g < u.ng) out[i] = den > 0.f ? num / den : 0.f;
     } else {
       po[i] = num;
       if (i % kD == 0) {
@@ -585,19 +623,19 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
   __syncthreads();
   if (tid == 0) {
     __threadfence();  // the CTA's partial (ordered by the barrier) first
-    is_last = atomicAdd(&a.tickets[grp], 1) == active - 1;
+    is_last = atomicAdd(&a.tickets[u.unit], 1) == active - 1;
   }
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  if (tid == 0) a.tickets[grp] = 0;  // zero for the next launch
+  if (tid == 0) a.tickets[u.unit] = 0;  // zero for the next launch
   // Thread t merges 4 dims of one head, a batch of kBatch splits at a time
   // (their loads issued together), with a running maximum; the splits
   // are taken in order, so the sum does not depend on the ticket order.
   constexpr int kBatch = 8;
-  const float* po0 = a.part_o + grp * a.nsplit * G * kD;
-  const float* pml0 = a.part_ml + grp * a.nsplit * G * 2;
-  for (int i = tid; i < G * kD / 4; i += kRingThreads) {
+  const float* po0 = a.part_o + u.unit * a.nsplit * G * kD;
+  const float* pml0 = a.part_ml + u.unit * a.nsplit * G * 2;
+  for (int i = tid; i < u.ng * kD / 4; i += kRingThreads) {
     const int g = i / (kD / 4), d4 = i % (kD / 4);
     float mx = QT_MASK_VALUE, den = 0.f;
     float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -642,17 +680,16 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
 template <typename T, int G, bool kSparse>
 cudaError_t launch_decode(const DecodeArgs& a, const void* tmap, int B,
                           cudaStream_t stream) {
-  dim3 grid(a.nsplit, a.Hsel, B);
+  dim3 grid(a.nsplit, a.Hsel * a.nsub, B);
   if constexpr (sizeof(T) == 4) {
     decode_partial<T, G, kSparse><<<grid, kThreads, 0, stream>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    decode_merge<G><<<dim3(G, a.Hsel, B), kThreads,
-                       a.nsplit * sizeof(float), stream>>>(
-        a.part_o, a.part_ml, a.out, a.Hsel, a.nsplit);
+    decode_merge<G><<<dim3(G, a.Hsel * a.nsub, B), kThreads,
+                       a.nsplit * sizeof(float), stream>>>(a);
     return cudaGetLastError();
   } else {
-    using R = Ring<T>;
+    using R = Ring<T, G>;
     if (a.tickets == nullptr || (R::kTma && tmap == nullptr))
       return cudaErrorInvalidValue;
     CUtensorMap map;  // by value into the kernel's parameters
@@ -668,11 +705,14 @@ cudaError_t launch_decode(const DecodeArgs& a, const void* tmap, int B,
   }
 }
 
-// Dispatch on the pool dtype code (common.cuh with_elem) and the group
-// size G in {1, 2, 4, 8}.
+// Dispatch on the pool dtype code (common.cuh with_elem) and the padded
+// sub-group GP of a.G (a.nsub = ceil(a.G / GP) sub-groups).
 template <bool kSparse>
-int dispatch_decode(const DecodeArgs& a, const void* tmap, int B, int G,
+int dispatch_decode(const DecodeArgs& a, const void* tmap, int B,
                     int kv_dtype, void* stream) {
+  const int G = padded_group(a.G);
+  if (a.G < 1 || a.nsub != sub_groups(a.G))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
 #define QT_CASE(GG)                                               \
@@ -686,6 +726,7 @@ int dispatch_decode(const DecodeArgs& a, const void* tmap, int B, int G,
     QT_CASE(2)
     QT_CASE(4)
     QT_CASE(8)
+    QT_CASE(16)
     default:
       break;
   }

@@ -32,6 +32,6 @@ extern "C" int dense_decode_launch(
   qt::DecodeArgs a{q,       kv,      tab,     seq_lens, nullptr, nullptr,
                    part_o,  part_ml, tickets, out,      Hkv,     1,
                    NP,      page,    NB,      bpp,      0,       nsplit,
-                   per_split, sm_scale, q_bf16};
-  return qt::dispatch_decode<false>(a, tmap, B, G, kv_dtype, stream);
+                   per_split, sm_scale, q_bf16, G,      sub_groups(G)};
+  return qt::dispatch_decode<false>(a, tmap, B, kv_dtype, stream);
 }

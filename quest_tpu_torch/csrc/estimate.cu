@@ -6,8 +6,10 @@
 //   score = agg_g( relu(q_g) . k_max + min(q_g, 0) . k_min ),
 // relu(q) and min(q, 0) rounded to the metadata dtype (bf16 for fp8
 // metadata, read with the upcast_fp8 recipe), f32 products, the
-// G query rows of the group aggregated by max or sum. The scoring device
-// code is the fused decode kernel's (select_common.cuh).
+// G query rows of the group aggregated by max or sum. Any G: the rows
+// are scored in blocks of 8 whose partial scores fold by the same agg.
+// The scoring device code is the fused decode kernel's
+// (select_common.cuh).
 //
 // Bound on the H100: bytes. Every metadata row is read once (2 x 256 B
 // a page in bf16), 16.8 MB for B=2, 8 KV heads and 2048 pages, against
@@ -38,11 +40,14 @@ __host__ __device__ constexpr int est_ctas_per_sm() {
   return sizeof(M) == 4 ? 8 : 4;
 }
 
-template <typename M, int G>
+// Dynamic shared memory: the G rounded query rows, then (f32 metadata)
+// the warps' metadata rows.
+template <typename M>
 __global__ void __launch_bounds__(kEstThreads, est_ctas_per_sm<M>())
 estimate_kernel(const void* q, const M* kmax, const M* kmin, float* out,
-                int Hkv, int P, int W, int agg_sum, int q_bf16) {
-  __shared__ float qs[G][kHeadDim];
+                int Hkv, int G, int P, int W, int agg_sum, int q_bf16) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float(*qs)[kHeadDim] = reinterpret_cast<float(*)[kHeadDim]>(dyn);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int h = blockIdx.y, b = blockIdx.z;
   const int64_t head = static_cast<int64_t>(b) * Hkv + h;
@@ -67,13 +72,13 @@ estimate_kernel(const void* q, const M* kmax, const M* kmin, float* out,
         }
       }
     }
-    round_query<M, G>(q, q_bf16, head * G * kHeadDim, qs);
+    round_query<M>(q, q_bf16, head * G * kHeadDim, G, G, qs);
     __syncthreads();  // qs
-    QueryFrags<G> qf;
-    qf.load(qs);
+    QueryFrags qf;
+    qf.load(qs, min(G, 8));
     float lo, hi;
-    tile_scores<M, G>([&](int half, int kk, int r) { return w[half][kk][r]; },
-                      qf, agg_sum != 0, lo, hi);
+    tile_scores_any<M>([&](int half, int kk, int r) { return w[half][kk][r]; },
+                       qf, qs, G, agg_sum != 0, lo, hi);
     if (tig == 0) {
       if (gid < nw) o[gid] = lo;
       if (gid + 8 < nw) o[gid + 8] = hi;
@@ -81,7 +86,7 @@ estimate_kernel(const void* q, const M* kmax, const M* kmin, float* out,
   } else {
     // Per warp [2][W][kHeadDim]: its pages' k_max rows, then their k_min
     // rows.
-    extern __shared__ __align__(16) unsigned char rows[];
+    unsigned char* rows = dyn + G * kHeadDim * sizeof(float);
     using Raw = typename TeamRow<M>::Raw;
     constexpr int L = TeamRow<M>::L, E = TeamRow<M>::E, TPW = 32 / L;
     constexpr int CPR = kHeadDim / 4;  // 16-byte copies a row
@@ -98,7 +103,7 @@ estimate_kernel(const void* q, const M* kmax, const M* kmin, float* out,
       }
       cp_async_commit();
     }
-    round_query<M, G>(q, q_bf16, head * G * kHeadDim, qs);
+    round_query<M>(q, q_bf16, head * G * kHeadDim, G, G, qs);
     __syncthreads();  // qs
     const int team = lane / L, c = lane % L;
     for (int half = 0; half < 2; ++half) {
@@ -115,19 +120,20 @@ estimate_kernel(const void* q, const M* kmax, const M* kmin, float* out,
           rx = reinterpret_cast<const Raw*>(kx + p * kHeadDim)[c];
           rn = reinterpret_cast<const Raw*>(kn + p * kHeadDim)[c];
         }
-        const float s =
-            team_score<M, G>(qs[0] + c * E, kHeadDim, rx, rn, agg_sum != 0);
+        const float s = team_score_any<M>(qs[0] + c * E, G, rx, rn,
+                                          agg_sum != 0);
         if (p < nw && c == 0) o[p] = s;
       }
     }
   }
 }
 
-template <typename M, int G>
+template <typename M>
 cudaError_t launch_estimate(const void* q, const void* kmax, const void* kmin,
-                            float* out, int B, int Hkv, int P, int agg_sum,
-                            int q_bf16, cudaStream_t stream) {
-  int W = kScoreTile, smem = 0;
+                            float* out, int B, int Hkv, int G, int P,
+                            int agg_sum, int q_bf16, cudaStream_t stream) {
+  int W = kScoreTile;
+  int smem = G * kHeadDim * static_cast<int>(sizeof(float));
   if (sizeof(M) == 4) {
     static int sms = 0;
     if (sms == 0) {
@@ -145,16 +151,18 @@ cudaError_t launch_estimate(const void* q, const void* kmax, const void* kmin,
     while (W < kEstMaxPages &&
            ctas(W) > static_cast<int64_t>(est_ctas_per_sm<M>()) * sms)
       W *= 2;
-    smem = kEstWarps * 2 * W * kHeadDim * static_cast<int>(sizeof(M));
+    smem += kEstWarps * 2 * W * kHeadDim * static_cast<int>(sizeof(M));
+  }
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        estimate_kernel<M, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        estimate_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid((P + kEstWarps * W - 1) / (kEstWarps * W), Hkv, B);
-  estimate_kernel<M, G><<<grid, kEstThreads, smem, stream>>>(
+  estimate_kernel<M><<<grid, kEstThreads, smem, stream>>>(
       q, static_cast<const M*>(kmax), static_cast<const M*>(kmin), out, Hkv,
-      P, W, agg_sum, q_bf16);
+      G, P, W, agg_sum, q_bf16);
   return cudaGetLastError();
 }
 
@@ -167,27 +175,13 @@ extern "C" int estimate_launch(const void* q, const void* kmax,
                                const void* kmin, float* out, int B, int Hkv,
                                int G, int P, int meta_dtype, int agg_sum,
                                int q_bf16, void* stream) {
-  if (P < 1 || ((reinterpret_cast<uintptr_t>(kmax) |
-                 reinterpret_cast<uintptr_t>(kmin)) & 15) != 0)
+  if (P < 1 || G < 1 || G > 256 ||
+      ((reinterpret_cast<uintptr_t>(kmax) |
+        reinterpret_cast<uintptr_t>(kmin)) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-#define QT_CASE(GG)                                                        \
-  case GG:                                                                 \
-    err = with_elem(meta_dtype, [&](auto t) {                              \
-      return qt::launch_estimate<decltype(t), GG>(q, kmax, kmin, out, B,   \
-                                                  Hkv, P, agg_sum, q_bf16, \
-                                                  s);                      \
-    });                                                                    \
-    break;
-  switch (G) {
-    QT_CASE(1)
-    QT_CASE(2)
-    QT_CASE(4)
-    QT_CASE(8)
-    default:
-      break;
-  }
-#undef QT_CASE
-  return static_cast<int>(err);
+  return static_cast<int>(with_elem(meta_dtype, [&](auto t) {
+    return qt::launch_estimate<decltype(t)>(q, kmax, kmin, out, B, Hkv, G, P,
+                                            agg_sum, q_bf16, s);
+  }));
 }

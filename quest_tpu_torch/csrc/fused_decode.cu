@@ -49,6 +49,12 @@
 //      its own shared memory and writes them. Nothing reads a peer after
 //      that barrier, so a CTA may then finish.
 // Every CTA reaches every cluster barrier: nothing in it returns early.
+// Any GQA group G: the attention's heads pad to GP in {1, 2, 4, 8, 16}
+// (the template; padded heads hold a zero query and are never written),
+// and a group of more than 16 runs ceil(G / 16) clusters a (row, KV
+// head), grid dimension z, each scoring and selecting over all G heads
+// (the same ids) and attending its own 16. Scores fold over every head
+// of the group (blocks of 8 rows on the tensor cores) before the select.
 // Numerics are the JAX fused kernel's, not the sparse kernel's: q is
 // rounded to the metadata dtype M and NOT scaled (sm_scale multiplies the
 // f32 QK scores); K and V are cast to M; p is rounded to M before PV and
@@ -112,12 +118,18 @@ struct FusedArgs {
   int Hkv, NP, page, NB, bpp, K;
   float sm_scale;
   int agg_sum, q_bf16;
+  int G;                 // query heads a KV head; gridDim.z sub-groups
 };
 
+// Rows of the rounded query a CTA holds (dynamic shared memory): every
+// head of the group, padded to whole sub-groups of GP.
+__host__ __device__ constexpr int fused_q_rows(int G, int GP) {
+  return sub_groups(G) * GP;
+}
+
 template <int G>
-struct FusedShared {
-  __align__(16) float qs[G][kHeadDim];  // q rounded to M, un-scaled
-  float ps[kWarps][G][32];       // each warp's chunk probabilities
+struct FusedShared {  // G: the padded sub-group GP
+  float ps[kWarps][G][16];       // each warp's chunk probabilities (FMA)
   float wm[kWarps][G];           // each warp's softmax state
   float wl[kWarps][G];
   float ww[G][kWarps];           // the warps' merge weights
@@ -183,7 +195,8 @@ __device__ __forceinline__ void load4(const T* p, float* f) {
   }
 }
 
-// T: pool dtype; M: metadata dtype, also the dtype QK and PV run in.
+// T: pool dtype; M: metadata dtype, also the dtype QK and PV run in; G:
+// the padded sub-group GP of a.G heads.
 template <typename T, typename M, int G>
 __global__ void __cluster_dims__(kCluster, 1, 1)
 __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
@@ -200,7 +213,8 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
   constexpr int DL = kHeadDim / 32;                // PV: dims a lane
 
   // keys [P] (the row's, by logical page), the row's block table [NB],
-  // then the ring (scoring stages, then the warps' attention buffers).
+  // the rounded query rows [fused_q_rows][kHeadDim], then the ring
+  // (scoring stages, then the warps' attention buffers).
   extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ FusedShared<G> fs;
 
@@ -213,8 +227,14 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
   const int P = a.NB * a.bpp;
   unsigned* keys = reinterpret_cast<unsigned*>(dyn);
   int* tab = reinterpret_cast<int*>(keys + P);
-  const uint32_t head_end = smem_u32(tab + a.NB);
+  float(*qall)[kHeadDim] = reinterpret_cast<float(*)[kHeadDim]>(
+      dyn + (((smem_u32(tab + a.NB) + 15) & ~15u) - smem_u32(dyn)));
+  const int qrows = fused_q_rows(a.G, G);
+  const uint32_t head_end = smem_u32(qall[qrows]);
   unsigned char* ring = dyn + (((head_end + 127) & ~127u) - smem_u32(dyn));
+  const int g0 = blockIdx.z * G;             // the sub-group's first head
+  const int ng = min(G, a.G - g0);           // its real heads
+  const float(*qs)[kHeadDim] = qall + g0;    // its rows (zeros past ng)
 
   for (int i = tid; i < a.NB; i += blockDim.x) tab[i] = a.tab[b * a.NB + i];
   if (tid == 0) {
@@ -224,7 +244,7 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
   const int seq_len = a.seq_lens[b];
   const int n = min(P, (seq_len + a.page - 1) / a.page);  // valid pages
   const int k = min(a.K, n);
-  const int64_t qbase = (static_cast<int64_t>(b) * a.Hkv + h) * G * kHeadDim;
+  const int64_t qbase = (static_cast<int64_t>(b) * a.Hkv + h) * a.G * kHeadDim;
   const int per = (n + kCluster - 1) / kCluster;
   const int lo = rank * per;
   const int nloc = max(0, min(n - lo, per));              // own pages
@@ -256,7 +276,7 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
   __syncthreads();  // the table, the barriers
   if (tid == 0)
     for (int t = 0; t < min(nst, kScoreSlots); ++t) issue(t);
-  round_query<M, G>(a.q, a.q_bf16, qbase, fs.qs);
+  round_query<M>(a.q, a.q_bf16, qbase, a.G, qrows, qall);
   __syncthreads();  // qs
   auto put_key = [&](int p, float s) {  // segment page p's score
     keys[lo + p] = lo + p == n - 1 ? kKeyPosInf : order_key(s);
@@ -265,8 +285,8 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
     // Tensor cores: each round's stages are cut into tiles of 16 pages,
     // one a warp.
     constexpr int TPS = SP / kScoreTile;  // tiles a stage
-    QueryFrags<G> qf;
-    qf.load(fs.qs);
+    QueryFrags qf;
+    qf.load(qall, min(a.G, 8));
     const int gid = lane >> 2;
     for (int t0 = 0; t0 < nst; t0 += kScoreSlots) {
       const int nr = min(kScoreSlots, nst - t0);
@@ -275,8 +295,11 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
         bar_wait(&fs.bars[t % kScoreSlots], (t / kScoreSlots) & 1);
         const M* dmax = stage_rows(t) + (tile % TPS) * kScoreTile * kHeadDim;
         float s_lo, s_hi;
-        tile_scores<M, G>(smem_rows(dmax, dmax + SP * kHeadDim, kHeadDim),
-                          qf, a.agg_sum != 0, s_lo, s_hi);
+        const auto rows = smem_rows(dmax, dmax + SP * kHeadDim, kHeadDim);
+        if constexpr (G <= 8)  // a.G <= G: one block of query rows
+          tile_scores<M>(rows, qf, a.G, a.agg_sum != 0, s_lo, s_hi);
+        else
+          tile_scores_any<M>(rows, qf, qall, a.G, a.agg_sum != 0, s_lo, s_hi);
         const int p = t * SP + (tile % TPS) * kScoreTile + gid;
         if ((lane & 3) == 0) {
           if (p < nloc) put_key(p, s_lo);
@@ -292,20 +315,28 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
           }
     }
   } else {
+    // Groups of at most 8 heads: the lane's dims of the query rows in
+    // registers; larger ones read the rows in shared memory.
     constexpr int E = TeamRow<M>::E;
-    float lq[G][E];  // the lane's dims of the query rows, in registers
+    constexpr int GR = G <= 8 ? G : 1;
+    float lq[GR][E];
     const int c = lane % TeamRow<M>::L;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GR; ++g) {
 #pragma unroll
-      for (int j = 0; j < E; ++j) lq[g][j] = fs.qs[g][c * E + j];
+      for (int j = 0; j < E; ++j) lq[g][j] = qall[g][c * E + j];
     }
     for (int t = 0; t < nst; ++t) {
       bar_wait(&fs.bars[t % kScoreSlots], (t / kScoreSlots) & 1);
       const M* dmax = stage_rows(t);
-      score_rows<M, G>(dmax, dmax + SP * kHeadDim, &lq[0][0], E,
-                       min(nloc - t * SP, SP), a.agg_sum != 0,
-                       [&](int p, float s) { put_key(t * SP + p, s); });
+      const auto sink = [&](int p, float s) { put_key(t * SP + p, s); };
+      if constexpr (G <= 8)
+        score_rows<M, G>(dmax, dmax + SP * kHeadDim, &lq[0][0], E, a.G,
+                         min(nloc - t * SP, SP), a.agg_sum != 0, sink);
+      else
+        score_rows<M, 0>(dmax, dmax + SP * kHeadDim, qall[0] + c * E,
+                         kHeadDim, a.G, min(nloc - t * SP, SP),
+                         a.agg_sum != 0, sink);
       __syncthreads();  // the stage is read
       if (tid == 0 && t + kScoreSlots < nst) {
         fence_proxy_async();
@@ -331,7 +362,7 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
   }
   __syncthreads();
   QT_STAMP(4);
-  if (a.ids_out != nullptr && rank == 0) {
+  if (a.ids_out != nullptr && rank == 0 && blockIdx.z == 0) {
     int* ids_out = a.ids_out + (static_cast<int64_t>(b) * a.Hkv + h) * a.K;
     for (int s = tid; s < a.K; s += blockDim.x)
       ids_out[s] = s < k ? fs.sel[s] : 0;
@@ -385,8 +416,9 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
     // Tensor cores (attend.cuh): q rounded to M and un-scaled, the scores
     // multiplied by the softmax scale.
     const int gid = lane >> 2;
-    WarpAttn wa_state;
-    wa_state.init(gid < G ? fs.qs[gid] : nullptr);
+    WarpAttn<(G > 8)> wa_state;
+    wa_state.init(gid < G ? qs[gid] : nullptr,
+                  G > 8 ? qs[(gid + 8) % G] : nullptr);
     for (int c = warp; c < nchunk; c += kWarps) {
       load_chunk(c);
       if (c == warp) QT_STAMP(5);
@@ -425,7 +457,7 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float4* qv =
-              reinterpret_cast<const float4*>(&fs.qs[g][cc * CH]);
+              reinterpret_cast<const float4*>(&qs[g][cc * CH]);
 #pragma unroll
           for (int j4 = 0; j4 < CH / 4; ++j4) {
             const float4 x = qv[j4];
@@ -493,7 +525,7 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
     if (w == 0) fs.m[g] = mx;
   }
   __syncthreads();
-  for (int i = tid; i < G * kHeadDim; i += blockDim.x) {
+  for (int i = tid; i < ng * kHeadDim; i += blockDim.x) {
     const int g = i / kHeadDim, d = i % kHeadDim;
     float den = 0.f, num = 0.f;
 #pragma unroll
@@ -511,7 +543,7 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
   }
   cluster.sync();  // every partial has reached its owner
   if (tid < kHeadDim) {
-    for (int g = rank; g < G; g += kCluster) {
+    for (int g = rank; g < ng; g += kCluster) {
       const int r = g / kCluster;
       float mx = QT_MASK_VALUE;
 #pragma unroll
@@ -523,7 +555,7 @@ __launch_bounds__(kFusedThreads, 2) fused_decode_kernel(FusedArgs a) {
         den += w * fs.rl[r][j];
         num += w * fs.rpart[r][j][tid];
       }
-      a.out[(qbase + g * kHeadDim) + tid] = den > 0.f ? num / den : 0.f;
+      a.out[qbase + (g0 + g) * kHeadDim + tid] = den > 0.f ? num / den : 0.f;
     }
   }
   QT_STAMP(7);
@@ -534,25 +566,28 @@ template <typename T, typename M, int G>
 cudaError_t launch_fused(const FusedArgs& a, int B, cudaStream_t stream) {
   const int P = a.NB * a.bpp;
   const size_t smem =
-      static_cast<size_t>(P + a.NB) * sizeof(unsigned) + 128 + kRingBytes;
+      static_cast<size_t>(P + a.NB) * sizeof(unsigned) + 16 +
+      static_cast<size_t>(fused_q_rows(a.G, G)) * kHeadDim * sizeof(float) +
+      128 + kRingBytes;
   cudaError_t err = cudaFuncSetAttribute(
       fused_decode_kernel<T, M, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid(kCluster * a.Hkv, B);
+  dim3 grid(kCluster * a.Hkv, B, sub_groups(a.G));
   fused_decode_kernel<T, M, G><<<grid, kFusedThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// Dispatch on the padded sub-group (common.cuh:padded_group).
 template <typename T, typename M>
-cudaError_t dispatch_group(const FusedArgs& a, int B, int G,
-                           cudaStream_t stream) {
-  switch (G) {
+cudaError_t dispatch_group(const FusedArgs& a, int B, cudaStream_t stream) {
+  if (a.G < 1) return cudaErrorInvalidValue;
+  switch (padded_group(a.G)) {
     case 1: return launch_fused<T, M, 1>(a, B, stream);
     case 2: return launch_fused<T, M, 2>(a, B, stream);
     case 4: return launch_fused<T, M, 4>(a, B, stream);
     case 8: return launch_fused<T, M, 8>(a, B, stream);
-    default: return cudaErrorInvalidValue;
+    default: return launch_fused<T, M, 16>(a, B, stream);
   }
 }
 
@@ -577,14 +612,14 @@ extern "C" int fused_decode_launch(
     return cudaErrorInvalidValue;
   qt::FusedArgs a{q,   kv,  kmax, kmin, tab,      seq_lens, out,    ids_out,
                   Hkv, NP,  page, NB,   bpp,      K,        sm_scale,
-                  agg_sum,  q_bf16};
+                  agg_sum,  q_bf16,   G};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (kv_bf16)
-    err = meta_bf16 ? qt::dispatch_group<__nv_bfloat16, __nv_bfloat16>(a, B, G, s)
-                    : qt::dispatch_group<__nv_bfloat16, float>(a, B, G, s);
+    err = meta_bf16 ? qt::dispatch_group<__nv_bfloat16, __nv_bfloat16>(a, B, s)
+                    : qt::dispatch_group<__nv_bfloat16, float>(a, B, s);
   else
-    err = meta_bf16 ? qt::dispatch_group<float, __nv_bfloat16>(a, B, G, s)
-                    : qt::dispatch_group<float, float>(a, B, G, s);
+    err = meta_bf16 ? qt::dispatch_group<float, __nv_bfloat16>(a, B, s)
+                    : qt::dispatch_group<float, float>(a, B, s);
   return static_cast<int>(err);
 }

@@ -16,10 +16,14 @@
 // tensor cores (NVIDIA H100 SXM data sheet, 700 W).
 //
 // bf16 and fp8 e4m3 pools: prefill_tma_kernel, built for Hopper.
-// - One CTA owns (KV head, batch row, query tile). Its kM = 128 rows are
-//   128 / G query positions x the G query heads of the KV head (row r:
-//   position i0 + r / G, head r % G), so every K/V tile reaches shared
-//   memory once for the whole GQA group. G is 1, 2, 4 or 8.
+// - One CTA owns (KV head, sub-group, batch row, query tile). Its kM =
+//   128 rows are 128 / GP query positions x the GP heads of a sub-group
+//   (row r: position i0 + r / GP, head g0 + r % GP), so every K/V tile
+//   reaches shared memory once for the whole sub-group. GP is the group
+//   size G padded to the next of 1, 2, 4, 8 and 16; rows of padded heads
+//   hold a zero query and are never written. A group of more than 16
+//   heads runs ceil(G / 16) sub-groups of 16, each a CTA of its own that
+//   reads the KV head's pages again.
 // - One producer warp loads each 128-token K/V tile by TMA, one box a
 //   page and 64-column half (128-byte swizzle, as wgmma reads it), from a
 //   tensor map over the layer's pool seen as rows of 128 elements
@@ -109,6 +113,7 @@ struct TmaArgs {
   int rows;                  // rows of the tensor map: Hkv * NP * 2 * page
   float sm_scale;
   int q_bf16;
+  int GP, nsub;              // padded sub-group; sub-groups a KV head
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -231,8 +236,10 @@ prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
   uint64_t* empty = full + kStages;
   uint64_t* sfull = empty + kStages;            // fp8 staging loaded
 
-  const int P = kM / a.G;                       // query positions a CTA
-  const int h_kv = blockIdx.x, b = blockIdx.y;
+  const int P = kM / a.GP;                      // query positions a CTA
+  const int h_kv = blockIdx.x / a.nsub, b = blockIdx.y;
+  const int g0 = (blockIdx.x % a.nsub) * a.GP;  // the sub-group's first head
+  const int ng = min(a.GP, a.G - g0);           // its real heads
   const int i0 = (gridDim.z - 1 - blockIdx.z) * P;   // heaviest first
   const int offset = a.q_offsets[b];
   // Keys past the block table do not exist (as in the plain version).
@@ -346,12 +353,12 @@ prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
     for (int k = 0; k < 8; ++k) {
       const int r = tid / 16 + 8 * k, cc = tid % 16;
       const int row = wg * 64 + r;
-      const int i = i0 + row / a.G;
+      const int i = i0 + row / a.GP;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (i < a.T)
+      if (i < a.T && row % a.GP < ng)
         v = load_q8(a.q,
                     ((static_cast<int64_t>(b) * a.T + i) * a.Hq +
-                     h_kv * a.G + row % a.G) * kD + cc * 8,
+                     h_kv * a.G + g0 + row % a.GP) * kD + cc * 8,
                     a.q_bf16, a.sm_scale);
       *reinterpret_cast<uint4*>(qw + (cc / 8) * (kQBytes / 4) + r * 128 +
                                 (((cc % 8) ^ (r % 8)) * 16)) = v;
@@ -368,9 +375,10 @@ prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
     float m_row[2] = {QT_MASK_VALUE, QT_MASK_VALUE};
     float l_row[2] = {0.f, 0.f};              // this thread's share
     const int r0 = wg * 64 + warp * 16 + lane / 4;
-    const int pos[2] = {offset + i0 + r0 / a.G, offset + i0 + (r0 + 8) / a.G};
-    const int wg_lo = offset + i0 + (wg * 64) / a.G;       // first position
-    const int wg_hi = offset + i0 + (wg * 64 + 63) / a.G;  // last position
+    const int pos[2] = {offset + i0 + r0 / a.GP,
+                        offset + i0 + (r0 + 8) / a.GP};
+    const int wg_lo = offset + i0 + (wg * 64) / a.GP;       // first position
+    const int wg_hi = offset + i0 + (wg * 64 + 63) / a.GP;  // last position
     const uint32_t q_base = smem_u32(qw);
 
     for (int j = 0; j < n_tiles; ++j) {
@@ -453,11 +461,12 @@ prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
-      const int i = i0 + row / a.G;
-      if (i >= a.T) continue;
+      const int i = i0 + row / a.GP;
+      if (i >= a.T || row % a.GP >= ng) continue;
       const float inv = l_row[r] > 0.f ? 1.f / l_row[r] : 0.f;
       float* dst = a.out + ((static_cast<int64_t>(b) * a.T + i) * a.Hq +
-                            h_kv * a.G + row % a.G) * kD + 2 * (lane % 4);
+                            h_kv * a.G + g0 + row % a.GP) * kD +
+                   2 * (lane % 4);
 #pragma unroll
       for (int n = 0; n < kD / 8; ++n)
         *reinterpret_cast<float2*>(dst + 8 * n) =
@@ -621,8 +630,8 @@ cudaError_t launch_tma(const void* tmap, const TmaArgs& a, int B, int Hkv,
   if (err != cudaSuccess) return err;
   CUtensorMap map;                 // by value into the kernel's parameters
   memcpy(&map, tmap, sizeof(map));
-  const int P = kM / a.G;
-  dim3 grid(Hkv, B, (a.T + P - 1) / P);
+  const int P = kM / a.GP;
+  dim3 grid(Hkv * a.nsub, B, (a.T + P - 1) / P);
   prefill_tma_kernel<kFp8><<<grid, kTmaThreads, smem, s>>>(map, a);
   return cudaGetLastError();
 }
@@ -657,8 +666,8 @@ extern "C" int prefill_tensor_map(void* base, long long rows, int kv_dtype,
 
 // kv_dtype: 0 f32, 1 bf16, 2 fp8 e4m3. f32 pools, and any pool with fma
 // set, take the FMA kernel; otherwise the TMA + wgmma kernel, which takes
-// tmap from prefill_tensor_map and G = Hq / Hkv in 1, 2, 4, 8, page a
-// multiple of 8 dividing 128 (the wrapper chooses the route by shape).
+// tmap from prefill_tensor_map, any G = Hq / Hkv, and a page a multiple of
+// 8 dividing 128 (the wrapper chooses the route by shape).
 extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
                               const int* q_offsets, const int* kv_lens,
                               float* out, int B, int T, int Hq, int Hkv,
@@ -677,13 +686,13 @@ extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
     }));
   }
   const int G = Hq / Hkv;
-  if ((kv_dtype != 1 && kv_dtype != 2) || tmap == nullptr ||
-      (G != 1 && G != 2 && G != 4 && G != 8) || page % 8 != 0 ||
-      kBK % page != 0)
+  if ((kv_dtype != 1 && kv_dtype != 2) || tmap == nullptr || G < 1 ||
+      G * Hkv != Hq || page % 8 != 0 || kBK % page != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const TmaArgs a{q,    tab, q_offsets, kv_lens, out,
                   T,    Hq,  G,         NP,      page,
-                  NB,   bpp, Hkv * NP * 2 * page, sm_scale, q_bf16};
+                  NB,   bpp, Hkv * NP * 2 * page, sm_scale, q_bf16,
+                  padded_group(G), sub_groups(G)};
   return static_cast<int>(kv_dtype == 2 ? launch_tma<true>(tmap, a, B, Hkv, s)
                                         : launch_tma<false>(tmap, a, B, Hkv, s));
 }

@@ -42,12 +42,19 @@
 //   load is 16 bytes of a q row, the next loads in flight while it works
 //   on the current ones; the last CTA of a column tile to take a ticket
 //   adds the f32 partials in split order and resets the ticket to zero.
+//   It also takes bf16 x whose out is not a multiple of 16 (TMA needs
+//   16-byte row strides, so the ring kernel cannot read such a q): the
+//   folded x and each weight rounded to bf16 as JAX rounds them, f32
+//   sums, out rounded once. Rows of q that are not 16-byte aligned are
+//   read a byte at a time, and the last tile's columns past out are
+//   masked.
 // The plans (ops/qdot.py:qgemv_plan) are pure functions of the shapes and
 // the SM count.
 //
 // dequant, q -> w [in, out] in bf16 or f32, bitwise equal to
 // dequantize_weight: (dtype)(float(q) * s[j] [* inv_s[i]]). Bound: bytes,
-// q read once and w written once.
+// q read once and w written once. An out whose rows its vector loads and
+// stores cannot align takes dequant_any_kernel, an element a thread.
 #include <cooperative_groups.h>
 #include <string.h>
 
@@ -148,13 +155,55 @@ __device__ __forceinline__ void split_merge(T* out, const float* part,
 // a thread's accumulators stay at 4 x 16 (the groups repeat the
 // unpacking). Each thread keeps U loads of q in flight while it works on
 // the previous U rows.
-template <int BITS, int MR, int MG>
+// 16 bytes of q at p, of which `valid` (1..16) lie inside the row; p is
+// `al`-byte aligned (al = 16, 8, 4, 2 or 1). Whole pieces of min(al, 8)
+// bytes load at once (one 16-byte load where the row allows), the bytes
+// left past them one at a time; zeros past the row.
+__device__ __forceinline__ uint4 ld_q16(const int8_t* p, int al,
+                                        int valid) {
+  if (al == 16 && valid >= 16)
+    return __ldcs(reinterpret_cast<const uint4*>(p));
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+  int done = 0;
+  if (al >= 8) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (8 * i + 8 <= valid) {
+        const uint2 v = __ldcs(reinterpret_cast<const uint2*>(p + 8 * i));
+        w[2 * i] = v.x;
+        w[2 * i + 1] = v.y;
+        done = 8 * i + 8;
+      }
+  } else if (al == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * i + 4 <= valid) {
+        w[i] = __ldcs(reinterpret_cast<const unsigned*>(p + 4 * i));
+        done = 4 * i + 4;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (i >= done && i < valid)
+      w[i / 4] |= static_cast<unsigned>(static_cast<uint8_t>(__ldg(p + i)))
+                  << (8 * (i % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// XT: x's and out's dtype, f32 or bf16.
+template <int BITS, int MR, int MG, typename XT>
 __global__ void __launch_bounds__(kQThreads, 2)
-qgemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+qgemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ q,
              const float* __restrict__ s, const float* __restrict__ inv_s,
-             float* __restrict__ out, float* __restrict__ part,
+             XT* __restrict__ out, float* __restrict__ part,
              int* __restrict__ tickets, int M, int K, int N, int chunk,
              int ksplit) {
+  const auto rnd = [](float v) {  // JAX's rounding to x's dtype
+    if constexpr (sizeof(XT) == 2)
+      return __bfloat162float(__float2bfloat16_rn(v));
+    else
+      return v;
+  };
   constexpr int kH = BITS == 4 ? 2 : 1;          // x halves a q row feeds
   constexpr int kMT = MR * MG;
   constexpr int kRL = kQThreads / (kQColThreads * MG);  // row lanes
@@ -171,14 +220,28 @@ qgemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
   const int n0 = tile * kQTileN;
   const int col = n0 + c * kQCols;
   const bool col_ok = col < N;
+  const bool vec = N % kQCols == 0;   // every row 16-byte aligned and whole
+  // The widest piece every row's q allows: its address and N both
+  // multiples of al.
+  const unsigned lo = static_cast<unsigned>(reinterpret_cast<uintptr_t>(q)) |
+                      static_cast<unsigned>(N) | 16u;
+  const int al = static_cast<int>(lo & (0u - lo));
+  const int ncol = N - col;           // the thread's columns inside out
   const int kbeg = split * chunk;
   const int nrow = min(Kq, kbeg + chunk) - kbeg;
 
   float sc[kQCols];
 #pragma unroll
   for (int i = 0; i < kQCols; i += 4) {
-    const float4 v = col_ok ? __ldg(reinterpret_cast<const float4*>(s + col + i))
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col_ok && vec) {
+      v = __ldg(reinterpret_cast<const float4*>(s + col + i));
+    } else if (col_ok) {
+      v.x = i < ncol ? s[col + i] : 0.f;
+      v.y = i + 1 < ncol ? s[col + i + 1] : 0.f;
+      v.z = i + 2 < ncol ? s[col + i + 2] : 0.f;
+      v.w = i + 3 < ncol ? s[col + i + 3] : 0.f;
+    }
     sc[i] = v.x;
     sc[i + 1] = v.y;
     sc[i + 2] = v.z;
@@ -196,8 +259,7 @@ qgemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
   for (int u = 0; u < kU; ++u) {
     const int kk = r + u * kRL;
     cur[u] = (col_ok && kk < nrow)
-                 ? __ldcs(reinterpret_cast<const uint4*>(
-                         qb + static_cast<int64_t>(kk) * N))
+                 ? ld_q16(qb + static_cast<int64_t>(kk) * N, al, ncol)
                  : make_uint4(0u, 0u, 0u, 0u);
   }
   // Stage x[:, kbeg:kbeg+nrow] (and the high half's rows for int4),
@@ -207,8 +269,8 @@ qgemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
     float v = 0.f;
     if (m < M) {
       const int k = kbeg + kk + h * Kq;
-      v = x[static_cast<int64_t>(m) * K + k];
-      if (inv_s != nullptr) v *= inv_s[k];
+      v = static_cast<float>(x[static_cast<int64_t>(m) * K + k]);
+      if (inv_s != nullptr) v = rnd(v * rnd(inv_s[k]));
     }
     sm[i] = v;
   }
@@ -220,8 +282,7 @@ qgemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
     for (int u = 0; u < kU; ++u) {
       const int kk = k0 + (kU + u) * kRL;
       nxt[u] = (col_ok && kk < nrow)
-                   ? __ldcs(reinterpret_cast<const uint4*>(
-                         qb + static_cast<int64_t>(kk) * N))
+                   ? ld_q16(qb + static_cast<int64_t>(kk) * N, al, ncol)
                    : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
@@ -241,7 +302,7 @@ qgemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
           float w[4];
           s8x4_to_float(wd[wi], w);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) w[e] *= sc[wi * 4 + e];
+          for (int e = 0; e < 4; ++e) w[e] = rnd(w[e] * sc[wi * 4 + e]);
 #pragma unroll
           for (int j = 0; j < MR; ++j)
 #pragma unroll
@@ -252,8 +313,8 @@ qgemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
           s4x8_to_float(wd[wi], lo, hi);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            lo[e] *= sc[wi * 4 + e];
-            hi[e] *= sc[wi * 4 + e];
+            lo[e] = rnd(lo[e] * sc[wi * 4 + e]);
+            hi[e] = rnd(hi[e] * sc[wi * 4 + e]);
           }
 #pragma unroll
           for (int j = 0; j < MR; ++j)
@@ -290,7 +351,7 @@ qgemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
       for (int rr = 0; rr < kRL; ++rr) v += sm[(gg * kRL + rr) * kQTileN + cc];
       if (ksplit == 1)
-        out[static_cast<int64_t>(m) * N + n] = v;
+        store_f(out + static_cast<int64_t>(m) * N + n, v);
       else
         part[(static_cast<int64_t>(split) * M + m) * N + n] = v;
     }
@@ -892,9 +953,38 @@ dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
   }
 }
 
-template <int BITS, int MR, int MG>
-cudaError_t launch_qgemv(const float* x, const int8_t* q, const float* s,
-                         const float* inv_s, float* out, float* part,
+// dequant_kernel's function an element a thread, for an out its vector
+// loads and stores cannot align (N % kCols != 0): the same arithmetic,
+// so the same bits.
+template <typename T, int BITS>
+__global__ void __launch_bounds__(256)
+dequant_any_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+                   const float* __restrict__ inv_s, T* __restrict__ w, int K,
+                   int N) {
+  const int Kq = BITS == 4 ? K / 2 : K;
+  const int64_t n = static_cast<int64_t>(Kq) * N;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int row = static_cast<int>(i / N), col = static_cast<int>(i % N);
+    const int b = q[i];
+    // int4: the low nibble sign-extended, then the high one.
+    const int v[2] = {
+        BITS == 4 ? static_cast<int>(static_cast<unsigned>(b) << 28) >> 28 : b,
+        b >> 4};
+#pragma unroll
+    for (int h = 0; h < (BITS == 4 ? 2 : 1); ++h) {
+      const int k = row + h * Kq;
+      float a = static_cast<float>(v[h]) * s[col];
+      if (inv_s != nullptr) a *= inv_s[k];
+      store_f(w + static_cast<int64_t>(k) * N + col, a);
+    }
+  }
+}
+
+template <int BITS, int MR, int MG, typename XT>
+cudaError_t launch_qgemv(const XT* x, const int8_t* q, const float* s,
+                         const float* inv_s, XT* out, float* part,
                          int* tickets, int M, int K, int N, int chunk,
                          int ksplit, cudaStream_t stream) {
   const dim3 grid((N + kQTileN - 1) / kQTileN, ksplit);
@@ -904,7 +994,7 @@ cudaError_t launch_qgemv(const float* x, const int8_t* q, const float* s,
                      sizeof(float);
   const size_t smem = xs > red ? xs : red;
   if (smem > 48 * 1024) return cudaErrorInvalidValue;  // the plan's limit
-  qgemv_kernel<BITS, MR, MG><<<grid, kQThreads, smem, stream>>>(
+  qgemv_kernel<BITS, MR, MG, XT><<<grid, kQThreads, smem, stream>>>(
       x, q, s, inv_s, out, part, tickets, M, K, N, chunk, ksplit);
   return cudaGetLastError();
 }
@@ -961,12 +1051,38 @@ cudaError_t launch_qgemv_ring(const CUtensorMap& map,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+template <int BITS, typename XT>
+cudaError_t qgemv_fma_rows(const void* x, const int8_t* q, const float* s,
+                           const float* inv_s, void* out, float* part,
+                           int* tickets, int M, int K, int N, int chunk,
+                           int ksplit, cudaStream_t st) {
+  const auto* xf = static_cast<const XT*>(x);
+  auto* of = static_cast<XT*>(out);
+#define QT_QGEMV(MR, MG)                                                    \
+  return launch_qgemv<BITS, MR, MG, XT>(xf, q, s, inv_s, of, part, tickets, \
+                                        M, K, N, chunk, ksplit, st)
+  if (M <= 1) QT_QGEMV(1, 1);
+  if (M <= 2) QT_QGEMV(2, 1);
+  if (M <= 4) QT_QGEMV(4, 1);
+  if (M <= 8) QT_QGEMV(4, 2);
+  if (M <= 16) QT_QGEMV(4, 4);
+#undef QT_QGEMV
+  return cudaErrorInvalidValue;
+}
+
+// bf16 x with a ring plan (stages > 0): qgemv_ring_kernel; f32 x, and
+// bf16 x with the FMA plan (stages == 0, an out not a multiple of 16):
+// qgemv_kernel in x's dtype.
 template <int BITS>
 cudaError_t qgemv_rows(bool x_bf16, const void* tmap, const void* x,
                        const int8_t* q, const float* s, const float* inv_s,
                        void* out, float* part, int* tickets, int M, int K,
                        int N, int chunk, int ksplit, int tile_n, int stages,
                        cudaStream_t st) {
+  if (x_bf16 && stages == 0)
+    return qgemv_fma_rows<BITS, __nv_bfloat16>(x, q, s, inv_s, out, part,
+                                               tickets, M, K, N, chunk,
+                                               ksplit, st);
   if (x_bf16) {
     if (tmap == nullptr) return cudaErrorInvalidValue;
     CUtensorMap map;
@@ -983,18 +1099,8 @@ cudaError_t qgemv_rows(bool x_bf16, const void* tmap, const void* x,
                                          stages, st);
     return cudaErrorInvalidValue;
   }
-  const auto* xf = static_cast<const float*>(x);
-  auto* of = static_cast<float*>(out);
-#define QT_QGEMV(MR, MG)                                                  \
-  return launch_qgemv<BITS, MR, MG>(xf, q, s, inv_s, of, part, tickets, M, \
-                                    K, N, chunk, ksplit, st)
-  if (M <= 1) QT_QGEMV(1, 1);
-  if (M <= 2) QT_QGEMV(2, 1);
-  if (M <= 4) QT_QGEMV(4, 1);
-  if (M <= 8) QT_QGEMV(4, 2);
-  if (M <= 16) QT_QGEMV(4, 4);
-#undef QT_QGEMV
-  return cudaErrorInvalidValue;
+  return qgemv_fma_rows<BITS, float>(x, q, s, inv_s, out, part, tickets, M,
+                                     K, N, chunk, ksplit, st);
 }
 
 static int g_deq_ctas;  // 8 CTAs of 256 threads an SM, read once
@@ -1012,6 +1118,20 @@ cudaError_t dequant_bits(int bits, const int8_t* q, const float* s,
     g_deq_ctas = 8 * sms;
   }
   const int Kq = bits == 4 ? K / 2 : K;
+  if (N % DeqLoad<T>::kCols != 0) {  // rows the vector path cannot align
+    const int64_t n = static_cast<int64_t>(Kq) * N;
+    const int blocks = static_cast<int>(
+        (n + 255) / 256 < g_deq_ctas ? (n + 255) / 256 : g_deq_ctas);
+    if (bits == 8)
+      dequant_any_kernel<T, 8><<<blocks, 256, 0, st>>>(
+          q, s, inv_s, static_cast<T*>(w), K, N);
+    else if (bits == 4)
+      dequant_any_kernel<T, 4><<<blocks, 256, 0, st>>>(
+          q, s, inv_s, static_cast<T*>(w), K, N);
+    else
+      return cudaErrorInvalidValue;
+    return cudaGetLastError();
+  }
   const int cols = 32 * DeqLoad<T>::kCols;
   const int bx = (N + cols - 1) / cols;
   int by = (g_deq_ctas + bx - 1) / bx;

@@ -8,7 +8,9 @@
 // with relu(q) and min(q, 0) taken in f32 and rounded to the metadata
 // dtype M (bf16 for fp8 metadata) before the products (as both JAX
 // kernels cast them), products accumulated in f32, agg = max or sum over
-// the G rows. The callers round the G query rows into shared memory.
+// the G rows (any G: column blocks of 8 on the tensor cores, the partial
+// scores folded by agg before any selection). The callers round the G
+// query rows into shared memory.
 // bf16 and fp8 metadata are scored on the tensor cores, 16 pages a warp
 // (tile_scores); f32 metadata by FMAs, a "team" of 32 lanes a page, each
 // reading 16 bytes of both rows, then a butterfly (team_score). Each is
@@ -40,19 +42,27 @@ constexpr unsigned kKeyPosInf = 0xff800000u;  // order_key(+inf)
 
 // The G query rows of one KV-head group rounded to M, in f32: since
 // rounding keeps signs, relu(M(q)) = M(relu(q)) and min(M(q), 0) =
-// M(min(q, 0)), so one row serves both halves of the split.
+// M(min(q, 0)), so one row serves both halves of the split. Rows G ..
+// rows - 1 are zeros (padded heads).
 // q: [.., G, D] bf16 or f32; base: element offset of the group's row 0.
 // Every thread of the CTA calls it; the caller syncs before reading qs.
-template <typename M, int G>
+template <typename M>
 __device__ __forceinline__ void round_query(const void* q, int q_bf16,
-                                            int64_t base,
+                                            int64_t base, int G, int rows,
                                             float (*qs)[kHeadDim]) {
-  for (int i = threadIdx.x; i < G * kHeadDim; i += blockDim.x) {
-    const float x =
-        q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[base + i])
-               : static_cast<const float*>(q)[base + i];
+  for (int i = threadIdx.x; i < rows * kHeadDim; i += blockDim.x) {
+    float x = 0.f;
+    if (i < G * kHeadDim)
+      x = q_bf16
+              ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[base + i])
+              : static_cast<const float*>(q)[base + i];
     qs[i / kHeadDim][i % kHeadDim] = Elem<M>::round(x);
   }
+}
+
+// agg over two partial scores of disjoint query rows.
+__device__ __forceinline__ float fold_agg(float a, float b, bool agg_sum) {
+  return agg_sum ? a + b : fmaxf(a, b);
 }
 
 // How a team of lanes reads one page's f32 metadata row (bf16 and fp8
@@ -73,13 +83,13 @@ struct TeamRow {
 // One page's aggregated score from this lane's E elements of the page's
 // k_max and k_min rows (rx, rn as loaded): relu(q) . k_max + min(q, 0) .
 // k_min with one product a dim (the other half's factor is 0), a
-// butterfly over the team's L lanes, then max or sum over the G rows. The
-// lane's E dims of query row g are q[g * qs + j] (qs = kHeadDim for the
-// rows in shared memory, E for a copy in registers). Every lane of the
-// team gets the score; every lane of the warp must call it (the
-// shuffles).
-template <typename M, int G>
-__device__ __forceinline__ float team_score(const float* q, int qs,
+// butterfly over the team's L lanes, then max or sum over the n <= GMAX
+// rows. The lane's E dims of query row g are q[g * qs + j] (qs =
+// kHeadDim for the rows in shared memory, E for a copy in registers).
+// Every lane of the team gets the score; every lane of the warp must call
+// it (the shuffles).
+template <typename M, int GMAX>
+__device__ __forceinline__ float team_score(const float* q, int qs, int n,
                                             const typename TeamRow<M>::Raw& rx,
                                             const typename TeamRow<M>::Raw& rn,
                                             bool agg_sum) {
@@ -89,7 +99,8 @@ __device__ __forceinline__ float team_score(const float* q, int qs,
   TeamRow<M>::unpack(rn, fn);
   float agg = 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GMAX; ++g) {
+    if (g >= n) break;  // the same in every lane
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < E; ++j) {
@@ -103,17 +114,34 @@ __device__ __forceinline__ float team_score(const float* q, int qs,
   return agg;
 }
 
+// team_score over any number n of query rows in shared memory (stride
+// kHeadDim), in blocks of 8 rows folded by agg.
+template <typename M>
+__device__ __forceinline__ float team_score_any(
+    const float* q, int n, const typename TeamRow<M>::Raw& rx,
+    const typename TeamRow<M>::Raw& rn, bool agg_sum) {
+  float agg = 0.f;
+  for (int g0 = 0; g0 < n; g0 += 8) {  // the same in every lane
+    const float s = team_score<M, 8>(q + g0 * kHeadDim, kHeadDim,
+                                     min(8, n - g0), rx, rn, agg_sum);
+    agg = g0 == 0 ? s : fold_agg(agg, s, agg_sum);
+  }
+  return agg;
+}
+
 // Scores pages [0, npg) whose metadata rows lie in shared memory (page p's
 // rows at smax/smin + p * kHeadDim): a team of L lanes a page, each team
 // loading two pages before it scores them, the CTA's teams taking the
-// pages in turn. q, qs: the lane's query dims as team_score takes them.
+// pages in turn. q, qs, n: the lane's query dims as team_score takes them
+// (GMAX = 0: n rows in shared memory, as team_score_any takes them).
 // sink(p, score) is called once a page, by the team's first lane. Every
 // thread of the CTA must call it (the shuffles take the whole warp);
 // blockDim.x is a multiple of 32.
-template <typename M, int G, typename SinkFn>
+template <typename M, int GMAX, typename SinkFn>
 __device__ __forceinline__ void score_rows(const M* smax, const M* smin,
-                                           const float* q, int qs, int npg,
-                                           bool agg_sum, SinkFn sink) {
+                                           const float* q, int qs, int n,
+                                           int npg, bool agg_sum,
+                                           SinkFn sink) {
   using Raw = typename TeamRow<M>::Raw;
   constexpr int L = TeamRow<M>::L, U = 2;
   const int lane = threadIdx.x & 31;
@@ -134,7 +162,11 @@ __device__ __forceinline__ void score_rows(const M* smax, const M* smin,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = p0 + u * nteams + team;
-      const float sc = team_score<M, G>(q, qs, rx[u], rn[u], agg_sum);
+      float sc;
+      if constexpr (GMAX > 0)
+        sc = team_score<M, GMAX>(q, qs, n, rx[u], rn[u], agg_sum);
+      else
+        sc = team_score_any<M>(q, n, rx[u], rn[u], agg_sum);
       if (p < npg && c == 0) sink(p, sc);
     }
   }
@@ -143,8 +175,9 @@ __device__ __forceinline__ void score_rows(const M* smax, const M* smin,
 // Scoring on the tensor cores, for bf16 and fp8 metadata (f32 metadata
 // takes team_score): C[page][g] = sum over d of k_max[page][d] relu(q_g)[d]
 // + k_min[page][d] min(q_g, 0)[d] by mma.sync m16n8k16, 16 pages a tile as
-// the rows, the G query rows (padded to 8) as the columns, both halves
-// into one f32 accumulator, then max or sum over the G columns. The rows
+// the rows, a block of n <= 8 query rows (padded to 8) as the columns,
+// both halves into one f32 accumulator, then max or sum over the n
+// columns (tile_scores_any folds the blocks of a larger group). The rows
 // are widened to bf16 (fp8 by the packed upcast_fp8 recipe); relu(q) and
 // min(q, 0) of the rounded q are exact in bf16. The k dims are permuted,
 // the same in A and B: step kk's lane tig takes dims step_dim(kk, tig) ..
@@ -154,19 +187,18 @@ __device__ __forceinline__ int step_dim(int kk, int tig) {
   return 32 * (kk >> 1) + 8 * tig + 4 * (kk & 1);
 }
 
-template <int G>
 struct QueryFrags {
   uint32_t b[16][2];  // steps 0-7: relu(q) (k_max); 8-15: min(q, 0) (k_min)
 
-  // qs: the G rounded query rows in shared memory. Whole warp.
-  __device__ __forceinline__ void load(const float (*qs)[kHeadDim]) {
+  // qs: n <= 8 rounded query rows in shared memory. Whole warp.
+  __device__ __forceinline__ void load(const float (*qs)[kHeadDim], int n) {
     const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-    const float* r = qs[gid < G ? gid : 0];
+    const float* r = qs[gid < n ? gid : 0];
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       float x[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) x[j] = gid < G ? r[step_dim(kk, tig) + j] : 0.f;
+      for (int j = 0; j < 4; ++j) x[j] = gid < n ? r[step_dim(kk, tig) + j] : 0.f;
       b[kk][0] = pack_bf16(fmaxf(x[0], 0.f), fmaxf(x[1], 0.f));
       b[kk][1] = pack_bf16(fmaxf(x[2], 0.f), fmaxf(x[3], 0.f));
       b[8 + kk][0] = pack_bf16(fminf(x[0], 0.f), fminf(x[1], 0.f));
@@ -198,14 +230,15 @@ __device__ __forceinline__ void ldg_row_words(const M* p, RowWord<M>& w0,
   }
 }
 
-// The scores of a tile of 16 pages: lane (gid = lane / 4, tig) gets pages
-// gid (lo) and gid + 8 (hi), every lane of a quad alike. row(half, kk, r)
-// gives the lane's RowWord of step kk of the k_max (half 0) or k_min
-// (half 1) row of page gid + 8 r, from shared memory or registers. A page
-// whose words are garbage only makes its own score garbage. Whole warp.
-template <typename M, int G, typename RowFn>
-__device__ __forceinline__ void tile_scores(RowFn row, const QueryFrags<G>& qf,
-                                            bool agg_sum, float& lo,
+// The scores of a tile of 16 pages over the n <= 8 query rows of qf:
+// lane (gid = lane / 4, tig) gets pages gid (lo) and gid + 8 (hi), every
+// lane of a quad alike. row(half, kk, r) gives the lane's RowWord of step
+// kk of the k_max (half 0) or k_min (half 1) row of page gid + 8 r, from
+// shared memory or registers. A page whose words are garbage only makes
+// its own score garbage. Whole warp.
+template <typename M, typename RowFn>
+__device__ __forceinline__ void tile_scores(RowFn row, const QueryFrags& qf,
+                                            int n, bool agg_sum, float& lo,
                                             float& hi) {
   static_assert(sizeof(M) <= 2, "f32 metadata is scored by team_score");
   const int tig = threadIdx.x & 3;
@@ -229,7 +262,7 @@ __device__ __forceinline__ void tile_scores(RowFn row, const QueryFrags<G>& qf,
                qf.b[8 * half + kk][1]);
     }
   }
-  // Columns 2 tig and 2 tig + 1 are query rows (zeros past G).
+  // Columns 2 tig and 2 tig + 1 are query rows (zeros past n).
   if (agg_sum) {
     lo = c[0] + c[1];
     hi = c[2] + c[3];
@@ -239,7 +272,7 @@ __device__ __forceinline__ void tile_scores(RowFn row, const QueryFrags<G>& qf,
       hi += __shfl_xor_sync(kFull, hi, o);
     }
   } else {
-    const bool v0 = 2 * tig < G, v1 = 2 * tig + 1 < G;
+    const bool v0 = 2 * tig < n, v1 = 2 * tig + 1 < n;
     lo = fmaxf(v0 ? c[0] : -INFINITY, v1 ? c[1] : -INFINITY);
     hi = fmaxf(v0 ? c[2] : -INFINITY, v1 ? c[3] : -INFINITY);
 #pragma unroll
@@ -247,6 +280,27 @@ __device__ __forceinline__ void tile_scores(RowFn row, const QueryFrags<G>& qf,
       lo = fmaxf(lo, __shfl_xor_sync(kFull, lo, o));
       hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, o));
     }
+  }
+}
+
+// tile_scores over any number G of query rows in shared memory, in blocks
+// of 8 (the query fragments loaded again for each block) folded by agg.
+// qf: the first block's fragments, loaded by the caller; a group of at
+// most 8 rows is one tile_scores. Whole warp.
+template <typename M, typename RowFn>
+__device__ __forceinline__ void tile_scores_any(RowFn row,
+                                                const QueryFrags& qf,
+                                                const float (*qs)[kHeadDim],
+                                                int G, bool agg_sum,
+                                                float& lo, float& hi) {
+  tile_scores<M>(row, qf, min(G, 8), agg_sum, lo, hi);
+  for (int g0 = 8; g0 < G; g0 += 8) {
+    QueryFrags qb;
+    qb.load(qs + g0, min(8, G - g0));
+    float l2, h2;
+    tile_scores<M>(row, qb, min(8, G - g0), agg_sum, l2, h2);
+    lo = fold_agg(lo, l2, agg_sum);
+    hi = fold_agg(hi, h2, agg_sum);
   }
 }
 

@@ -10,6 +10,8 @@
 // the current page's tail is masked by token position (< seq_len), so
 // the kernel needs no "last slot" search. In per-query-head mode the
 // selection head is a query head (G = 1) that reads KV head h / kvdiv.
+// Any G: groups pad to 1, 2, 4, 8 or 16 heads a CTA, and run sub-groups
+// of 16 above that (decode_common.cuh).
 //
 // Bound on the H100: bytes. Each selected page is read once per
 // selection head (2 * page * D * 2 bytes in bf16, 8 KB at page 16),
@@ -34,6 +36,6 @@ extern "C" int sparse_decode_launch(
   qt::DecodeArgs a{q,      kv,      tab,     seq_lens, indices, num_valid,
                    part_o, part_ml, tickets, out,      Hsel,    kvdiv,
                    NP,     page,    NB,      bpp,      S,       nsplit,
-                   per_split, sm_scale, q_bf16};
-  return qt::dispatch_decode<true>(a, tmap, B, G, kv_dtype, stream);
+                   per_split, sm_scale, q_bf16, G,     sub_groups(G)};
+  return qt::dispatch_decode<true>(a, tmap, B, kv_dtype, stream);
 }

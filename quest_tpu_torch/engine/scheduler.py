@@ -32,8 +32,18 @@ with a per-request numpy generator seeded ``seed * 7919 + uid``, as in
 JAX.
 
 The cache is mutated in place: admission and recycling write the slot's
-``block_tab`` row and ``seq_lens`` entry directly. JAX's mesh (``dp``
-pool groups, tensor parallelism) is not ported.
+``block_tab`` row and ``seq_lens`` entry directly.
+
+Under a ``(dp, tp)`` mesh (``parallel/mesh.py``; one process a rank)
+the slots split into ``dp`` groups of ``max_batch / dp``, each with its
+own ``PagePool``, prefix registry and slice of the physical pool (its
+block-table values are local to that slice). Every rank runs this same
+deterministic host scheduler over the whole slot table; each computes
+its dp group's rows with its tp shard's heads (``parallel/tp.py``), and
+a tick's results (a prefill's last logits, a burst's tokens) are
+all-gathered over dp before the one host fetch, so every rank takes the
+same decisions and the scheduler stays step for step the single
+device's.
 """
 
 from __future__ import annotations
@@ -51,6 +61,8 @@ from quest_tpu_torch.kv.paged_kv import init_cache
 from quest_tpu_torch.kv.pool import PagePool
 from quest_tpu_torch.models.llama import Params, QuestModel
 from quest_tpu_torch.ops.utils import resolve_device, round_up
+from quest_tpu_torch.parallel.mesh import DP_AXIS, rank_device, shard_params
+from quest_tpu_torch.parallel.tp import Shard, init_sharded_cache
 
 
 @dataclasses.dataclass
@@ -96,6 +108,13 @@ class ContinuousBatchingEngine:
     (rounded up to ``prefill_bucket``); None = the whole prompt.
     ``device`` defaults to ``"cuda"`` and raises without a card; pass
     ``device="cpu"`` for the plain PyTorch path.
+
+    ``mesh``: an optional ``(dp, tp)`` DeviceMesh (``parallel/mesh.py:
+    make_mesh``; the rank's device is the mesh's, and ``device`` is not
+    read). ``params`` are the whole model's; the rank keeps its tp shard.
+    Each dp group owns an independent slice of the physical pool with
+    its own allocator, and ``total_pages`` counts usable pages PER DP
+    GROUP. ``max_batch`` must be a multiple of dp.
     """
 
     def __init__(self, cfg: ModelConfig, quest: QuestConfig, params: Params,
@@ -103,26 +122,47 @@ class ContinuousBatchingEngine:
                  seed: int = 0, burst: int = 16,
                  total_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 prefix_cache_entries: int = 64, device="cuda"):
-        self.device = resolve_device(device)
+                 prefix_cache_entries: int = 64, device="cuda", mesh=None):
         self.cfg = cfg
         self.quest = quest
         self.max_batch = max_batch
         self.prefill_bucket = prefill_bucket
         self.burst = max(1, burst)
         self.prefill_chunk = prefill_chunk
+        self.mesh = mesh
         bpp = min(quest.block_pages, quest.max_pages)
         self.block_tokens = bpp * quest.page_size
-        self.model = QuestModel(cfg, quest, params).to(self.device)
-        if total_pages is None:
-            total_pages = max_batch * quest.max_pages
-        self.cache = init_cache(cfg, quest, max_batch,
-                                total_pages=bpp + total_pages,
-                                device=self.device)
-        # All table rows start at scratch; the allocator owns the rest.
+        if mesh is None:
+            dp, self._shard = 1, None
+            self.device = resolve_device(device)
+            self.model = QuestModel(cfg, quest, params).to(self.device)
+            if total_pages is None:
+                total_pages = max_batch * quest.max_pages
+            self.cache = init_cache(cfg, quest, max_batch,
+                                    total_pages=bpp + total_pages,
+                                    device=self.device)
+        else:
+            dp = mesh.size(mesh.mesh_dim_names.index(DP_AXIS))
+            assert max_batch % dp == 0, (max_batch, dp)
+            self.device = rank_device(mesh)
+            self._shard = Shard(cfg, quest, mesh, shard_params(params, mesh))
+            self.model = self._shard.model
+            if total_pages is None:
+                total_pages = (max_batch // dp) * quest.max_pages
+            # The rank's shard: its dp group's rows and slice of the pool.
+            self.cache = init_sharded_cache(cfg, quest, mesh, max_batch,
+                                            total_pages=bpp + total_pages)
+        # All table rows start at scratch; the allocators own the rest.
         self.cache.block_tab.zero_()
+        self.dp = dp
+        self._slots_per_group = max_batch // dp
+        # Slots [row0, row0 + slots_per_group) are this rank's cache rows.
+        self._row0 = (0 if mesh is None else self._shard.dp_rank
+                      * self._slots_per_group)
         n_blocks = self.cache.kv_pages.shape[2] // bpp - 1   # - scratch
-        self.pool = PagePool(n_blocks, self.block_tokens, max_seqs=max_batch)
+        self.pools = [PagePool(n_blocks, self.block_tokens,
+                               max_seqs=self._slots_per_group)
+                      for _ in range(dp)]
         self._table_width = self.cache.block_tab.shape[1]
         self.slots: List[Optional[_Slot]] = [None] * max_batch
         self.queue: deque[Request] = deque()
@@ -133,11 +173,12 @@ class ContinuousBatchingEngine:
         self._hlens = np.zeros((max_batch,), np.int64)
         self._prefer_prefill = True
         self.last_tick: Optional[str] = None   # introspection for tests
-        # Prefix registry: chain key -> physical blocks of that prefix;
-        # each entry holds one pages_retain on its blocks, so shared KV
-        # outlives the donor request.
+        # Prefix registries, one a dp group: chain key -> the group's
+        # physical blocks of that prefix; each entry holds one
+        # pages_retain on its blocks, so shared KV outlives the donor.
         self._prefix_cap = prefix_cache_entries
-        self._prefix: OrderedDict = OrderedDict()
+        self._prefixes: List[OrderedDict] = [OrderedDict()
+                                             for _ in range(dp)]
         self._chains: Dict[int, List[bytes]] = {}
         self.prefix_hits = 0            # introspection for tests
         self.prefix_hit_tokens = 0
@@ -147,13 +188,36 @@ class ContinuousBatchingEngine:
         return -(-(len(req.prompt) + req.max_new_tokens)
                  // self.block_tokens)
 
+    def _group(self, b: int) -> int:
+        """dp group owning slot ``b``."""
+        return b // self._slots_per_group
+
+    def _set_row(self, b: int, row, length: int) -> None:
+        """Slot b's table row and length, in this rank's cache when its
+        dp group owns the slot."""
+        i = b - self._row0
+        if 0 <= i < self._slots_per_group:
+            self.cache.block_tab[i] = row
+            self.cache.seq_lens[i] = length
+
+    def _rows(self, x: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a whole-slot-table array, on its device."""
+        return torch.from_numpy(
+            x[self._row0:self._row0 + self._slots_per_group]).to(self.device)
+
+    def _gather(self, t: torch.Tensor) -> np.ndarray:
+        """Every dp group's rows of a result, in slot order, on the host."""
+        if self._shard is not None:
+            t = self._shard.gather(t)
+        return t.cpu().numpy()
+
     def submit(self, req: Request) -> None:
         if len(req.prompt) + req.max_new_tokens > self.quest.max_seq_len:
             raise ValueError(f"request {req.uid} exceeds max_seq_len")
-        if self._blocks_needed(req) > self.pool.total_pages:
+        if self._blocks_needed(req) > self.pools[0].total_pages:
             raise ValueError(
                 f"request {req.uid} needs {self._blocks_needed(req)} "
-                f"blocks; the pool holds {self.pool.total_pages}")
+                f"blocks; each pool group holds {self.pools[0].total_pages}")
         self.queue.append(req)
 
     @property
@@ -185,12 +249,14 @@ class ContinuousBatchingEngine:
         self._chains[req.uid] = keys
         return keys
 
-    def _prefix_lookup(self, keys: List[bytes]):
-        """(n_shared_blocks, blocks) of the longest registered prefix."""
+    def _prefix_lookup(self, g: int, keys: List[bytes]):
+        """(n_shared_blocks, blocks) of group g's longest registered
+        prefix."""
+        reg = self._prefixes[g]
         for i in range(len(keys), 0, -1):
-            ent = self._prefix.get(keys[i - 1])
+            ent = reg.get(keys[i - 1])
             if ent is not None:
-                self._prefix.move_to_end(keys[i - 1])
+                reg.move_to_end(keys[i - 1])
                 return i, ent
         return 0, []
 
@@ -205,35 +271,53 @@ class ContinuousBatchingEngine:
         while free and self.queue:
             req = self.queue[0]
             keys = self._prefix_chain(req) if self._prefix_cap else []
-            n_sh, shared = self._prefix_lookup(keys)
-            # Registry holds must never starve admission (submit()
-            # checked the request fits the pool): evict LRU entries, one
-            # a free slot a round as JAX does, until the head fits or
-            # the registry is empty.
-            while (self.pool.free_pages() < self._blocks_needed(req) - n_sh
-                   and self._prefix):
-                for _ in free:
-                    if self._prefix:
-                        _, old = self._prefix.popitem(last=False)
-                        self.pool.pages_release(old)
-                n_sh, shared = self._prefix_lookup(keys)
-            if self.pool.free_pages() < self._blocks_needed(req) - n_sh:
+
+            def find_slot():
+                # The first free slot whose dp group's allocator has room
+                # for the unshared rest (FIFO over requests).
+                for i, b in enumerate(free):
+                    g = self._group(b)
+                    n_sh, blocks = self._prefix_lookup(g, keys)
+                    if (self.pools[g].free_pages()
+                            >= self._blocks_needed(req) - n_sh):
+                        return i, (n_sh, blocks)
+                return None, None
+
+            pick, hit = find_slot()
+            # Registry holds must never starve admission (submit() checked
+            # the request fits a pool): evict LRU entries, one a free slot
+            # a round as JAX does, until the head fits or the registries
+            # are empty.
+            while pick is None:
+                evicted = False
+                for b in free:
+                    reg = self._prefixes[self._group(b)]
+                    if reg:
+                        _, old = reg.popitem(last=False)
+                        self.pools[self._group(b)].pages_release(old)
+                        evicted = True
+                if not evicted:
+                    break
+                pick, hit = find_slot()
+            if pick is None:
                 break
             self.queue.popleft()
-            b = free.pop(0)
+            b = free.pop(pick)
+            pool = self.pools[self._group(b)]
+            n_sh, shared = hit
             shared = list(shared)
             sh_tokens = n_sh * self.block_tokens
             if n_sh:
-                self.pool.pages_retain(shared)  # slot hold until finish
+                pool.pages_retain(shared)       # slot hold until finish
                 self.prefix_hits += 1
                 self.prefix_hit_tokens += sh_tokens
-            sid = self.pool.seq_create()
+            sid = pool.seq_create()
             # Reserve the WHOLE remaining need now: an admitted request
             # never waits for memory again.
-            self.pool.seq_extend(sid, len(req.prompt) + req.max_new_tokens
-                                 - sh_tokens)
-            raw, _ = self.pool.fill_batch_tables([sid], self._table_width,
-                                                 pad_page=-1)
+            pool.seq_extend(sid, len(req.prompt) + req.max_new_tokens
+                            - sh_tokens)
+            raw, _ = pool.fill_batch_tables([sid], self._table_width,
+                                            pad_page=-1)
             row = np.where(raw[0] < 0, 0, raw[0] + 1).astype(np.int32)
             row = np.concatenate([np.asarray(shared, np.int32) + 1,
                                   row])[:self._table_width]
@@ -244,28 +328,31 @@ class ContinuousBatchingEngine:
             self._hlens[b] = sh_tokens
             # Borrowed blocks carry their min/max metadata (keyed by
             # physical block): the table row IS the whole admission.
-            self.cache.block_tab[b] = torch.from_numpy(row).to(self.device)
-            self.cache.seq_lens[b] = sh_tokens
+            self._set_row(b, torch.from_numpy(row).to(self.device),
+                          sh_tokens)
 
-    def _publish_prefix(self, s: _Slot) -> None:
-        """Register the completed prompt's full blocks for reuse. Each
-        entry takes its own pages_retain; LRU eviction releases it."""
+    def _publish_prefix(self, b: int, s: _Slot) -> None:
+        """Register the completed prompt's full blocks for reuse in slot
+        b's group. Each entry takes its own pages_retain; LRU eviction
+        releases it."""
         if not self._prefix_cap:
             return
         keys = self._prefix_chain(s.req)
         if not keys:
             return
-        blocks = s.shared_blocks + self.pool.seq_pages(s.sid)
+        g = self._group(b)
+        reg, pool = self._prefixes[g], self.pools[g]
+        blocks = s.shared_blocks + pool.seq_pages(s.sid)
         for i, key in enumerate(keys, start=1):
-            if key in self._prefix:
-                self._prefix.move_to_end(key)
+            if key in reg:
+                reg.move_to_end(key)
                 continue
             ent = blocks[:i]
-            self.pool.pages_retain(ent)
-            self._prefix[key] = ent
-            while len(self._prefix) > self._prefix_cap:
-                _, old = self._prefix.popitem(last=False)
-                self.pool.pages_release(old)
+            pool.pages_retain(ent)
+            reg[key] = ent
+            while len(reg) > self._prefix_cap:
+                _, old = reg.popitem(last=False)
+                pool.pages_release(old)
 
     # ------------------------------------------------------------------
     def _prefill_tick(self, pf: List[int]) -> List[StepEvent]:
@@ -283,10 +370,8 @@ class ContinuousBatchingEngine:
             n = min(T, left[b])
             toks[b, :n] = s.req.prompt[s.prefill_pos:s.prefill_pos + n]
             new_lens[b] = n
-        logits = self.model.prefill_last(
-            self.cache, torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(new_lens).to(self.device))
-        logits = logits[:, 0].cpu().numpy()
+        logits = self._gather(self.model.prefill_last(
+            self.cache, self._rows(toks), self._rows(new_lens))[:, 0])
 
         events: List[StepEvent] = []
         for b in pf:
@@ -294,7 +379,7 @@ class ContinuousBatchingEngine:
             s.prefill_pos += int(new_lens[b])
             self._hlens[b] += int(new_lens[b])
             if not s.prefilling:  # prompt complete -> first token
-                self._publish_prefix(s)
+                self._publish_prefix(b, s)
                 first = self._sample(logits[b], s.req.temperature, s.rng)
                 s.generated.append(first)
                 s.pending = first
@@ -320,12 +405,12 @@ class ContinuousBatchingEngine:
         headroom = min(self.quest.max_seq_len - int(self._hlens[b])
                        for b in decoding)
         K = max(1, min(self.burst, remaining, headroom))
-        act = torch.from_numpy(active).to(self.device)
-        tok = torch.from_numpy(toks).to(self.device)
+        act = self._rows(active)
+        tok = self._rows(toks)
         if not temps.any():
             out = self.model.decode_token_burst(self.cache, tok, K, act)
         else:
-            temps_dev = torch.from_numpy(temps).to(self.device)
+            temps_dev = self._rows(temps)
             outs = []
             for _ in range(K):
                 tok = self.model.decode_sample_step(self.cache, tok,
@@ -333,7 +418,7 @@ class ContinuousBatchingEngine:
                                                     act)
                 outs.append(tok)
             out = torch.stack(outs, dim=1)
-        arr = out.cpu().numpy()                                  # [B, K]
+        arr = self._gather(out)                                  # [B, K]
         for b in decoding:
             self._hlens[b] += K
         # Emit in token-time order (step-major) so cross-request finish
@@ -381,16 +466,16 @@ class ContinuousBatchingEngine:
                     and token == req.eos_token_id))
         if done:
             self.slots[b] = None
-            # Recycle: blocks back to the allocator, table row to
-            # scratch, length to 0. Borrowed prefix blocks drop this
-            # slot's hold (the registry keeps its own).
+            # Recycle: blocks back to the slot's group allocator, table
+            # row to scratch, length to 0. Borrowed prefix blocks drop
+            # this slot's hold (the registry keeps its own).
+            pool = self.pools[self._group(b)]
             if slot.shared_blocks:
-                self.pool.pages_release(slot.shared_blocks)
-            self.pool.seq_release(slot.sid)
+                pool.pages_release(slot.shared_blocks)
+            pool.seq_release(slot.sid)
             self._chains.pop(req.uid, None)
             self._hlens[b] = 0
-            self.cache.block_tab[b] = 0
-            self.cache.seq_lens[b] = 0
+            self._set_row(b, 0, 0)
         return StepEvent(uid=req.uid, token=token, finished=done)
 
     @staticmethod

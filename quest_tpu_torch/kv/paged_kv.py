@@ -99,14 +99,20 @@ class PagedKVCache:
 def init_cache(model: ModelConfig, quest: QuestConfig, batch_size: int = 1,
                num_layers: int | None = None,
                total_pages: int | None = None,
-               device="cuda") -> PagedKVCache:
+               device="cuda", dp: int = 1) -> PagedKVCache:
     """Allocate the zeroed pool up front on ``device``.
 
     ``total_pages``: physical pool size (default: one scratch block plus
     ``batch_size * max_pages``). The default block table gives slot b
     the contiguous block range ``[1 + b*NB, 1 + (b+1)*NB)``; rows that do
-    not fit start out on scratch. (The JAX package's ``dp`` pool
-    replicas are not ported.)
+    not fit start out on scratch.
+
+    ``dp``: data-parallel pool replicas (``quest_tpu/kv/paged_kv.py:
+    init_cache``'s layout). The physical page axis is cut into ``dp``
+    shards, one a dp group (``parallel/mesh.py:cache_specs``), so
+    block-table VALUES are shard-local: slot b maps to local slot
+    ``b % (B / dp)``'s range, and ``total_pages`` counts pages PER
+    SHARD.
     """
     dev = resolve_device(device)
     L = num_layers if num_layers is not None else model.num_layers
@@ -115,10 +121,12 @@ def init_cache(model: ModelConfig, quest: QuestConfig, batch_size: int = 1,
     bpp = min(quest.block_pages, P)
     assert P % bpp == 0
     NB = P // bpp
+    assert B % dp == 0, (B, dp)
+    Bl = B // dp
     if total_pages is None:
-        total_pages = bpp + B * P        # scratch block + full reservation
-    NP = -(-total_pages // bpp) * bpp
-    rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+        total_pages = bpp + Bl * P       # scratch block + full reservation
+    NP = -(-total_pages // bpp) * bpp    # pages a shard
+    rows = (torch.arange(B, dtype=torch.int32, device=dev) % Bl)[:, None]
     row_fits = (rows + 1) * NB + 1 <= NP // bpp
     btab = torch.where(row_fits,
                        1 + rows * NB + torch.arange(NB, dtype=torch.int32,
@@ -126,10 +134,12 @@ def init_cache(model: ModelConfig, quest: QuestConfig, batch_size: int = 1,
                        torch.zeros((), dtype=torch.int32, device=dev))
     mdt = quest.resolved_meta_dtype
     return PagedKVCache(
-        kv_pages=torch.zeros((L, H, NP, 2, page, D), dtype=quest.kv_dtype,
-                             device=dev),
-        k_max=torch.zeros((L, H, NP // bpp, bpp, D), dtype=mdt, device=dev),
-        k_min=torch.zeros((L, H, NP // bpp, bpp, D), dtype=mdt, device=dev),
+        kv_pages=torch.zeros((L, H, dp * NP, 2, page, D),
+                             dtype=quest.kv_dtype, device=dev),
+        k_max=torch.zeros((L, H, dp * NP // bpp, bpp, D), dtype=mdt,
+                          device=dev),
+        k_min=torch.zeros((L, H, dp * NP // bpp, bpp, D), dtype=mdt,
+                          device=dev),
         block_tab=btab,
         seq_lens=torch.zeros((B,), dtype=torch.int32, device=dev),
     )

@@ -149,12 +149,25 @@ class QuestModel(nn.Module):
     products (``torch.backends.cuda.matmul.allow_tf32 = False``, for the
     whole process): the page estimate and the f32 ``lm_head`` are full
     f32 products, as in the JAX model.
+
+    ``tp_group``, the counterpart of the JAX model's ``tp_axis``: a
+    ``torch.distributed`` process group over which this model is one
+    tensor-parallel shard (``parallel/tp.py``). ``cfg`` then gives the
+    shard's head counts and ``params`` its slices (``parallel/mesh.py:
+    shard_params``); the o-projection's and the MLP's outputs are summed
+    over the group (Megatron TP) and the vocab-split logits gathered.
+    Quest's estimate, top-k and sparse attention need no collective: page
+    selection is per KV head and heads are shard-local. Without a group
+    the model makes no collective call. The collectives run on the
+    current stream, with no host sync.
     """
 
-    def __init__(self, cfg: ModelConfig, quest: QuestConfig, params: Params):
+    def __init__(self, cfg: ModelConfig, quest: QuestConfig, params: Params,
+                 tp_group=None):
         super().__init__()
         self.cfg = cfg
         self.quest = quest
+        self.tp_group = tp_group
         self.linear_hook = None
         self._bits: Dict[str, int] = {}
         if params["embed"].is_cuda:
@@ -189,6 +202,25 @@ class QuestModel(nn.Module):
                             s=getattr(self, name + "_s"), bits=bits,
                             inv_s=getattr(self, name + "_inv_s", None))
         return w if layer is None else w.layer(layer)
+
+    def _maybe_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum the row-parallel partial ``x`` over the tp group (JAX's
+        ``_maybe_psum``)."""
+        if self.tp_group is not None:
+            torch.distributed.all_reduce(x, group=self.tp_group)
+        return x
+
+    def _gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """The vocab-split logits [..., V / tp] of every shard, joined
+        along the last axis in shard order (JAX's tiled ``all_gather``)."""
+        if self.tp_group is None:
+            return logits
+        n = torch.distributed.get_world_size(self.tp_group)
+        parts = torch.empty((n,) + logits.shape, dtype=logits.dtype,
+                            device=logits.device)
+        torch.distributed.all_gather(list(parts.unbind(0)),
+                                     logits.contiguous(), group=self.tp_group)
+        return parts.movedim(0, -2).reshape(*logits.shape[:-1], -1)
 
     def _linear(self, x, name: str, layer: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None):
@@ -269,12 +301,12 @@ class QuestModel(nn.Module):
 
         with trace_range("o_proj"):
             attn = attn.to(x.dtype).reshape(B, T, H * D)
-            x = x + self._linear(attn, "wo", l)
+            x = x + self._maybe_all_reduce(self._linear(attn, "wo", l))
         with trace_range("mlp"):
             h2 = rms_norm(x, self.ln_mlp[l], cfg.rms_norm_eps)
             gate = torch.nn.functional.silu(self._linear(h2, "w_gate", l))
             mlp = self._linear(gate * self._linear(h2, "w_up", l), "w_down", l)
-        return x + mlp
+        return x + self._maybe_all_reduce(mlp)
 
     @torch.no_grad()
     def _forward(self, cache: PagedKVCache, tokens: torch.Tensor,
@@ -298,7 +330,8 @@ class QuestModel(nn.Module):
         if last_only:
             last = (new_lens.long() - 1).clamp(min=0)
             x = x[torch.arange(B, device=dev), last][:, None]
-        logits = self._linear(x.float(), "lm_head", dtype=torch.float32)
+        logits = self._gather_vocab(
+            self._linear(x.float(), "lm_head", dtype=torch.float32))
         cache.seq_lens += new_lens
         return logits
 

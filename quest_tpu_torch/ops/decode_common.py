@@ -19,6 +19,7 @@ import dataclasses
 import torch
 
 from quest_tpu_torch.ops import _build
+from quest_tpu_torch.ops.utils import padded_group, sub_groups
 
 HEAD_DIM = 128
 # Splits of a (row, head) at most: the last CTA of a (row, head) reads
@@ -29,29 +30,32 @@ MAX_SPLITS = 512
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
     per_split: int        # pages (dense) or selection slots (sparse) a CTA
-    nsplit: int           # CTAs a (batch row, selection head)
-    grid: tuple           # (nsplit, Hsel, B)
+    nsplit: int           # CTAs a (batch row, selection head, sub-group)
+    grid: tuple           # (nsplit, Hsel * sub-groups, B)
     part_o: int           # f32 elements of the partial numerators
     part_ml: int          # f32 elements of the partials' (m, l)
-    tickets: int          # int32 merge tickets, one a (row, head)
+    tickets: int          # int32 merge tickets, one a (row, head, sub-group)
 
 
 def decode_plan(B: int, Hsel: int, G: int, page: int, items: int,
                 min_tokens: int, ctas: int) -> DecodePlan:
     """The launch of one decode call over ``items`` pages a row (dense:
-    the block table's capacity) or selection slots (sparse): each
-    (row, selection head)'s items are cut into about ``ctas / (B * Hsel)``
-    splits (``ctas``: the CTAs of one wave on the card), none shorter than
-    ``min_tokens`` tokens, so that a full table fills one wave."""
+    the block table's capacity) or selection slots (sparse): a CTA takes
+    ``padded_group(G)`` heads of a selection head's G (``sub_groups(G)``
+    CTA rows a selection head), and each such unit's items are cut into
+    about ``ctas / (B * units)`` splits (``ctas``: the CTAs of one wave on
+    the card), none shorter than ``min_tokens`` tokens, so that a full
+    table fills one wave."""
     items = max(1, items)
+    units = Hsel * sub_groups(G)
     per_split = max(1, min_tokens // page,
-                    -(-items // max(1, ctas // (B * Hsel))),
+                    -(-items // max(1, ctas // (B * units))),
                     -(-items // MAX_SPLITS))
     nsplit = -(-items // per_split)
-    parts = B * Hsel * nsplit * G
+    parts = B * units * nsplit * padded_group(G)
     return DecodePlan(per_split=per_split, nsplit=nsplit,
-                      grid=(nsplit, Hsel, B), part_o=parts * HEAD_DIM,
-                      part_ml=parts * 2, tickets=B * Hsel)
+                      grid=(nsplit, units, B), part_o=parts * HEAD_DIM,
+                      part_ml=parts * 2, tickets=B * units)
 
 
 _sm_counts = {}

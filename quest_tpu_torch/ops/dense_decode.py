@@ -80,8 +80,9 @@ def dense_decode_attention(q, kv_pages, seq_lens, *, sm_scale: float,
     G = Hq // Hkv
     if D != 128 or Dk != 128:
         raise NotImplementedError("the CUDA decode kernels take head_dim 128")
-    if G not in (1, 2, 4, 8) or G * Hkv != Hq:
-        raise NotImplementedError(f"GQA group {Hq}/{Hkv} not supported")
+    if G < 1 or G * Hkv != Hq:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} KV "
+                         "heads")
     for t in (kv_pages, block_tab, seq_lens):
         if t.device != q.device:
             raise ValueError("all operands must be on the query's device")

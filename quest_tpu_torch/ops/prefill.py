@@ -63,10 +63,10 @@ def prefill_attention_plain(q, kv_pages, q_offsets, kv_lens, *,
 
 
 # What the TMA + wgmma kernel (bf16 and fp8 pools) takes: 128 query rows
-# a CTA are positions x the G heads of a group, and a 128-token K/V tile
-# is whole pages of at least 8 rows (1024 bytes: one 128-byte swizzle
-# atom).
-TMA_GROUPS = (1, 2, 4, 8)
+# a CTA are positions x the heads of a GQA group padded to the next of 1,
+# 2, 4, 8 and 16 (sub-groups of 16 above that; ops/utils.py:
+# padded_group), and a 128-token K/V tile is whole pages of at least 8
+# rows (1024 bytes: one 128-byte swizzle atom).
 TMA_PAGES = (8, 16, 32, 64, 128)
 _tensor_maps = {}
 
@@ -75,13 +75,10 @@ def prefill_route(dtype: torch.dtype, page: int, G: int) -> str:
     """The card kernel of a pool of ``dtype`` with pages of ``page`` tokens
     and GQA groups of G query heads: ``"tma"`` (TMA + wgmma, bf16 and fp8
     pools with pages in TMA_PAGES) or ``"fma"`` (f32 pools, and bf16 or
-    fp8 pools with other pages). bf16 and fp8 pools take G in TMA_GROUPS
-    only (either kernel); another G raises NotImplementedError."""
+    fp8 pools with other pages). Both take every G."""
     code = check_pool_dtype(dtype)
-    if code != 0 and G not in TMA_GROUPS:
-        raise NotImplementedError(
-            f"the CUDA prefill kernel for bf16 and fp8 pools takes GQA groups "
-            f"of {TMA_GROUPS} query heads, not {G}")
+    if G < 1:
+        raise ValueError(f"a GQA group of {G} query heads")
     return "tma" if code != 0 and page in TMA_PAGES else "fma"
 
 

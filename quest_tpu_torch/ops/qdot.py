@@ -12,8 +12,8 @@ f32 [1, out] and optional ``inv_s`` f32 [in] (the AWQ fold).
   ``qgemv_ring_kernel`` (bf16 x: q streamed by TMA through a
   shared-memory ring, the products on the tensor cores, the input-row
   splits merged inside a thread-block cluster) or ``qgemv_kernel`` (f32
-  x, FMA); on a CPU tensor it runs :func:`qgemv_plain`, JAX's
-  expression.
+  x, and bf16 x whose out is not a multiple of 16, FMA); on a CPU tensor
+  it runs :func:`qgemv_plain`, JAX's expression.
 - :func:`dequant`: the weights as a bf16 or f32 [in, out] matrix, for the
   prefill rows' ``torch.matmul``. On a CUDA tensor it launches
   ``csrc/qgemv.cu:dequant_kernel``; on a CPU tensor it runs
@@ -227,9 +227,10 @@ def _check(dtype, device, q, s, inv_s, bits, K, N):
     if dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"the weight kernels take bf16 or f32 "
                                   f"activations and weights, not {dtype}")
-    if N % 16 or (bits == 4 and K % 2):
-        raise NotImplementedError(f"the weight kernels take out % 16 == 0 "
-                                  f"(and an even in for int4): {K}x{N}")
+    if bits == 4 and K % 2:
+        # JAX's quantize_weight packs rows [0, in/2) with rows [in/2, in)
+        # and cannot make such a weight either.
+        raise NotImplementedError(f"an int4 weight needs an even in: {K}x{N}")
     if q.dtype != torch.int8 or s.dtype != torch.float32 or (
             inv_s is not None and inv_s.dtype != torch.float32):
         raise TypeError("q must be int8, s and inv_s f32")
@@ -307,12 +308,15 @@ def qgemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"weights {tuple(q.shape)} / {tuple(s.shape)} do "
                          f"not match x [.., {K}] at {bits} bits")
     bf16 = x2.dtype == torch.bfloat16
-    p = plan or qgemv_plan(q.shape[-2], N, sm_count(x.device), M, bits, bf16)
+    # The ring kernel reads q by TMA, which needs 16-byte rows: bf16 x with
+    # another out takes the FMA kernel (in bf16).
+    ring = bf16 and N % 16 == 0
+    p = plan or qgemv_plan(q.shape[-2], N, sm_count(x.device), M, bits, ring)
     lib = _build.load("qgemv")
     part = tick = tmap = None
-    if bf16:
+    if ring:
         tmap = _tensor_map(lib, q, RING_STAGE_BYTES // p.tile_n)
-    if p.ksplit > 1 and (not bf16 or RING_TICKETS):
+    if p.ksplit > 1 and (not ring or RING_TICKETS):
         part, tick = _workspace(x.device, p.ksplit * M * N, -(-N // p.tile_n))
     out = torch.empty((M, N), dtype=dtype, device=x.device)
     code = lib.qgemv_launch(

@@ -104,8 +104,9 @@ def sparse_decode_attention(q, kv_pages, indices, num_valid, seq_lens, *,
     Hsel, G, kvdiv = _selection_shape(q, kv_pages, indices, per_q_head)
     if D != 128 or Dk != 128:
         raise NotImplementedError("the CUDA decode kernels take head_dim 128")
-    if G not in (1, 2, 4, 8) or Hsel * G != Hq or Hq % Hkv:
-        raise NotImplementedError(f"GQA group {Hq}/{Hkv} not supported")
+    if Hsel * G != Hq or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} KV "
+                         "heads")
     for t in (kv_pages, indices, num_valid, block_tab, seq_lens):
         if t.device != q.device:
             raise ValueError("all operands must be on the query's device")

@@ -80,16 +80,30 @@ def check_pool_dtype(dtype: torch.dtype, what: str = "KV pool") -> int:
     return DTYPE_CODES[dtype]
 
 
+def padded_group(G: int) -> int:
+    """The query heads a kernel CTA takes of a GQA group of ``G``: the
+    next of 1, 2, 4, 8 and 16 (padded heads hold a zero query and are
+    never written); groups above 16 run ``sub_groups(G)`` CTAs of 16."""
+    return next(p for p in (1, 2, 4, 8, 16) if p >= min(G, 16))
+
+
+def sub_groups(G: int) -> int:
+    """CTAs of ``padded_group(G)`` heads a group of ``G`` takes."""
+    return -(-G // padded_group(G))
+
+
 def check_kernel_operands(q: torch.Tensor, Hkv: int, *tensors) -> int:
-    """Shared checks of the decode-side CUDA wrappers: head dim 128, a
-    GQA group in {1, 2, 4, 8}, every operand on q's device and
-    contiguous. Returns the group size G."""
+    """Shared checks of the decode-side CUDA wrappers: head dim 128, the
+    query heads a whole number of groups of the Hkv KV heads (any group
+    size), every operand on q's device and contiguous. Returns the group
+    size G."""
     B, Hq, D = q.shape
     if D != 128:
         raise NotImplementedError("the CUDA kernels take head_dim 128")
     G = Hq // Hkv
-    if G not in (1, 2, 4, 8) or G * Hkv != Hq:
-        raise NotImplementedError(f"GQA group {Hq}/{Hkv} not supported")
+    if G < 1 or G * Hkv != Hq:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} KV "
+                         "heads")
     for t in tensors:
         if t.device != q.device:
             raise ValueError("all operands must be on the query's device")

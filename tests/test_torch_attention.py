@@ -20,8 +20,7 @@ from quest_tpu_torch.ops.decode_common import (MAX_SPLITS, decode_plan,
                                                workspace)
 from quest_tpu_torch.ops.dense_decode import (dense_decode_attention,
                                               dense_decode_attention_plain)
-from quest_tpu_torch.ops.prefill import (TMA_GROUPS, TMA_PAGES,
-                                         prefill_attention,
+from quest_tpu_torch.ops.prefill import (TMA_PAGES, prefill_attention,
                                          prefill_attention_plain,
                                          prefill_route)
 from quest_tpu_torch.ops.sparse_decode import (sparse_decode_attention,
@@ -171,6 +170,83 @@ def test_prefill_plain_matches_jax(jx, name):
     live = kvl > 0
     np.testing.assert_allclose(got[live], want[live], rtol=2e-3, atol=2e-3)
     assert np.all(got[~live] == 0)
+
+
+# GQA groups the presets do not have (Qwen2-7B has 7, Qwen2.5-14B 5) and
+# groups above the kernels' 16-head CTA (sub-groups), two KV heads each.
+GROUPS = [3, 6, 16, 32]
+GROUP_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def group_case(kernel, G, dtype, seed=40):
+    """One call's operands at a GQA group of G over two KV heads, as numpy
+    (f32; a bf16 pool is the f32 values rounded once, handed to both
+    sides): a shuffled table, rows ending mid-page, a chunked prefill."""
+    D, page, bpp, NB, Hkv = 32, 8, 4, 6, 2
+    rng, pool, tab = make_pool(seed + G, 2, Hkv, D, page, bpp, NB)
+    if dtype == "bfloat16":
+        pool = torch.from_numpy(pool).bfloat16().float().numpy()
+    c = dict(pool=pool, tab=tab, bpp=bpp, sm=1.0 / np.sqrt(D),
+             max_pages=NB * bpp)
+    if kernel == "prefill":
+        c.update(q=rng.standard_normal((2, 20, Hkv * G, D)).astype(np.float32),
+                 off=np.asarray([37, 0], np.int32),
+                 kvl=np.asarray([57, 13], np.int32))
+        return c
+    seq = np.asarray([150, 61], np.int32)
+    c.update(q=rng.standard_normal((2, Hkv * G, D)).astype(np.float32),
+             seq=seq)
+    if kernel == "sparse":
+        scores = rng.standard_normal((2, Hkv, NB * bpp)).astype(np.float32)
+        idx, nv = select_pages(torch.from_numpy(scores),
+                               torch.from_numpy(seq), page, 5)
+        c.update(idx=idx.numpy(), nv=nv.numpy())
+    return c
+
+
+def group_call(kernel, c, T, **extra):
+    """The port's wrapper (T: numpy -> tensor) on a group case."""
+    kw = dict(sm_scale=c["sm"], layer=LAYER, block_tab=T(c["tab"]),
+              block_pages=c["bpp"], **extra)
+    if kernel == "sparse":
+        return sparse_decode_attention(T(c["q"]), T(c["pool"]), T(c["idx"]),
+                                       T(c["nv"]), T(c["seq"]), **kw)
+    if kernel == "dense":
+        return dense_decode_attention(T(c["q"]), T(c["pool"]), T(c["seq"]),
+                                      **kw)
+    return prefill_attention(T(c["q"]), T(c["pool"]), T(c["off"]),
+                             T(c["kvl"]), **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("kernel", ["sparse", "dense", "prefill"])
+def test_group_plain_matches_jax(jx, kernel, G, dtype):
+    """Each decode-side kernel's plain version against the JAX kernel
+    (Pallas, interpret mode) at groups of 3, 6, 16 and 32 query heads a KV
+    head, f32 and bf16 pools: within 2e-4 and 2e-2 (max |d| / max |JAX|)."""
+    c = group_case(kernel, G, dtype)
+    J = jx.jnp.asarray
+    pool = J(c["pool"], getattr(jx.jnp, dtype))
+    common = dict(sm_scale=c["sm"], layer=LAYER, block_tab=J(c["tab"]),
+                  block_pages=c["bpp"])
+    if kernel == "sparse":
+        want = jx.sparse(J(c["q"]), pool, J(c["idx"]), J(c["nv"]),
+                         J(c["seq"]), sorted_selection=True, **common)
+    elif kernel == "dense":
+        want = jx.dense(J(c["q"]), pool, J(c["seq"]),
+                        max_pages=c["max_pages"], **common)
+    else:
+        want = jx.prefill(J(c["q"]), pool, J(c["off"]), J(c["kvl"]),
+                          max_pages=c["max_pages"], **common)
+    tdt = getattr(torch, dtype)
+    got = group_call(kernel, c, lambda a: (torch.from_numpy(a).to(tdt)
+                                           if a is c["pool"]
+                                           else torch.from_numpy(a)))
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err <= GROUP_TOL[dtype], err
 
 
 # --------------------------------------------------------------------------
@@ -344,20 +420,24 @@ def test_decode_ablation_cpu_smoke(capsys):
     (torch.bfloat16, 256, 2, "fma"), (torch.float32, 16, 4, "fma"),
     (torch.float32, 4, 3, "fma")])
 def test_prefill_route_by_shape(dtype, page, G, route):
-    """The prefill wrapper picks its card kernel by dtype, page and G
-    alone: TMA + wgmma for bf16 and fp8 pools with pages in TMA_PAGES,
-    the FMA kernel for f32 pools and for other pages."""
+    """The prefill wrapper picks its card kernel by dtype and page alone:
+    TMA + wgmma for bf16 and fp8 pools with pages in TMA_PAGES, the FMA
+    kernel for f32 pools and for other pages, whatever the group."""
     assert prefill_route(dtype, page, G) == route
-    assert (route == "tma") == (dtype != torch.float32 and page in TMA_PAGES
-                                and G in TMA_GROUPS)
+    assert (route == "tma") == (dtype != torch.float32 and page in TMA_PAGES)
 
 
 def test_prefill_route_refuses_group():
-    """bf16 and fp8 pools take G in TMA_GROUPS on either route."""
+    """No GQA group is refused any more: bf16 and fp8 pools take groups of
+    3, 5, 7, 16 and 32 on either route (padded to 4, 8, 8, 16 and sub-groups
+    of 16); only a group of no head is."""
     for dtype in (torch.bfloat16, torch.float8_e4m3fn):
         for page in (4, 16):
-            with pytest.raises(NotImplementedError, match="GQA groups"):
-                prefill_route(dtype, page, 3)
+            for G in (3, 5, 7, 16, 32):
+                assert prefill_route(dtype, page, G) == (
+                    "tma" if page in TMA_PAGES else "fma")
+            with pytest.raises(ValueError, match="GQA group"):
+                prefill_route(dtype, page, 0)
 
 
 # The bf16 kernel's CTA takes 128 rows (128 / G positions x G heads) and
@@ -444,17 +524,16 @@ def test_prefill_cpu_takes_any_group():
 @pytest.mark.cuda
 @pytest.mark.parametrize("Hq,Hkv", [(12, 4), (32, 2)])
 def test_prefill_kernel_refuses_group(cuda, Hq, Hkv):
-    """The bf16 and fp8 kernel takes G = 1, 2, 4, 8 and raises on any
-    other group; the f32 FMA kernel takes every G."""
-    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+    """The groups the bf16 and fp8 kernel once refused (3, and 16 a KV
+    head) now run on it, as on the f32 FMA kernel, within their
+    tolerance of the plain version."""
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float32):
         args, kw = prefill_group_case(cuda, Hq, Hkv, dtype)
-        with pytest.raises(NotImplementedError, match="GQA groups"):
-            prefill_attention(*args, **kw)
-    args, kw = prefill_group_case(cuda, Hq, Hkv, torch.float32)
-    got = prefill_attention(*args, **kw)
-    want = prefill_attention_plain(*args, **kw)
-    torch.cuda.synchronize()
-    assert rel_err(got, want) <= CARD_TOL[torch.float32]
+        got = prefill_attention(*args, **kw)
+        want = prefill_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert rel_err(got, want) <= CARD_TOL.get(dtype,
+                                                  CARD_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -479,3 +558,45 @@ def test_prefill_kernel_small_pages(cuda, q_dtype, dtype, page):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert rel_err(got, want) <= CARD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES)
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("kernel", ["sparse", "dense", "prefill"])
+def test_group_kernels_match_plain(cuda, kernel, G, dtype, q_dtype):
+    """Groups of 3, 6, 16 and 32 query heads a KV head (padded to 4, 8 and
+    16 heads a CTA; 32 runs two sub-groups of 16) on the card kernels of
+    every pool dtype, against the plain versions: rows of 700 tokens and
+    of one, a chunked and a fresh prefill (a padded head written would
+    land on another head's row)."""
+    B, Hkv, NB, page = 2, 2, 6, 16
+    bpp = 128 // page
+    g, pool, tab = card_pool(21 + G, B, Hkv, NB, dtype, page=page, bpp=bpp)
+    kw = dict(sm_scale=128 ** -0.5, layer=LAYER, block_tab=tab,
+              block_pages=bpp)
+    if kernel == "prefill":
+        q = torch.randn((B, 70, Hkv * G, 128), generator=g,
+                        device=cuda).to(q_dtype)
+        args = (q, pool, torch.tensor([200, 0], dtype=torch.int32,
+                                      device=cuda),
+                torch.tensor([270, 61], dtype=torch.int32, device=cuda))
+        got = prefill_attention(*args, **kw)
+        want = prefill_attention_plain(*args, **kw)
+    else:
+        seq = torch.tensor([700, 1], dtype=torch.int32, device=cuda)
+        q = torch.randn((B, Hkv * G, 128), generator=g,
+                        device=cuda).to(q_dtype)
+        if kernel == "sparse":
+            scores = torch.randn((B, Hkv, NB * bpp), generator=g,
+                                 device=cuda)
+            idx, nv = select_pages(scores, seq, page, 20)
+            got = sparse_decode_attention(q, pool, idx, nv, seq, **kw)
+            want = sparse_decode_attention_plain(q, pool, idx, nv, seq, **kw)
+        else:
+            got = dense_decode_attention(q, pool, seq, **kw)
+            want = dense_decode_attention_plain(q, pool, seq, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert rel_err(got, want) <= CARD_TOL.get(dtype, CARD_TOL[torch.bfloat16])

@@ -230,6 +230,47 @@ def test_fused_plain_matches_jax(jx, name):
               2e-2 if dt == "bfloat16" else 2e-3)
 
 
+@pytest.mark.parametrize("G", [3, 6, 16, 32])
+def test_group_estimate_and_fused_plain_match_jax(jx, G):
+    """Groups of 3, 6, 16 and 32 query heads a KV head (f32): the streaming
+    estimate's plain version within 1e-5 of JAX's kernel, with sum and with
+    max over the group; the fused op's plain version within 2e-3 of JAX's
+    fused kernel, its selected ids (the valid slots) bitwise equal to
+    JAX's page_scores_physical + select_pages over the same pool."""
+    from quest_tpu.ops.estimate import page_scores_physical as jphys
+    from quest_tpu.ops.topk import select_pages as jselect
+    B, Hkv, page, D, NB, bpp, K = 2, 2, 8, 64, 8, 16, 24
+    c = shared_pool(60 + G, B, Hkv, G, page, D, NB, bpp, (1001, 77),
+                    torch.float32)
+    J = jx.jnp.asarray
+    kx = c["kmax"][LAYER].reshape(1, Hkv, -1, D).repeat(B, 1, 1, 1)
+    kn = c["kmin"][LAYER].reshape(1, Hkv, -1, D).repeat(B, 1, 1, 1)
+    for agg in ("sum", "max"):
+        want = jx.est(J(c["q"].numpy()), J(kx.numpy()), J(kn.numpy()),
+                      group_agg=agg)
+        got = page_scores_kernel(c["q"], kx, kn, agg)
+        rel_close(got.numpy(), np.asarray(want), 1e-5)
+    kw = dict(budget_pages=K, group_agg="sum", layer=LAYER,
+              block_pages=bpp)
+    want = jx.fused(J(c["q"].numpy()), J(c["kv"].numpy()),
+                    J(c["kmax"].numpy()), J(c["kmin"].numpy()),
+                    J(c["seq"].numpy()), sm_scale=c["sm"],
+                    block_tab=J(c["tab"].numpy()), **kw)
+    got, ids = fused_sparse_decode(c["q"], c["kv"], c["kmax"], c["kmin"],
+                                   c["seq"], sm_scale=c["sm"],
+                                   block_tab=c["tab"], return_ids=True, **kw)
+    rel_close(got.numpy(), np.asarray(want), 2e-3)
+    scores = jphys(J(c["q"].numpy()), J(c["kmax"][LAYER].numpy()),
+                   J(c["kmin"][LAYER].numpy()), J(c["tab"].numpy()),
+                   group_agg="sum")
+    jids, jnv = jselect(scores, J(c["seq"].numpy()), page, K)
+    # Slots past num_valid are junk (the fused op writes 0, select_pages
+    # the last page).
+    for b, nv in enumerate(np.asarray(jnv)):
+        assert np.array_equal(ids.numpy()[b, :, :nv],
+                              np.asarray(jids)[b, :, :nv])
+
+
 def test_fused_plain_selects_like_the_pipeline():
     """The plain fused op selects the pages that the streaming estimate
     and select_pages select, and on f32 data equals the plain pipeline
@@ -410,10 +451,15 @@ def estimate_operands(g, B, Hkv, P, layout, scale=1.0):
             LAYER if layout == "stacked" else None)
 
 
+# Every group size the kernels pad (3, 6), a whole 16-head CTA, and two
+# sub-groups of 16 (32), beside the presets' 1, 2, 4 and 8.
+CARD_GROUPS = [1, 2, 3, 4, 6, 8, 16, 32]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("meta", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", CARD_GROUPS)
 @pytest.mark.parametrize("P,layout", ESTIMATE_SHAPES)
 def test_estimate_kernel_matches_plain(cuda, q_dtype, meta, G, P, layout):
     B, Hkv = 3, 4
@@ -421,7 +467,7 @@ def test_estimate_kernel_matches_plain(cuda, q_dtype, meta, G, P, layout):
     kmax, kmin, layer = estimate_operands(g, B, Hkv, P, layout)
     kmax, kmin = kmax.to(meta), kmin.to(meta)
     q = torch.randn((B, Hkv * G, 128), generator=g, device=cuda).to(q_dtype)
-    agg = "max" if G % 4 else "sum"
+    agg = "max" if G % 4 else "sum"    # 3, 6: max; 16, 32: sum
     got = page_scores_kernel(q, kmax, kmin, agg, layer=layer)
     want = page_scores_kernel_plain(q, kmax, kmin, agg, layer=layer)
     torch.cuda.synchronize()
@@ -483,7 +529,7 @@ def kernel_selection(q, kmax, kmin, tab, bpp, seq, page, K, agg):
 @pytest.mark.parametrize("pool,meta", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", CARD_GROUPS)
 @pytest.mark.parametrize("page", [4, 8, 16, 32])
 def test_fused_kernel_matches_plain(cuda, q_dtype, pool, meta, G, page):
     B, Hkv, NB, bpp, K = 4, 2, 6, 32, 40

@@ -141,6 +141,53 @@ def test_qdot_matches_jax(jx, bits, fold):
         (torch.from_numpy(x) @ torch.from_numpy(w)).numpy())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fold", [False, True], ids=["rtn", "inv_s"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qdot_matches_jax_at_out_1000(jx, bits, fold, dtype):
+    """An out width that is not a multiple of 16 (1000), which JAX's qdot
+    takes: the port's product on the CPU (the kernels' plain version)
+    within 1e-6 (f32) or one bf16 rounding (bf16) of JAX's, and its
+    dequantized weight bit for bit."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    w = rng.standard_normal((64, 1000)).astype(np.float32)
+    jw = jx.jquant.quantize_weight(jx.jnp.asarray(w), bits)
+    inv = rng.uniform(0.5, 2.0, 64).astype(np.float32) if fold else None
+    if fold:
+        jw = dataclasses.replace(jw, inv_s=jx.jnp.asarray(inv))
+    jdt = getattr(jx.jnp, dtype)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = np.asarray(jx.jquant.qdot(jx.jnp.asarray(xt.float().numpy(), jdt),
+                                     jw)).astype(np.float32)
+    tw = params_from_numpy({"embed": x, "final_norm": x, "lm_head": jw,
+                            "layers": {}}, device="cpu")["lm_head"]
+    got = qdot(xt, tw).float().numpy()
+    assert got.shape == (2, 3, 1000)
+    tol = 1e-6 if dtype == "float32" else 2 ** -8
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+    np.testing.assert_array_equal(
+        dequantize_weight(tw, torch.float32).numpy(),
+        np.asarray(jx.jquant.dequantize_weight(jw, jx.jnp.float32)))
+
+
+def test_int4_odd_in_is_refused_like_jax(jx):
+    """An int4 weight packs input rows [0, in/2) with rows [in/2, in):
+    JAX's quantize_weight cannot make one of an odd in (the halves do
+    not line up), and neither can the port's; the weight kernels refuse
+    an odd in at int4 too."""
+    w = _weights(15, (65, 48))
+    with pytest.raises(Exception):
+        jx.jquant.quantize_weight(jx.jnp.asarray(w), 4)
+    with pytest.raises(RuntimeError):
+        quantize_weight(torch.from_numpy(w), 4)
+    q = torch.zeros((32, 48), dtype=torch.int8)
+    s = torch.ones((1, 48))
+    with pytest.raises(NotImplementedError, match="even in"):
+        tops._check(torch.bfloat16, q.device, q, s, None, 4, 65, 48)
+    tops._check(torch.bfloat16, q.device, q, s, None, 8, 32, 48)  # int8: any
+
+
 def _jax_tree(jx, bits):
     params = jx.jinit(jx.jcfg, jx.jax.random.PRNGKey(2), dtype=jx.jnp.float32)
     return jx.jax.tree.map(np.asarray, jx.jquant.quantize_params(params, bits))
@@ -592,3 +639,30 @@ def test_chip_smoke_awq_phase_on_cpu():
     is above RTN's (the phase asserts it), and the sum falls."""
     sums = chip_smoke.small_awq_phase("cpu")
     assert sums["awq"] < sums["rtn"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1000, 999])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_weight_kernels_take_any_out_on_card(cuda, bits, dtype, N):
+    """Out widths that are not a multiple of 16: 1000 (8-byte rows) and
+    999 (rows a byte at a time, dequant's element kernel). qgemv at M =
+    1, 2, 4 and 16 (bf16 x through the FMA kernel, as TMA takes only
+    16-byte rows) within 2e-2 (bf16) or 1e-5 (f32) of the plain
+    expression, with the AWQ fold; dequant bit for bit."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(N + bits)
+    K = 512
+    w = quantize_weight(torch.randn((K, N), generator=g, device=cuda), bits)
+    inv = torch.rand((K,), generator=g, device=cuda) + 0.5
+    for M in (1, 2, 4, 16):
+        x = torch.randn((M, K), generator=g, device=cuda).to(dt)
+        got = tops.qgemv(x, w.q, w.s, inv, bits)
+        want = tops.qgemv_plain(x, w.q, w.s, inv, bits, dt)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == (M, N)
+        assert _rel(got, want) <= (2e-2 if dt == torch.bfloat16 else 1e-5)
+    for fold in (None, inv):
+        got = tops.dequant(w.q, w.s, fold, bits, dt)
+        assert torch.equal(got, tops.dequant_plain(w.q, w.s, fold, bits, dt))

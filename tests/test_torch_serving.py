@@ -119,7 +119,7 @@ def test_scheduler_matches_jax_step_for_step(jx, setting):
                                       np.asarray(j.cache.block_tab))
         np.testing.assert_array_equal(t.cache.seq_lens.numpy(),
                                       np.asarray(j.cache.seq_lens))
-        assert [t.pool.free_pages()] == [p.free_pages() for p in j.pools]
+        assert [t.pools[0].free_pages()] == [p.free_pages() for p in j.pools]
     assert not t.has_work()
     assert "decode" in ticks and ticks.count("prefill") >= 3
     assert (t.prefix_hits, t.prefix_hit_tokens) == (j.prefix_hits,
@@ -142,9 +142,9 @@ def test_scheduler_drains_and_releases_every_block(jx):
     bt = jx.quest.block_pages * jx.quest.page_size
     out = eng.run(chip_smoke.scheduler_requests(256, bt))
     assert sorted(out) == list(range(6))
-    assert eng.pool.total_pages == 6
-    held = {b for ent in eng._prefix.values() for b in ent}
-    assert held and eng.pool.free_pages() + len(held) == 6
+    assert eng.pools[0].total_pages == 6
+    held = {b for ent in eng._prefixes[0].values() for b in ent}
+    assert held and eng.pools[0].free_pages() + len(held) == 6
     assert not eng.cache.block_tab.any() and not eng.cache.seq_lens.any()
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.submit(Request(9, [1] * 250, 10))
