@@ -43,10 +43,11 @@ Phases, each fatal on failure:
      and ``serving_quest_config`` with bf16 and with fp8 KV: each runs
      ``generate`` on two prompts, then ``clear()`` and
      ``generate_ondevice`` on two more, with the kernel launch counts of
-     each run checked against its path; the decode steps timed in turns
-     and profiled, the device ops of a step checked against the path's
-     (the sparse and dense kernels merge their splits in the same
-     launch);
+     each run checked against its path (the decode steps captured as CUDA
+     graphs and replayed, as every later phase runs them); prefill timed
+     in turns; the decode steps timed and profiled in phase 16, the
+     device ops of an eager step checked against the path's (the sparse
+     and dense kernels merge their splits in the same launch);
   7. the continuous-batching scheduler on the 4-layer model in f32 on
      the card against the same scheduler on the CPU's plain path,
      unfused and fused, over six requests on three slots (chunked
@@ -57,7 +58,9 @@ Phases, each fatal on failure:
      kernel calls, one of each kind of batch it forms (rows prefilling,
      riding along with no new token, empty on the scratch block,
      inactive mid-prompt, aliasing a borrowed prefix), are copied and
-     held against the plain versions within 2e-2 (:class:`KernelTap`);
+     held against the plain versions within 2e-2 (:class:`KernelTap`,
+     which wraps the kernels in Python, so its runs are under
+     ``engine.graphs.eager()``);
   8. the scheduler serving the full-width Llama-3.1-8B (phase 6's
      weights) with ``serving_quest_config`` and bf16 KV: six requests on
      four slots, 8 usable blocks of 2048 tokens, a prefix hit; every
@@ -104,15 +107,33 @@ Phases, each fatal on failure:
      32/8 heads (no reading above 3.35 TB/s or 989 TFLOP/s; each stage's
      kernel launched once a call), bench_serving (tokens generated and
      prefix hits), profile_textgen (every range of the unfused path with
-     device time), accuracy_delta (the control's delta 0, every row
-     finite), accuracy_proxies on the card against the CPU (rows within
-     1e-3) and the two examples.
+     device time, read under ``eager()``; the captured step's device ms
+     and ops), accuracy_delta (the control's delta 0, every row finite),
+     accuracy_proxies on the card against the CPU (rows within 1e-3) and
+     the two examples;
+ 15. multi-GPU: 15a a world of 1 over NCCL in this process (the sharded
+     decode steps captured) against the unsharded path; 15b/15c two gloo
+     ranks on the card (eager: gloo cannot be captured);
+ 16. the decode steps captured once as CUDA graphs and replayed
+     (``quest_tpu_torch/engine/graphs.py``), held against ``eager()``,
+     run on the engines and weights of the phases above: on phase 6's
+     four engines and phase 11's int8 and int4 engines (B=2), 32 greedy
+     tokens equal and launches equal, the logits of two decode steps bit
+     for bit (else within 2e-2), wall and host-enqueue ms a step in turns
+     (eager, graph, graph, eager), device busy ms and ops a step of each,
+     capture seconds and pool bytes; phase 8's requests on a new
+     scheduler with its steps captured: tokens (the sampled request's
+     too), ticks and launches equal to phase 8's eager run; phase 14's
+     bench_textgen runs (32K, the control, fused, fp8 at page 32) each
+     also under ``eager()``; ``exp/scheduler_load 16`` under ``eager()``
+     and captured.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this script, it exits non-zero and prints
 no result.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1060,7 +1081,7 @@ def group_cases(timer, gen):
                            "fused_decode", "prefill", "qgemv", "dequant")}
 
     def record(kname, label, got, want, ms, nbytes, flops=0, tol=REL_TOL,
-               **extra):
+               plain_ms=None, library_ms=None, **extra):
         err = rel_err(got, want)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
         by = "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S \
@@ -1068,10 +1089,13 @@ def group_cases(timer, gen):
         out[kname].append(dict(
             case=label, max_abs_err=float((got.float() - want.float()).abs()
                                           .max()),
-            max_rel_err=err, ms=ms, plain_ms=None, library_ms=None,
+            max_rel_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound, bound_by=by, **extra))
         log(f"{kname}[{label}]: rel err {err:.2e}, {ms * 1e3:.1f} us "
-            f"(bound {bound * 1e3:.1f} us)" + "".join(
+            f"(bound {bound * 1e3:.1f} us"
+            + (f", plain {plain_ms * 1e3:.1f} us" if plain_ms else "")
+            + (f", bf16 matmul {library_ms * 1e3:.1f} us" if library_ms
+               else "") + ")" + "".join(
                 f", {k} {v}" for k, v in extra.items()))
         assert err <= tol, f"{kname} disagrees ({label}): {err}"
 
@@ -1170,7 +1194,10 @@ def group_cases(timer, gen):
         record("qgemv", f"{tag}, M={M}", got, want,
                timer(lambda: qgemv(x, qw.q, qw.s, None, bits)),
                K * N * bits // 8 + 4 * N + M * (K + N) * 2,
-               flops=2 * M * K * N)
+               flops=2 * M * K * N,
+               plain_ms=timer(lambda: qgemv_plain(x, qw.q, qw.s, None, bits,
+                                                  torch.bfloat16)),
+               library_ms=timer(lambda: x @ w))
         got = dequant(qw.q, qw.s, None, bits, torch.bfloat16)
         want = dequant_plain(qw.q, qw.s, None, bits, torch.bfloat16)
         torch.cuda.synchronize()
@@ -1178,7 +1205,9 @@ def group_cases(timer, gen):
         record("dequant", f"{tag}, bf16, bitwise", got, want,
                timer(lambda: dequant(qw.q, qw.s, None, bits,
                                      torch.bfloat16)),
-               K * N * bits // 8 + 4 * N + K * N * 2, tol=0.0)
+               K * N * bits // 8 + 4 * N + K * N * 2, tol=0.0,
+               plain_ms=timer(lambda: dequant_plain(qw.q, qw.s, None, bits,
+                                                    torch.bfloat16)))
     return out
 
 
@@ -1401,6 +1430,8 @@ SERVING_PATHS = ("unfused", "fused", "serving", "serving_fp8")
 # launch a layer (30 sparse + 2 dense layers unfused, 2 dense fused).
 DEVICE_OPS_PER_STEP = {"unfused": 4450, "fused": 3130, "serving": 4450,
                        "serving_fp8": 4514}
+# Idle seconds between a profiled window's edges and the steps inside it.
+PROFILE_MARGIN_S = 0.25
 
 
 def serving_quest(path):
@@ -1411,7 +1442,7 @@ def serving_quest(path):
     return QuestConfig(max_seq_len=16384, fused_decode=path == "fused")
 
 
-def serving_phase(kernels):
+def serving_phase(kernels, smi):
     """Four engines over one set of random weights: the unfused pipeline
     (``QuestConfig`` default), ``fused_decode=True``, and the serving
     configuration (``serving_quest_config``: page 32, fp8 e4m3 metadata)
@@ -1488,8 +1519,8 @@ def serving_phase(kernels):
         f"{100 * same[0]:.1f}% / {100 * same[1]:.1f}% of positions "
         f"(generate / generate_ondevice; random bf16 weights)")
 
-    # Prefill of the second pair, then decode steps, in turns.
-    steps, decode_ms, prefill_s, tok = 16, {}, {}, {}
+    # Prefill of the second pair in turns, each followed by one step.
+    prefill_s = {}
     for path in SERVING_PATHS + SERVING_PATHS[::-1]:
         engine = engines[path]
         engine.clear()
@@ -1500,45 +1531,45 @@ def serving_phase(kernels):
         assert np.isfinite(logits).all(), "non-finite prefill logits"
         logits = engine.decode(np.argmax(logits, axis=-1))
         assert np.isfinite(logits).all(), "non-finite decode logits"
-        tk = torch.as_tensor(np.argmax(logits, axis=-1).astype(np.int32),
-                             device="cuda")
-        torch.cuda.synchronize()
-        t = time.time()
-        for _ in range(steps):
-            tk = engine.model.decode_token_step(engine.cache, tk)
-        torch.cuda.synchronize()
-        decode_ms.setdefault(path, []).append((time.time() - t) / steps * 1e3)
-        tok[path] = tk
+    # Phase 16 on these engines: captured against eager, decode steps
+    # timed in turns and profiled both ways.
+    graphs = graph_engine_phase(engines, p2, kernels, smi)
     n_prompt = sum(map(len, p2))
     serving = {}
     for path in SERVING_PATHS:
         tps = [n_prompt / t for t in prefill_s[path]]
+        g = graphs[path]
         log(f"serving[{path}]: prefill {n_prompt} tokens at "
             f"{' / '.join(f'{x:.0f}' for x in tps)} tokens/s; decode "
-            f"{' / '.join(f'{x:.2f}' for x in decode_ms[path])} ms/step at "
-            f"B=2 (generate_ondevice total {totals[path]:.2f} s)")
+            f"{' / '.join(f'{x:.2f}' for x in g['wall_ms_per_step']['eager'])}"
+            f" ms/step eager, "
+            f"{' / '.join(f'{x:.2f}' for x in g['wall_ms_per_step']['graph'])}"
+            f" captured, at B=2 (generate_ondevice total "
+            f"{totals[path]:.2f} s)")
         serving[path] = dict(pool_bytes=pools[path],
                              prefill_tokens_per_s=tps,
-                             decode_ms_per_step=decode_ms[path],
-                             generate_ondevice_s=totals[path],
-                             **profile_decode(engines[path], tok[path], path))
+                             generate_ondevice_s=totals[path], graphs=g)
         # Over the two profiled steps the fp8 engine runs one op more than
         # twice its step (4513.5 a step): half an op of slack.
-        ops = serving[path]["device_ops_per_step"]
+        ops = g["eager_device_ops_per_step"]
         assert abs(ops - DEVICE_OPS_PER_STEP[path]) <= 0.5, (
             f"{path}: {ops} device ops a decode step, expected "
-            f"{DEVICE_OPS_PER_STEP[path]}")
+            f"{DEVICE_OPS_PER_STEP[path]} (device op after its launch by "
+            f"{g['profile_eager']['launch_lag_ms']:.3f} ms at least)")
     serving["token_agreement"] = same
     return counts, serving, params
 
 
-def profile_decode(engine, tok, label, steps=2):
+def profile_decode(engine, tok, label, steps=2, graph=False):
     """Where a decode step's time goes: :func:`profile_steps` over
-    ``steps`` on-device greedy steps of ``engine``."""
+    ``steps`` on-device greedy steps of ``engine``: the model's step
+    (eager), or with ``graph`` the engine's compiled step (replays)."""
+    step = engine._tok_fn if graph else engine.model.decode_token_step
+
     def run():
         nonlocal tok
         for _ in range(steps):
-            tok = engine.model.decode_token_step(engine.cache, tok)
+            tok = step(engine.cache, tok)
         return steps
     return profile_steps(run, label)
 
@@ -1547,27 +1578,48 @@ def profile_steps(run, label):
     """torch.profiler over ``run()``, which returns the decode steps it
     ran. Prints device time by kernel and the device's busy share of the
     wall time; the trace goes to
-    build/chip_smoke/decode_trace_<label>.json."""
-    from torch.profiler import ProfilerActivity, profile
+    build/chip_smoke/decode_trace_<label>.json, each device op's count and
+    time to decode_ops_<label>.json. The profiler runs a warm-up cycle
+    (one small op) before the traced one: kernels launched just as a
+    trace starts can be missing from it, which read as 1-10 ops fewer a
+    step. The profiler also keeps only the device ops whose times, on
+    its clock, fall inside the traced window, and the device's clock may
+    read some milliseconds off the host's: on one card it read 173 ops
+    fewer over two eager steps. So the window opens PROFILE_MARGIN_S
+    before the first step and closes as long after the last, and the
+    trace's device-vs-host lag is printed (:func:`launch_lag_ms`)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    trace = OUT_DIR / f"decode_trace_{label}.json"
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(
+                     str(trace))) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(PROFILE_MARGIN_S)
         t = time.time()
         steps = run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(OUT_DIR / f"decode_trace_{label}.json"))
+        time.sleep(PROFILE_MARGIN_S)
+        prof.step()
     # The model's trace ranges come back as device events too
     # (gpu_user_annotation); device_ops leaves them out.
     from quest_tpu_torch.scripts.profile_textgen import device_ops
     events = device_ops(prof.key_averages())
     events.sort(key=lambda e: -e.self_device_time_total)
+    (OUT_DIR / f"decode_ops_{label}.json").write_text(json.dumps(
+        [(e.key, e.count, e.self_device_time_total) for e in events]))
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     n_launch = sum(e.count for e in events)
+    lag = launch_lag_ms(trace)
     log(f"profile[{label}]: {steps} decode steps, wall {wall_ms:.1f} ms, device busy "
         f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
-        f"{n_launch / steps:.0f} device ops a step; top device time:")
+        f"{n_launch / steps:.0f} device ops a step; device op after its "
+        f"launch by {lag:.3f} ms at least; top device time:")
     top = []
     for e in events[:12]:
         top.append(dict(name=e.key[:80], count=e.count,
@@ -1576,7 +1628,29 @@ def profile_steps(run, label):
             f"x{e.count // steps:5d}  {e.key[:90]}")
     return dict(profile_wall_ms_per_step=wall_ms / steps,
                 profile_device_ms_per_step=device_ms / steps,
-                device_ops_per_step=n_launch / steps, profile_top=top)
+                device_ops_per_step=n_launch / steps, profile_top=top,
+                launch_lag_ms=lag)
+
+
+def launch_lag_ms(trace):
+    """The least time, on the profiler's clock, from a host launch
+    (``cuda_runtime`` or ``cuda_driver`` event) to the start of the device
+    op it launched, over the Chrome trace at ``trace``. A device op
+    cannot start before its launch, so a negative lag is the device
+    clock reading behind the host's by at least that much."""
+    events = json.loads(Path(trace).read_text())["traceEvents"]
+    host, device = {}, []
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if corr is None or "ts" not in e:
+            continue
+        cat = e.get("cat", "")
+        if cat in ("cuda_runtime", "cuda_driver"):
+            host[corr] = float(e["ts"])
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((corr, float(e["ts"])))
+    lags = [ts - host[c] for c, ts in device if c in host]
+    return min(lags) / 1e3 if lags else float("nan")
 
 
 # ---------------------------------------------------------------------------
@@ -1644,7 +1718,9 @@ class KernelTap:
     as the path runs it, so the launch counts stay the path's; only the
     pool's layer that the call reads is copied. ``want(kernel, layer)``
     names the call's batch (a label) or returns None; the first call of
-    each (kernel, label) is taken, of calls on ``device`` only."""
+    each (kernel, label) is taken, of calls on ``device`` only. A replayed
+    graph never calls the Python names, so the compiled steps run under
+    ``engine.graphs.eager()`` while the tap is open."""
 
     NAMES = {"prefill": "prefill_attention",
              "sparse_decode": "sparse_decode_attention",
@@ -1658,6 +1734,9 @@ class KernelTap:
 
     def __enter__(self):
         import quest_tpu_torch.models.llama as llama
+        from quest_tpu_torch.engine.graphs import eager
+        self._eager = eager()
+        self._eager.__enter__()
         self._llama = llama
         self._orig = {k: getattr(llama, f) for k, f in self.NAMES.items()}
         for k, f in self.NAMES.items():
@@ -1667,6 +1746,7 @@ class KernelTap:
     def __exit__(self, *exc):
         for k, f in self.NAMES.items():
             setattr(self._llama, f, self._orig[k])
+        self._eager.__exit__(*exc)
 
     def _wrap(self, kernel, fn):
         taken = set()
@@ -1898,6 +1978,7 @@ def scheduler_phase(params, kernels, smi):
     the scheduler's throughput. Returns the run's numbers and the tap's
     cases."""
     from quest_tpu_torch.config import llama31_8b, serving_quest_config
+    from quest_tpu_torch.engine.graphs import eager
     from quest_tpu_torch.engine.scheduler import (ContinuousBatchingEngine,
                                                   Request)
     cfg = llama31_8b()
@@ -1913,55 +1994,67 @@ def scheduler_phase(params, kernels, smi):
     reqs = [Request(u, prompts[u], new, temperature=t)
             for u, (_, new, t) in FULL_REQUESTS.items()]
     L, skip = cfg.num_layers, quest.skip_layers
-    steps, finite, written = [0], [], []
-    model_decode, model_prefill = eng.model.decode_step, eng.model.prefill_last
+    finite, written = [], []
 
-    def decode_step(*a, **k):
-        steps[0] += 1
-        return model_decode(*a, **k)
+    def decode_calls(e):
+        return e._tok_fn.calls + e._sample_fn.calls
 
-    def prefill_last(cache, toks, new_lens):
-        out = model_prefill(cache, toks, new_lens)
-        finite.append(torch.isfinite(out[new_lens > 0]).all())
-        written.append(new_lens.sum())
-        return out
+    def serve(eng, count_prefill=False):
+        """Every request through ``eng``, tick by tick, each tick's
+        launches checked against its path (decode steps counted at the
+        compiled steps)."""
+        if count_prefill:
+            model_prefill = eng.model.prefill_last
 
-    eng.model.decode_step, eng.model.prefill_last = decode_step, prefill_last
-    for r in reqs:
-        eng.submit(r)
-    gens = {r.uid: [] for r in reqs}
-    totals = dict.fromkeys(kernels, 0)
-    times = {"prefill": [], "decode": []}
-    decode_steps = generated = 0
-    torch.cuda.synchronize()
-    t_all = time.time()
-    with KernelTap(scheduler_tap_rule(eng)) as tap:
+            def prefill_last(cache, toks, new_lens):
+                out = model_prefill(cache, toks, new_lens)
+                finite.append(torch.isfinite(out[new_lens > 0]).all())
+                written.append(new_lens.sum())
+                return out
+            eng.model.prefill_last = prefill_last
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        run = dict(gens={r.uid: [] for r in reqs}, ticks=[],
+                   totals=dict.fromkeys(kernels, 0),
+                   times={"prefill": [], "decode": []}, decode_steps=0,
+                   generated=0)
+        torch.cuda.synchronize()
+        t_all = time.time()
         while eng.has_work():
             for k in kernels.values():
                 k.launches = 0
-            steps[0] = 0
+            calls = decode_calls(eng)
             t = time.time()
             events = eng.step()
             torch.cuda.synchronize()
             dt = time.time() - t
+            n_steps = decode_calls(eng) - calls
             got = {n: k.launches for n, k in kernels.items()}
             for n in got:
-                totals[n] += got[n]
+                run["totals"][n] += got[n]
             want = dict.fromkeys(kernels, 0)
             if eng.last_tick == "prefill":
                 want["prefill"] = L
             else:
-                want.update(dense_decode=skip * steps[0],
-                            sparse_decode=(L - skip) * steps[0])
-                decode_steps += steps[0]
-                generated += len(events)
+                want.update(dense_decode=skip * n_steps,
+                            sparse_decode=(L - skip) * n_steps)
+                run["decode_steps"] += n_steps
+                run["generated"] += len(events)
             if eng.last_tick is not None:
-                times[eng.last_tick].append(dt)
-            assert got == want, (f"{eng.last_tick} tick of {steps[0]} decode "
+                run["times"][eng.last_tick].append(dt)
+            run["ticks"].append(eng.last_tick)
+            assert got == want, (f"{eng.last_tick} tick of {n_steps} decode "
                                  f"steps: launches {got} != path {want}")
             for ev in events:
-                gens[ev.uid].append(ev.token)
-    wall = time.time() - t_all
+                run["gens"][ev.uid].append(ev.token)
+        run["wall_s"] = time.time() - t_all
+        return run
+
+    with KernelTap(scheduler_tap_rule(eng)) as tap:      # eager
+        run = serve(eng, count_prefill=True)
+    gens, totals, times = run["gens"], run["totals"], run["times"]
+    decode_steps, generated = run["decode_steps"], run["generated"]
+    wall = run["wall_s"]
     cases = check_taps(tap, "Llama-3.1-8B, serving bf16 KV", tap_needs(quest))
     assert all(bool(f) for f in finite), "non-finite prefill logits"
     prefill_tokens = int(sum(w.item() for w in written))
@@ -1986,12 +2079,44 @@ def scheduler_phase(params, kernels, smi):
     assert eng.num_active == 4 and eng.pools[0].free_pages() == 0
 
     def burst():
-        steps[0] = 0
+        calls = decode_calls(eng)
         eng.step()
         assert eng.last_tick == "decode" and eng.num_active == 0
-        return steps[0]
+        return decode_calls(eng) - calls
 
-    prof = profile_steps(burst, "scheduler")
+    with eager():                   # as phase 8 always ran it
+        prof = profile_steps(burst, "scheduler")
+    hits, hit_tokens, pool_b = (eng.prefix_hits, eng.prefix_hit_tokens,
+                                cache_bytes(eng.cache))
+    # Phase 16: the same requests on a new scheduler (the same seed) with
+    # its steps captured: the run above is eager (the tap wraps the
+    # kernels in Python). Tokens (the sampled request's too), ticks and
+    # launches equal.
+    del eng
+    torch.cuda.empty_cache()
+    eng = ContinuousBatchingEngine(
+        cfg, quest, params, max_batch=4, burst=8, prefill_chunk=2048,
+        prefill_bucket=256, total_pages=8 * quest.block_pages, seed=0)
+    run_g = serve(eng)
+    same = (run_g["gens"] == gens, run_g["ticks"] == run["ticks"],
+            run_g["totals"] == totals)
+    dec_g = sum(run_g["times"]["decode"])
+    log(f"graphs[scheduler]: captured vs eager: tokens equal {same[0]} "
+        f"(uid 3 sampled), ticks equal {same[1]}, launches equal "
+        f"{same[2]}; {run_g['decode_steps']} decode steps at "
+        f"{dec_g / run_g['decode_steps'] * 1e3:.2f} ms a step captured "
+        f"against {sum(times['decode']) / decode_steps * 1e3:.2f} eager, "
+        f"{run_g['generated'] / dec_g:.1f} generated tokens/s over the "
+        f"decode ticks against {generated / sum(times['decode']):.1f}; "
+        f"{eng.graphs.summary()}")
+    assert all(same), "the captured scheduler differs from eager"
+    graph_res = dict(tokens_equal=True, ticks_equal=True,
+                     launches_equal=True, wall_s=run_g["wall_s"],
+                     decode_ms_per_step=dec_g / run_g["decode_steps"] * 1e3,
+                     generated_tokens_per_s=run_g["generated"] / dec_g,
+                     **eng.graphs.summary())
+    del eng
+    torch.cuda.empty_cache()
     pf_s, dec_s = sum(times["prefill"]), sum(times["decode"])
     res = dict(
         wall_s=wall, ticks=len(times["prefill"]) + len(times["decode"]),
@@ -2000,9 +2125,8 @@ def scheduler_phase(params, kernels, smi):
         decode_ticks=len(times["decode"]), decode_steps=decode_steps,
         generated_tokens=generated, generated_tokens_per_s=generated / dec_s,
         decode_ms_per_step=dec_s / decode_steps * 1e3,
-        prefix_hits=eng.prefix_hits,
-        prefix_hit_tokens=eng.prefix_hit_tokens,
-        pool_bytes=cache_bytes(eng.cache), launches=totals, **prof)
+        prefix_hits=hits, prefix_hit_tokens=hit_tokens, pool_bytes=pool_b,
+        launches=totals, graphs=graph_res, **prof)
     log(f"scheduler[Llama-3.1-8B, serving bf16 KV]: {len(reqs)} requests in "
         f"{wall:.1f} s, {res['ticks']} ticks (smoke-run rates, not the "
         f"scheduler's throughput); prefill {prefill_tokens} "
@@ -2011,7 +2135,7 @@ def scheduler_phase(params, kernels, smi):
         f"{decode_steps} steps in {res['decode_ticks']} bursts, "
         f"{generated} tokens at {res['generated_tokens_per_s']:.1f} "
         f"tokens/s, {res['decode_ms_per_step']:.2f} ms a step (B=4); "
-        f"prefix hits {eng.prefix_hits} ({eng.prefix_hit_tokens} tokens); "
+        f"prefix hits {hits} ({hit_tokens} tokens); "
         f"pool {res['pool_bytes'] / 1e9:.3f} GB; launches {totals}; "
         f"card {smi}")
     return res, cases
@@ -2328,6 +2452,9 @@ def quantized_serving_phase(params, kernels, smi):
         assert (kernels["qgemv"].launches, kernels["dequant"].launches
                 ) == (want, 0), f"{name} decode-step launches"
         last[name] = tk
+    # Phase 16 on the quantized engines.
+    graphs = graph_engine_phase({n: engines[n] for n in order[1:]}, prompts,
+                                kernels, smi)
     out = {}
     for name in order:
         res = dict(weight_bytes=wbytes[name],
@@ -2338,7 +2465,7 @@ def quantized_serving_phase(params, kernels, smi):
                    logits_corr_vs_bf16=corr[name])
         if name != "bf16":
             res.update(quantize_s=t_quant[name],
-                       generate_ondevice_s=t_gen[name],
+                       generate_ondevice_s=t_gen[name], graphs=graphs[name],
                        **profile_decode(engines[name], last[name], name))
         log(f"quantized[{name}]: weights {wbytes[name] / 1e9:.3f} GB"
             + (f", quantized in {t_quant[name]:.2f} s" if name != "bf16"
@@ -2478,11 +2605,16 @@ def eval_phase(cfg, params, kernels, device="cuda", warmup=3000,
     res = {}
 
     def counted(engine, fn):
-        """fn() with the launches counted and the prefill timed apart."""
+        """fn() with the launches counted, the decode steps counted at the
+        engine's compiled steps and the prefill timed apart."""
         for k in kernels.values():
             k.launches = 0
         pre, steps = [0.0, 0], [0]
-        prefill, decode = engine.prefill, engine.model.decode_step
+        prefill = engine.prefill
+
+        def decode_calls():
+            return sum(f.calls for f in (engine._decode_fn, engine._tok_fn,
+                                         engine._nll_fn))
 
         def timed_prefill(*a, **kw):
             sync()
@@ -2492,11 +2624,8 @@ def eval_phase(cfg, params, kernels, device="cuda", warmup=3000,
             pre[1] += 1
             return out
 
-        def counted_decode(*a, **kw):
-            steps[0] += 1
-            return decode(*a, **kw)
-
-        engine.prefill, engine.model.decode_step = timed_prefill, counted_decode
+        engine.prefill = timed_prefill
+        calls = decode_calls()
         try:
             sync()
             t = time.time()
@@ -2504,7 +2633,8 @@ def eval_phase(cfg, params, kernels, device="cuda", warmup=3000,
             sync()
             wall = time.time() - t
         finally:
-            del engine.prefill, engine.model.decode_step
+            del engine.prefill
+        steps[0] = decode_calls() - calls
         got = {n: k.launches for n, k in kernels.items()}
         skip = engine.quest.skip_layers
         want = dict.fromkeys(kernels, 0)
@@ -2596,6 +2726,7 @@ def tools_phase(params, kernels, smi):
     run's kernel launches are counted and checked against its path.
     Returns the numbers."""
     from quest_tpu_torch.config import llama31_8b
+    from quest_tpu_torch.engine.graphs import eager
     from quest_tpu_torch.models.llama import TRACE_RANGES
     from quest_tpu_torch.scripts import (accuracy_delta, accuracy_proxies,
                                          bench_kernels, bench_serving,
@@ -2612,13 +2743,18 @@ def tools_phase(params, kernels, smi):
     # bench_textgen: launches are the path's, per engine: prefill (4
     # chunks of 8192) twice, the control's once; one warm-up burst and N
     # timed steps.
-    for label, extra in TEXTGEN_RUNS.items():
+    # Phase 16: each run but the bursts also under eager() (the
+    # --eager flag), after its captured run.
+    for label, extra in [(lb + m, x + f) for lb, x in TEXTGEN_RUNS.items()
+                         for m, f in (("", []), ("_eager", ["--eager"]))
+                         if lb != "burst8" or not f]:
         t = time.time()
         args = bench_textgen.parse_args(
             ["--layers", "0", "--ctx", "32768", "--budget", "2048",
              "--batch", "1", "--decode-tokens", "32"] + extra)
-        out, got = counted_launches(kernels, lambda: bench_textgen.
-                                    run_bench_textgen(cfg, params, args))
+        with eager() if args.eager else contextlib.nullcontext():
+            out, got = counted_launches(kernels, lambda: bench_textgen.
+                                        run_bench_textgen(cfg, params, args))
         nb = args.burst
         steps = nb + -(-args.decode_tokens // nb) * nb
         chunks = -(-out["ctx"] // args.prefill_chunk)
@@ -2829,6 +2965,7 @@ def world1_phase(params, kernels):
     from quest_tpu_torch.models.llama import QuestModel
     from quest_tpu_torch.parallel import (init_sharded_cache, make_mesh,
                                           make_sharded_fns, shard_params)
+    from quest_tpu_torch.parallel.tp import graph_capture
     cfg, quest = llama31_8b(), QuestConfig(max_seq_len=16384)
     PHASE15_DIR.mkdir(parents=True, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=PHASE15_DIR)
@@ -2858,9 +2995,11 @@ def world1_phase(params, kernels):
                 lambda t: decode_fn(sp, scache, t)[0], toks, lens, N)}
         got = {k: counted_launches(kernels, f) for k, f in runs.items()}
         (tu, cu), (ts, cs) = got["unsharded"], got["sharded"]
-        log(f"15a: world 1 over NCCL, make_sharded_fns vs the unsharded "
+        log(f"15a: world 1 over NCCL (decode steps captured: "
+            f"{graph_capture(mesh)}), make_sharded_fns vs the unsharded "
             f"model, {N} greedy tokens of prompts {lens_np.tolist()}: "
             f"tokens equal {bool(torch.equal(tu, ts))}; launches {cs}")
+        assert graph_capture(mesh), "15a: NCCL steps are not captured"
         assert torch.equal(tu, ts), "15a: sharded tokens differ"
         assert cs == cu, f"15a: launches {cs} != unsharded {cu}"
         want = dict(prefill=cfg.num_layers,
@@ -3143,6 +3282,121 @@ def multi_rank_phase(kernels):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the decode steps captured once as CUDA graphs and replayed.
+# ---------------------------------------------------------------------------
+
+GRAPH_TOL = 2e-2        # decode logits, replay vs eager, if not bitwise
+
+
+def graph_engine_phase(engines, prompts, kernels, smi, N=32, steps=16):
+    """Phase 16 on full-width engines at B=2 (phase 6's four, phase 11's
+    int8 and int4): for each, ``generate_ondevice`` of ``prompts`` under
+    ``eager()`` and captured gives the same N greedy tokens with the same
+    launches; two ``decode`` steps from the state it leaves give logits
+    bit for bit (else the difference is printed and held within
+    GRAPH_TOL); then ``steps`` token steps timed eager, graph, graph,
+    eager (wall ms a step, and host ms to enqueue one step: the host's
+    time before the closing synchronize), and two steps of each
+    profiled (device busy ms and device ops a step). Prints the
+    captures' seconds (capture and instantiate) and pool bytes.
+    Returns the numbers by engine."""
+    from quest_tpu_torch.engine.graphs import eager
+    out = {}
+    for name, engine in engines.items():
+        runs = {}
+        for mode in ("eager", "graph"):
+            ctx = eager() if mode == "eager" else contextlib.nullcontext()
+            engine.clear()
+            with ctx:
+                toks, got = counted_launches(kernels, lambda: engine.
+                                             generate_ondevice(prompts, N))
+                last = np.asarray(toks)[:, -1]
+                l1 = engine.decode(last)
+                l2 = engine.decode(np.argmax(l1, -1))
+            runs[mode] = (toks, got, l1, l2)
+        (te, ce, e1, e2), (tg, cg, g1, g2) = runs["eager"], runs["graph"]
+        diff = max(float(np.abs(a - b).max()) for a, b in ((e1, g1),
+                                                          (e2, g2)))
+        ref = max(float(np.abs(e1).max()), float(np.abs(e2).max()))
+        same = ("bit for bit" if diff == 0 else
+                f"max|d| {diff:.3e} (rel {diff / ref:.2e})")
+        log(f"graphs[{name}]: {N} greedy tokens captured vs eager equal "
+            f"{te == tg}; launches {cg} (eager {ce}); decode logits of two "
+            f"replayed steps {same}")
+        assert te == tg, f"{name}: captured tokens differ from eager"
+        assert cg == ce, f"{name}: replayed launches {cg} != eager {ce}"
+        assert diff <= GRAPH_TOL * ref, f"{name}: logits differ by {diff}"
+        # Timing in turns, from a fresh prefill.
+        engine.clear()
+        engine.prefill(prompts)
+        tk = torch.as_tensor(np.asarray(tg, np.int32)[:, 0], device="cuda")
+        wall, enq = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            ctx = eager() if mode == "eager" else contextlib.nullcontext()
+            with ctx:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(steps):
+                    tk = engine._tok_fn(engine.cache, tk)
+                t_enq = time.perf_counter()
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+            wall[mode].append((t_end - t) / steps * 1e3)
+            enq[mode].append((t_enq - t) / steps * 1e3)
+        tk = tk.clone()
+        with eager():
+            prof_e = profile_decode(engine, tk, f"{name}_eager")
+        prof_g = profile_decode(engine, tk, f"{name}_graph", graph=True)
+        summ = engine.graphs.summary()
+        busy = "profile_device_ms_per_step"
+        res = dict(tokens_equal=True, launches=cg, logits_max_abs_diff=diff,
+                   wall_ms_per_step=wall, enqueue_ms_per_step=enq,
+                   eager_device_ms_per_step=prof_e[busy],
+                   graph_device_ms_per_step=prof_g[busy],
+                   eager_device_ops_per_step=prof_e["device_ops_per_step"],
+                   graph_device_ops_per_step=prof_g["device_ops_per_step"],
+                   profile_eager=prof_e, profile_graph=prof_g, **summ)
+        log(f"graphs[{name}]: wall ms/step eager "
+            f"{' / '.join(f'{x:.2f}' for x in wall['eager'])}, graph "
+            f"{' / '.join(f'{x:.2f}' for x in wall['graph'])} (turns E G G "
+            f"E); host enqueue ms/step eager "
+            f"{' / '.join(f'{x:.3f}' for x in enq['eager'])}, graph "
+            f"{' / '.join(f'{x:.3f}' for x in enq['graph'])}; device busy "
+            f"ms/step eager {res['eager_device_ms_per_step']:.2f}, graph "
+            f"{res['graph_device_ms_per_step']:.2f}; device ops a step "
+            f"eager {res['eager_device_ops_per_step']:.1f}, graph "
+            f"{res['graph_device_ops_per_step']:.1f}; {summ['graphs']} "
+            f"graphs captured in {summ['capture_s']:.2f} s, pool "
+            f"{summ['pool_bytes'] / 2**20:.1f} MiB; card {smi}")
+        out[name] = res
+    return out
+
+
+def scheduler_load_phase(params, smi, n=16):
+    """``python -m quest_tpu_torch.exp.scheduler_load 16`` over phase 6's
+    weights, under ``eager()`` and then captured: the busy window's
+    generated tokens/s and ms a decode step of each."""
+    from quest_tpu_torch.engine.graphs import eager
+    from quest_tpu_torch.exp import scheduler_load
+    res = {}
+    for mode in ("eager", "graph"):
+        t = time.time()
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            res[mode] = scheduler_load.run_load(params, n, device="cuda")
+        torch.cuda.empty_cache()
+        r = res[mode]
+        thirds = " / ".join(f"{x:.1f}" for x in
+                            r["generated_tokens_per_s_by_third"] if x)
+        log(f"scheduler_load[{mode}, {n} requests]: "
+            f"{r['generated_tokens_per_s']:.1f} generated tokens/s over the "
+            f"window (thirds {thirds}), "
+            f"{r['decode_ms_per_step']:.2f} ms a decode step, prefill "
+            f"{r['prefill_tokens_per_s']:.0f} tokens/s, live rows "
+            f"{r['live_row_share']:.2f}; {time.time() - t:.1f} s; card {smi}")
+    return res
+
+
 # name: (source, the TPU kernel it replaces, the path whose run gives its
 # launch count: a serving engine, "probe" for the probe path, None where
 # no path launches it)
@@ -3238,7 +3492,7 @@ def main():
             reference[f"scheduler_{'fused' if fused else 'unfused'}_"
                       f"{str(kv).split('.')[-1]}_kv"] = res
             taps.append(cases)
-    counts, serving, params = serving_phase(kernel_wrappers())
+    counts, serving, params = serving_phase(kernel_wrappers(), smi)
     torch.cuda.empty_cache()
     serving["scheduler"], cases = scheduler_phase(params, kernel_wrappers(),
                                                   smi)
@@ -3265,6 +3519,8 @@ def main():
     serving["evals"] = eval_phase(llama31_8b(), params, kernel_wrappers())
     torch.cuda.empty_cache()
     serving["tools"] = tools_phase(params, kernel_wrappers(), smi)
+    torch.cuda.empty_cache()
+    serving["scheduler_load"] = scheduler_load_phase(params, smi)
     torch.cuda.empty_cache()
     t15 = time.time()
     serving["multi_gpu"] = {"15a": world1_phase(params, kernel_wrappers())}

@@ -4,6 +4,13 @@
 All per-step state (pool, metadata, seq_lens) lives on the device in a
 ``PagedKVCache`` that every step updates in place; ``clear()`` resets
 the lengths and reuses the pool.
+
+As in JAX, where a decode step is ONE jitted call, every decode step
+(``_decode_fn``, ``_tok_fn``, ``_nll_fn``) and the n-step burst
+(``_burst_fn``, n static) is compiled (``engine/graphs.py``): on the card
+each is captured once per signature as a CUDA graph and replayed. Their
+outputs are static buffers, cloned where a method keeps them. Prefill
+stays eager (its shapes change with every chunk).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import numpy as np
 import torch
 
 from quest_tpu_torch.config import ModelConfig, QuestConfig
+from quest_tpu_torch.engine.graphs import StepGraphs
 from quest_tpu_torch.kv.paged_kv import init_cache
 from quest_tpu_torch.models.llama import Params, QuestModel
 from quest_tpu_torch.ops.utils import resolve_device, round_up
@@ -44,10 +52,17 @@ class QuestEngine:
         self.cache = init_cache(cfg, quest, batch_size, device=self.device)
         # Host mirror of seq_lens: overflow guards without device syncs.
         self._host_lens = np.zeros((batch_size,), np.int64)
+        # The compiled steps share one graph pool, freed with the engine.
+        self.graphs = StepGraphs(self.device)
+        self._decode_fn = self.graphs.compile(self.model.decode_step)
+        self._tok_fn = self.graphs.compile(self.model.decode_token_step)
+        self._nll_fn = self.graphs.compile(self.model.decode_nll_step)
+        self._burst_fn = self.graphs.compile(self.model.decode_token_burst)
 
     # -- lifecycle --------------------------------------------------------
     def clear(self) -> None:
-        """Reset for a new conversation; the pool is reused."""
+        """Reset for a new conversation; the pool is reused (in place, so
+        the captured steps stay valid)."""
         self.cache.seq_lens.zero_()
         self._host_lens[:] = 0
 
@@ -98,8 +113,8 @@ class QuestEngine:
     def decode(self, tokens: Sequence[int]) -> np.ndarray:
         """One decode step for the batch; returns logits [B, V]."""
         self._check_decode_room()
-        tok = torch.as_tensor(np.asarray(tokens, np.int32), device=self.device)
-        logits = self.model.decode_step(self.cache, tok)
+        logits = self._decode_fn(self.cache, torch.as_tensor(
+            np.asarray(tokens, np.int32), device=self.device))
         self._host_lens += 1
         return logits.cpu().numpy()
 
@@ -141,7 +156,7 @@ class QuestEngine:
                               device=self.device)
         toks = [tok]
         for _ in range(max_new_tokens - 1):
-            tok = self.model.decode_token_step(self.cache, tok)
+            tok = self._tok_fn(self.cache, tok).clone()
             toks.append(tok)
         self._host_lens += max_new_tokens - 1
         out = torch.stack(toks, dim=1).cpu().numpy()        # [B, N]
@@ -169,7 +184,7 @@ class QuestEngine:
         self._check_decode_room(N)
         toks = torch.from_numpy(tokens).to(self.device)
         for t in range(N):
-            logits = self.model.decode_step(self.cache, toks[:, t])
+            logits = self._decode_fn(self.cache, toks[:, t])
             if (t + 1) % sync_every == 0:
                 logits[:, 0].cpu()          # throttle the launch queue
         self._host_lens += N
@@ -190,8 +205,8 @@ class QuestEngine:
         pend = []
         base = 0
         for t in range(N):
-            pend.append(self.model.decode_nll_step(self.cache, toks[:, t],
-                                                   tgts[:, t]))
+            pend.append(self._nll_fn(self.cache, toks[:, t],
+                                     tgts[:, t]).clone())
             if len(pend) == sync_every or t == N - 1:
                 out[:, base:base + len(pend)] = torch.stack(
                     pend, dim=1).cpu().numpy()
@@ -205,19 +220,19 @@ class QuestEngine:
         """Feed ``first_tokens`` [B] and greedily generate ``n`` tokens on
         the device (argmax fed straight back); returns [B, n] int32.
         Unlike :meth:`generate_ondevice` this continues from the current
-        cache state (e.g. right after a fed question)."""
+        cache state (e.g. right after a fed question). Each token is one
+        call of the compiled token step, as JAX loops ``_tok_fn``."""
         self._check_decode_room(n)
         tok = torch.as_tensor(np.asarray(first_tokens, np.int32),
                               device=self.device)
-        chunks = []
-        for start in range(0, n, sync_every):
-            if chunks:
+        toks = []
+        for t in range(n):
+            tok = self._tok_fn(self.cache, tok).clone()
+            toks.append(tok)
+            if (t + 1) % sync_every == 0:
                 tok.cpu()                   # throttle the launch queue
-            chunks.append(self.model.decode_token_burst(
-                self.cache, tok, min(sync_every, n - start)))
-            tok = chunks[-1][:, -1]
         self._host_lens += n
-        return torch.cat(chunks, dim=1).cpu().numpy()
+        return torch.stack(toks, dim=1).cpu().numpy()
 
     @staticmethod
     def _sample(logits: np.ndarray, temperature: float,

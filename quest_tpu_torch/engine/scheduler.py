@@ -25,8 +25,13 @@
 Decoding runs in **bursts**: ``burst`` chained steps on the device (the
 greedy step's argmax, or the sampled step's draw from a ``torch.
 Generator`` on the device, fed straight back) and ONE host fetch per
-burst. A request that finishes mid-burst over-generates into its own
-slot until the burst ends; the host drops those tokens. The first token
+burst. The two steps are compiled (``engine/graphs.py``; JAX jits
+``_tok_fn`` and ``_sample_fn``): on the card each is captured once as a
+CUDA graph and a burst of K steps replays it K times, as JAX loops its
+jitted step (one graph per K would multiply graphs, since K changes from
+burst to burst). A gloo mesh runs them eager (``parallel/tp.py:
+graph_capture``). A request that finishes mid-burst over-generates into
+its own slot until the burst ends; the host drops those tokens. The first token
 of each request is taken on the host from the prefill logits, sampled
 with a per-request numpy generator seeded ``seed * 7919 + uid``, as in
 JAX.
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from quest_tpu_torch.config import ModelConfig, QuestConfig
+from quest_tpu_torch.engine.graphs import StepGraphs
 from quest_tpu_torch.kv.paged_kv import init_cache
 from quest_tpu_torch.kv.pool import PagePool
 from quest_tpu_torch.models.llama import Params, QuestModel
@@ -168,6 +174,10 @@ class ContinuousBatchingEngine:
         self.queue: deque[Request] = deque()
         self._seed = seed
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.graphs = (StepGraphs(self.device) if mesh is None
+                       else self._shard.graphs)
+        self._tok_fn = self.graphs.compile(self.model.decode_token_step)
+        self._sample_fn = self.graphs.compile(self.model.decode_sample_step)
         # Host mirror of per-slot lengths: burst bounds without device
         # fetches.
         self._hlens = np.zeros((max_batch,), np.int64)
@@ -407,18 +417,17 @@ class ContinuousBatchingEngine:
         K = max(1, min(self.burst, remaining, headroom))
         act = self._rows(active)
         tok = self._rows(toks)
-        if not temps.any():
-            out = self.model.decode_token_burst(self.cache, tok, K, act)
-        else:
-            temps_dev = self._rows(temps)
-            outs = []
-            for _ in range(K):
-                tok = self.model.decode_sample_step(self.cache, tok,
-                                                    self._gen, temps_dev,
-                                                    act)
-                outs.append(tok)
-            out = torch.stack(outs, dim=1)
-        arr = self._gather(out)                                  # [B, K]
+        temps_dev = self._rows(temps) if temps.any() else None
+        outs = []
+        for _ in range(K):
+            if temps_dev is None:
+                tok = self._tok_fn(self.cache, tok, act)
+            else:
+                tok = self._sample_fn(self.cache, tok, self._gen, temps_dev,
+                                      act)
+            tok = tok.clone()               # the step's output is static
+            outs.append(tok)
+        arr = self._gather(torch.stack(outs, dim=1))             # [B, K]
         for b in decoding:
             self._hlens[b] += K
         # Emit in token-time order (step-major) so cross-request finish

@@ -1,6 +1,7 @@
 """Sustained throughput of the continuous-batching scheduler.
 
 Usage: python -m quest_tpu_torch.exp.scheduler_load [REQUESTS] [--cpu]
+       [--eager]
 
 A queue of REQUESTS (default 16) greedy requests of realistic length
 (prompts of 2000-6000 tokens, 128-384 new tokens, drawn from a seed)
@@ -20,12 +21,16 @@ the card's name and power limit, then one JSON object: generated
 tokens/s over the window (prefill ticks included) and over each third
 of its wall time (the spread), ms a decode step, prompt tokens/s over
 the prefill ticks, and the share of decode rows that were live.
-``--cpu`` runs a tiny model on the CPU's plain path instead (a check of
-the script, not a measurement).
+The scheduler's decode steps run as it runs them, captured once as CUDA
+graphs and replayed; ``--eager`` runs them uncaptured
+(``engine/graphs.py:eager``). Decode steps are counted at the compiled
+steps. ``--cpu`` runs a tiny model on the CPU's plain path instead (a
+check of the script, not a measurement).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -51,36 +56,35 @@ def serve_window(eng: ContinuousBatchingEngine, requests: List[Request],
     """Serve ``requests`` until the queue is empty after a tick; the rates
     of the window that opens after the first request finishes (see the
     module's docstring)."""
-    steps, written = [0], [0]
-    decode_step, prefill_last = eng.model.decode_step, eng.model.prefill_last
-
-    def counted_decode(*a, **k):
-        steps[0] += 1
-        return decode_step(*a, **k)
+    written = [0]
+    prefill_last = eng.model.prefill_last
 
     def counted_prefill(cache, toks, new_lens):
         written[0] += int(new_lens.sum())
         return prefill_last(cache, toks, new_lens)
 
-    eng.model.decode_step, eng.model.prefill_last = (counted_decode,
-                                                     counted_prefill)
+    def decode_calls():
+        return eng._tok_fn.calls + eng._sample_fn.calls
+
+    eng.model.prefill_last = counted_prefill
     for r in requests:
         eng.submit(r)
     ticks, turned = [], False
     while eng.queue:
         live = sum(s is not None and not s.prefilling for s in eng.slots)
-        steps[0] = written[0] = 0
+        written[0] = 0
+        calls = decode_calls()
         sync()
         t = time.perf_counter()
         events = eng.step()
         sync()
         tick = dict(kind=eng.last_tick, s=time.perf_counter() - t,
-                    tokens=len(events), steps=steps[0], written=written[0],
-                    live=live)
+                    tokens=len(events), steps=decode_calls() - calls,
+                    written=written[0], live=live)
         if turned:
             ticks.append(tick)
         turned = turned or any(ev.finished for ev in events)
-    eng.model.decode_step, eng.model.prefill_last = decode_step, prefill_last
+    eng.model.prefill_last = prefill_last
     if not ticks:
         raise RuntimeError("no request finished before the queue emptied: "
                            "give more requests")
@@ -112,14 +116,11 @@ def serve_window(eng: ContinuousBatchingEngine, requests: List[Request],
         decode_share_of_wall=sum(t["s"] for t in dec) / wall)
 
 
-def main(argv=None) -> int:
-    args = list(sys.argv[1:] if argv is None else argv)
-    cpu = "--cpu" in args
-    args = [a for a in args if a != "--cpu"]
-    n = int(args[0]) if args else 16
+def setup(cpu: bool):
+    """(cfg, quest, prompt and new-token ranges, scheduler kwargs, device)
+    of the run: full width on the card, a tiny model with ``cpu``."""
     from quest_tpu_torch.config import (ModelConfig, QuestConfig, RopeConfig,
                                         llama31_8b, serving_quest_config)
-    from quest_tpu_torch.models.llama import init_params
     if cpu:
         cfg = ModelConfig(vocab_size=256, hidden_size=64,
                           intermediate_size=128, num_layers=2, num_heads=4,
@@ -128,40 +129,59 @@ def main(argv=None) -> int:
         quest = QuestConfig(page_size=8, token_budget=32, max_seq_len=256,
                             skip_layers=1, block_pages=4,
                             kv_dtype=torch.float32)
-        ranges, kw, device = ((40, 120), (8, 24)), dict(
+        return cfg, quest, ((40, 120), (8, 24)), dict(
             burst=4, prefill_chunk=32, prefill_bucket=16), "cpu"
-        gen = torch.Generator().manual_seed(0)
-        card, sync = "cpu (plain path; not a measurement)", lambda: None
-    else:
-        if not torch.cuda.is_available():
-            print("scheduler_load: no CUDA device; pass --cpu for the "
-                  "plain path", file=sys.stderr)
-            return 1
-        cfg = llama31_8b()
-        quest = serving_quest_config(16384, kv_dtype=torch.bfloat16)
-        ranges, kw, device = ((2000, 6001), (128, 385)), dict(
-            burst=8, prefill_chunk=2048, prefill_bucket=256), "cuda"
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True,
-            text=True).stdout.strip().splitlines()[0]
-        sync = torch.cuda.synchronize
-        from quest_tpu_torch.ops import _build
-        _build.build(("prefill", "sparse_decode", "dense_decode"))
-    print(card, flush=True)
-    params = init_params(cfg, gen, device=device)
+    return (llama31_8b(), serving_quest_config(16384, kv_dtype=torch.bfloat16),
+            ((2000, 6001), (128, 385)),
+            dict(burst=8, prefill_chunk=2048, prefill_bucket=256), "cuda")
+
+
+def run_load(params, n: int, device="cuda") -> Dict:
+    """Warm up, then serve ``n`` requests over ``params`` (the setup's
+    model on ``device``); the window's numbers (:func:`serve_window`)."""
+    cfg, quest, ranges, kw, device = setup(torch.device(device).type == "cpu")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     eng = ContinuousBatchingEngine(cfg, quest, params, max_batch=4,
                                    device=device, **kw)
     warm = make_requests(4, (ranges[0][0], ranges[0][0] + 1), (8, 9),
                          cfg.vocab_size, seed=1)
     eng.run([Request(1000 + r.uid, r.prompt, r.max_new_tokens)
              for r in warm])
-    reqs = make_requests(n, *ranges, cfg.vocab_size)
-    res = serve_window(eng, reqs, sync)
-    res.update(card=card, requests=n, prompt_tokens=list(ranges[0]),
+    res = serve_window(eng, make_requests(n, *ranges, cfg.vocab_size), sync)
+    res.update(requests=n, prompt_tokens=list(ranges[0]),
                new_tokens=list(ranges[1]), max_batch=eng.max_batch,
                page_size=quest.page_size, kv_dtype=str(quest.kv_dtype))
+    return res
+
+
+def main(argv=None) -> int:
+    from quest_tpu_torch.engine.graphs import eager
+    from quest_tpu_torch.models.llama import init_params
+    args = list(sys.argv[1:] if argv is None else argv)
+    cpu, eager_run = "--cpu" in args, "--eager" in args
+    args = [a for a in args if a not in ("--cpu", "--eager")]
+    n = int(args[0]) if args else 16
+    cfg, _, _, _, device = setup(cpu)
+    if cpu:
+        gen = torch.Generator().manual_seed(0)
+        card = "cpu (plain path; not a measurement)"
+    else:
+        if not torch.cuda.is_available():
+            print("scheduler_load: no CUDA device; pass --cpu for the "
+                  "plain path", file=sys.stderr)
+            return 1
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip().splitlines()[0]
+        from quest_tpu_torch.ops import _build
+        _build.build(("prefill", "sparse_decode", "dense_decode"))
+    print(card, flush=True)
+    params = init_params(cfg, gen, device=device)
+    with eager() if eager_run else contextlib.nullcontext():
+        res = run_load(params, n, device)
+    res.update(card=card, graphs=not eager_run)
     print(json.dumps(res), flush=True)
     return 0
 

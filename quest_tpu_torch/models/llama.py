@@ -52,8 +52,9 @@ TRACE_RANGES = ("qkv_proj", "rope", "append_kv_prefill", "prefill_attn",
 def trace_range(name: str):
     """A ``torch.profiler.record_function`` range named ``name`` while a
     profiler is active, else a ``nullcontext``: a decode step opens ~12
-    ranges a layer, and building them unprofiled would cost host time on
-    a host-bound step."""
+    ranges a layer, and building them unprofiled would cost host time.
+    The ranges open on the host, so a replayed step has none: read them
+    under ``engine.graphs.eager()``."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()
@@ -366,7 +367,9 @@ class QuestModel(nn.Module):
                            n: int, active: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
         """``n`` greedy decode steps, each argmax fed straight back, with
-        no host synchronisation: tokens [B] -> all_tokens [B, n] int32."""
+        no host synchronisation: tokens [B] -> all_tokens [B, n] int32.
+        The engine compiles it (``QuestEngine._burst_fn``) into ONE graph
+        of n steps, n static, as JAX jits it into one dispatch."""
         outs = []
         for _ in range(n):
             tokens = self.decode_token_step(cache, tokens, active)
@@ -392,7 +395,9 @@ class QuestModel(nn.Module):
         with ``temps > 0`` draw from ``softmax(logits / temp)``, the
         others take the argmax (:func:`sample_tokens`). ``generator``
         lives on the model's device and advances with each call, so a
-        sampled burst needs no host round trip."""
+        sampled burst needs no host round trip; a compiled step registers
+        it with its graph, so a replay draws what this call draws from
+        the same generator state."""
         logits = self.decode_step(cache, tokens, active)
         return sample_tokens(logits, temps, generator)
 

@@ -33,6 +33,7 @@ import torch
 
 from quest_tpu_torch.ops.qdot import (MAX_ROWS, dequant, dequant_plain,
                                       qgemv, qgemv_plain)
+from quest_tpu_torch.ops.utils import hold
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -96,12 +97,14 @@ _buffers: Dict[tuple, torch.Tensor] = {}
 
 def _dequant_buffer(device, dtype, numel: int) -> torch.Tensor:
     """The prefill route's weight buffer, one per (device, dtype), grown
-    to the largest layer seen."""
+    to the largest layer seen; a graph being captured holds it
+    (``utils.hold``)."""
     buf = _buffers.get((device, dtype))
     if buf is None or buf.numel() < numel:
         _buffers.pop((device, dtype), None)
         buf = _buffers[(device, dtype)] = torch.empty(numel, dtype=dtype,
                                                       device=device)
+    hold(buf)
     return buf
 
 

@@ -7,8 +7,8 @@ of the layer (:func:`tensor_map`). The plan is a pure function of shapes: the wr
 has no host sync. CTAs past a row's pages or valid slots exit on the
 card. The workspace (split partials and the merge tickets) is allocated
 once a device and grown when a larger plan needs it; the kernel leaves
-every ticket at zero, so one launch after another on a stream finds them
-zeroed.
+every ticket at zero, so one launch after another on a stream (or a
+replay of a captured step) finds them zeroed.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import dataclasses
 import torch
 
 from quest_tpu_torch.ops import _build
-from quest_tpu_torch.ops.utils import padded_group, sub_groups
+from quest_tpu_torch.ops.utils import hold, padded_group, sub_groups
 
 HEAD_DIM = 128
 # Splits of a (row, head) at most: the last CTA of a (row, head) reads
@@ -76,7 +76,9 @@ _workspaces = {}
 
 def workspace(device: torch.device, plan: DecodePlan):
     """(part_o, part_ml, tickets) for ``plan`` on ``device``: views of
-    buffers cached by device, grown (tickets zeroed) when too small."""
+    buffers cached by device, grown (tickets zeroed) when too small. A
+    graph being captured holds the buffers it was given (``utils.hold``),
+    so growing them later never frees what its replays write."""
     parts, tickets = _workspaces.get(device, (None, None))
     if parts is None or parts.numel() < plan.part_o + plan.part_ml:
         parts = torch.empty(plan.part_o + plan.part_ml, dtype=torch.float32,
@@ -84,6 +86,7 @@ def workspace(device: torch.device, plan: DecodePlan):
     if tickets is None or tickets.numel() < plan.tickets:
         tickets = torch.zeros(plan.tickets, dtype=torch.int32, device=device)
     _workspaces[device] = (parts, tickets)
+    hold(parts, tickets)
     return parts[:plan.part_o], parts[plan.part_o:], tickets
 
 

@@ -30,7 +30,7 @@ import torch
 
 from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops.decode_common import sm_count
-from quest_tpu_torch.ops.utils import round_up
+from quest_tpu_torch.ops.utils import hold, round_up
 
 MAX_ROWS = 16          # rows of x qgemv takes
 # f32 x (qgemv_kernel): 256 output columns a CTA, two CTAs an SM, at most
@@ -247,13 +247,14 @@ _workspaces = {}
 def _workspace(device, parts: int, tiles: int):
     """(partials, tickets) views of buffers cached by device, grown
     (tickets zeroed) when too small; the kernel leaves the tickets at
-    zero."""
+    zero. A graph being captured holds the buffers (``utils.hold``)."""
     part, tick = _workspaces.get(device, (None, None))
     if part is None or part.numel() < parts:
         part = torch.empty(max(parts, 1), dtype=torch.float32, device=device)
     if tick is None or tick.numel() < tiles:
         tick = torch.zeros(tiles, dtype=torch.int32, device=device)
     _workspaces[device] = (part, tick)
+    hold(part, tick)
     return part, tick
 
 

@@ -2,9 +2,35 @@
 
 from __future__ import annotations
 
+import contextlib
+from typing import List
+
 import torch
 
 MASK_VALUE = -1e30  # finite so exp(m_prev - m_new) never hits inf-inf
+
+
+# Buffers an op caches and replaces when it grows (the decode and qgemv
+# workspaces, the dequant buffer): every capture under way
+# (``engine/graphs.py``) holds the ones its calls used, so a later growth
+# never frees memory that a replay of that graph writes.
+_holders: List[list] = []
+
+
+@contextlib.contextmanager
+def holding():
+    """Collect what :func:`hold` is given while inside; yields the list."""
+    held: list = []
+    _holders.append(held)
+    try:
+        yield held
+    finally:
+        _holders.remove(held)
+
+
+def hold(*tensors) -> None:
+    for held in _holders:
+        held.extend(t for t in tensors if t is not None)
 
 
 def round_up(x: int, m: int) -> int:

@@ -11,6 +11,13 @@ two all-reduces a layer and the logits' all-gather
 the global batch, as JAX's do, run the rank's dp rows, and give every
 rank the global result, all-gathered over dp. Each rank runs the
 unsharded path's kernels over its own heads.
+
+The decode steps are compiled (``engine/graphs.py``), as JAX jits them:
+over NCCL each is captured once as a CUDA graph, its collectives
+included, and replayed. gloo's collectives cannot be captured, so over
+gloo the steps run eager: the choice is made from the process groups'
+backend (:func:`graph_capture`), never by catching a failed capture.
+Prefill stays eager.
 """
 
 from __future__ import annotations
@@ -39,9 +46,11 @@ class Shard:
     """One rank's part of a sharded model: its local ``QuestModel`` (the
     tp group's shard of ``params``, as :func:`~quest_tpu_torch.parallel.
     mesh.shard_params` gives them) and the rows of a global batch its dp
-    group owns."""
+    group owns, and the graphs of its compiled steps (captured over NCCL,
+    eager over gloo: :func:`graph_capture`)."""
 
     def __init__(self, cfg: ModelConfig, quest: QuestConfig, mesh, params):
+        from quest_tpu_torch.engine.graphs import StepGraphs
         self.mesh = mesh
         self.tp = mesh.size(mesh.mesh_dim_names.index(TP_AXIS))
         self.dp = mesh.size(mesh.mesh_dim_names.index(DP_AXIS))
@@ -51,6 +60,7 @@ class Shard:
             local_config(cfg, self.tp), quest, params,
             tp_group=mesh.get_group(TP_AXIS) if self.tp > 1 else None)
         self.device = self.model.embed.device
+        self.graphs = StepGraphs(self.device, capture=graph_capture(mesh))
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """The dp group's rows of a global batch ``x`` [B, ...], on the
@@ -72,17 +82,28 @@ class Shard:
         return parts.reshape((-1,) + x.shape[1:])
 
 
-def _shards(cfg: ModelConfig, quest: QuestConfig, mesh):
-    """``params -> Shard``, one Shard kept for each params tree (the
-    model casts a plain lm_head to f32 once)."""
+def graph_capture(mesh) -> bool:
+    """Whether a rank of ``mesh`` captures its steps as CUDA graphs: on a
+    card whose dp and tp groups run NCCL. A gloo group runs eager."""
+    return rank_device(mesh).type == "cuda" and all(
+        dist.get_backend(mesh.get_group(ax)) == "nccl"
+        for ax in (DP_AXIS, TP_AXIS))
+
+
+def _shards(cfg: ModelConfig, quest: QuestConfig, mesh, steps):
+    """``params -> (Shard, its compiled steps)``: built at the first call
+    with a params tree and kept (the model casts a plain lm_head to f32
+    once); ``steps(shard)`` gives the dict of step bodies to compile."""
     built: Dict[int, tuple] = {}
 
-    def of(params) -> Shard:
+    def of(params):
         hit = built.get(id(params))
         if hit is None or hit[0] is not params:
-            hit = built[id(params)] = (params, Shard(cfg, quest, mesh,
-                                                     params))
-        return hit[1]
+            s = Shard(cfg, quest, mesh, params)
+            fns = {k: s.graphs.compile(f, module=s.model)
+                   for k, f in steps(s).items()}
+            hit = built[id(params)] = (params, s, fns)
+        return hit[1], hit[2]
     return of
 
 
@@ -97,17 +118,20 @@ def make_sharded_fns(cfg: ModelConfig, quest: QuestConfig, mesh):
     (:func:`init_sharded_cache`), updated in place and returned; tokens
     and lengths the global batch, logits the global f32 logits. Batch B
     must be divisible by the mesh's dp, heads and vocab by its tp.
+    ``decode_fn`` is compiled; its logits are a static buffer that the
+    next call overwrites.
     """
-    shard = _shards(cfg, quest, mesh)
+    shard = _shards(cfg, quest, mesh, lambda s: {
+        "decode": lambda cache, tokens: s.gather(
+            s.model.decode_step(cache, s.rows(tokens)))})
 
     def prefill_fn(params, cache: PagedKVCache, tokens, new_lens):
-        s = shard(params)
+        s, _ = shard(params)
         logits = s.model.prefill(cache, s.rows(tokens), s.rows(new_lens))
         return s.gather(logits), cache
 
     def decode_fn(params, cache: PagedKVCache, tokens):
-        s = shard(params)
-        return s.gather(s.model.decode_step(cache, s.rows(tokens))), cache
+        return shard(params)[1]["decode"](cache, tokens), cache
 
     return prefill_fn, decode_fn
 
@@ -127,25 +151,29 @@ def make_serving_fns(cfg: ModelConfig, quest: QuestConfig, mesh):
     The generator stands for JAX's replicated key: every rank seeds its
     device generator alike, so the tp ranks of a dp group draw the same
     tokens from the same gathered logits, and dp groups draw with the
-    same stream over different rows.
+    same stream over different rows. The two decode steps are compiled
+    (their tokens are static buffers that the next call overwrites).
     """
-    shard = _shards(cfg, quest, mesh)
+    shard = _shards(cfg, quest, mesh, lambda s: {
+        "token": lambda cache, tokens, active: s.gather(
+            s.model.decode_token_step(cache, s.rows(tokens),
+                                      s.rows(active))),
+        "sample": lambda cache, tokens, generator, temps, active: s.gather(
+            s.model.decode_sample_step(cache, s.rows(tokens), generator,
+                                       s.rows(temps), s.rows(active)))})
 
     def prefill_last_fn(params, cache, tokens, new_lens):
-        s = shard(params)
+        s, _ = shard(params)
         return s.gather(s.model.prefill_last(cache, s.rows(tokens),
                                              s.rows(new_lens))), cache
 
     def decode_token_fn(params, cache, tokens, active):
-        s = shard(params)
-        return s.gather(s.model.decode_token_step(
-            cache, s.rows(tokens), s.rows(active))), cache
+        return shard(params)[1]["token"](cache, tokens, active), cache
 
     def decode_sample_fn(params, cache, tokens, generator, temps, active):
-        s = shard(params)
-        out = s.model.decode_sample_step(cache, s.rows(tokens), generator,
-                                         s.rows(temps), s.rows(active))
-        return s.gather(out), generator, cache
+        out = shard(params)[1]["sample"](cache, tokens, generator, temps,
+                                         active)
+        return out, generator, cache
 
     return prefill_last_fn, decode_token_fn, decode_sample_fn
 

@@ -8,10 +8,13 @@ reports the end-to-end decode ratio (the reference's ``budget=102400``
 control row, ``bench_efficiency_e2e.sh``). Weights are random (latency
 is shape-determined); ``--layers`` cuts the depth (0 = the preset's).
 
-The decode loop stays on the device: ``decode_token_step`` (or
-``decode_token_burst`` with ``--burst n``) feeds each argmax straight
-back, and the timed window is closed by ``torch.cuda.synchronize()``.
-With ``--device cpu`` the context is clamped to 1024 tokens.
+The decode loop stays on the device: the engine's compiled token step
+(or its compiled burst of n steps with ``--burst n``), as JAX's script
+calls the engine's jitted ones, feeds each argmax straight back; on the
+card each is a CUDA graph captured once and replayed (``--eager`` runs
+them uncaptured, ``engine/graphs.py:eager``). The timed window is closed
+by ``torch.cuda.synchronize()``. With ``--device cpu`` the context is
+clamped to 1024 tokens.
 
     python -m quest_tpu_torch.scripts.bench_textgen --layers 32 \\
         --ctx 32768 --budget 2048 --ab-full
@@ -22,6 +25,7 @@ With ``--device cpu`` the context is clamped to 1024 tokens.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -63,6 +67,8 @@ def parse_args(argv=None):
                     help="decode through the fused kernel")
     ap.add_argument("--burst", type=int, default=1,
                     help="decode steps a call (decode_token_burst)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode steps uncaptured (no CUDA graphs)")
     ap.add_argument("--prefill-chunk", type=int, default=8192,
                     help="max prompt tokens a prefill call")
     ap.add_argument("--ab-full", action="store_true",
@@ -119,7 +125,8 @@ def run_bench_textgen(cfg, params, args) -> dict:
                         meta_dtype=f8 if args.meta_dtype == "fp8" else None,
                         topk_method=args.topk, fused_decode=args.fused)
     log(f"model={args.model} L={cfg.num_layers} Hq={cfg.num_heads} "
-        f"Hkv={cfg.num_kv_heads} ctx={ctx} budget={budget} device={dev}")
+        f"Hkv={cfg.num_kv_heads} ctx={ctx} budget={budget} device={dev} "
+        f"decode steps {'eager' if args.eager else 'compiled'}")
 
     def make_engine(q):
         return QuestEngine(cfg, q, params, batch_size=args.batch,
@@ -145,9 +152,9 @@ def run_bench_textgen(cfg, params, args) -> dict:
     def loop(eng, tok, steps):
         for _ in range(steps // nb):
             if nb == 1:
-                tok = eng.model.decode_token_step(eng.cache, tok)
+                tok = eng._tok_fn(eng.cache, tok)
             else:
-                tok = eng.model.decode_token_burst(eng.cache, tok, nb)[:, -1]
+                tok = eng._burst_fn(eng.cache, tok, nb)[:, -1]
         return tok
 
     def timed_decode(eng, tok):
@@ -200,9 +207,11 @@ def run_bench_textgen(cfg, params, args) -> dict:
 
 
 def main(argv=None):
+    from quest_tpu_torch.engine.graphs import eager
     args = parse_args(argv)
     cfg = model_config(args)
-    out = run_bench_textgen(cfg, make_params(cfg, args), args)
+    with eager() if args.eager else contextlib.nullcontext():
+        out = run_bench_textgen(cfg, make_params(cfg, args), args)
     print(json.dumps(out))
     return out
 

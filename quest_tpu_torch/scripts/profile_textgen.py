@@ -2,14 +2,18 @@
 the reference's ``torch.profiler`` run).
 
 ``torch.profiler`` with a wait/warmup/active schedule over passes of
-prefill + N greedy decode steps: the first pass builds the kernels
-outside the trace, the second warms the profiler up, the third is
-traced. The Chrome trace goes to ``--trace-dir`` (open it in Perfetto or
-``chrome://tracing``); the script prints, for each of the model's trace
-ranges (``models/llama.py:TRACE_RANGES``, the JAX model's
-``jax.named_scope`` names), its calls, host ms and the device ms of the
-device ops inside its spans on the device timeline, then the top device
-ops.
+prefill + N greedy decode steps, run under ``engine.graphs.eager()``: the
+trace ranges open on the host, so a replayed CUDA graph has none. The
+first pass builds the kernels outside the trace, the second warms the
+profiler up, the third is traced. The Chrome trace goes to
+``--trace-dir`` (open it in Perfetto or ``chrome://tracing``); the
+script prints, for each of the model's trace ranges
+(``models/llama.py:TRACE_RANGES``, the JAX model's ``jax.named_scope``
+names), its calls, host ms and the device ms of the device ops inside
+its spans on the device timeline, then the top device ops. Then the N
+decode steps run as the engine runs them (captured once, replayed) in a
+second profile, and it prints their device ms and device ops a step
+beside the eager ones.
 
     python -m quest_tpu_torch.scripts.profile_textgen --preset llama31-8b \\
         --layers 4 --ctx 8192 --trace-dir build/quest_trace
@@ -95,6 +99,7 @@ def run_profile_textgen(cfg, params, args) -> dict:
 
     from quest_tpu_torch.config import QuestConfig
     from quest_tpu_torch.engine.engine import QuestEngine
+    from quest_tpu_torch.engine.graphs import eager
     from quest_tpu_torch.ops.utils import resolve_device
 
     dev = resolve_device(args.device)
@@ -105,13 +110,16 @@ def run_profile_textgen(cfg, params, args) -> dict:
     prompt = np.random.default_rng(0).integers(
         1, cfg.vocab_size, size=ctx).astype(np.int32).tolist()
 
-    def generate():
+    def prefill():
         engine.clear()
-        logits = engine.prefill([prompt])
-        tok = int(np.argmax(logits[0]))
+        return int(np.argmax(engine.prefill([prompt])[0]))
+
+    def decode(tok):
         for _ in range(args.decode_tokens):
-            logits = engine.decode([tok])
-            tok = int(np.argmax(logits[0]))
+            tok = int(np.argmax(engine.decode([tok])[0]))
+
+    def generate():
+        decode(prefill())
 
     os.makedirs(args.trace_dir, exist_ok=True)
     trace = os.path.join(args.trace_dir, "profile_textgen.json")
@@ -120,17 +128,30 @@ def run_profile_textgen(cfg, params, args) -> dict:
         activities.append(ProfilerActivity.CUDA)
     # wait: the kernels build outside the trace; warmup: the profiler's
     # own start-up is discarded; active: the traced pass.
-    with profile(activities=activities,
-                 schedule=schedule(wait=1, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: p.export_chrome_trace(trace)) as prof:
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with eager(), profile(
+            activities=activities,
+            schedule=schedule(wait=1, warmup=1, active=1, repeat=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(trace)) as prof:
         for _ in range(3):
             generate()
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
+            sync()
             prof.step()
     ranges = range_times(prof.events())
     ops = sorted(device_ops(prof.key_averages()),
                  key=lambda e: -e.self_device_time_total)
+    # The decode steps as the engine runs them: captured at first use,
+    # then replayed under the profiler.
+    generate()
+    tok = prefill()
+    sync()
+    with profile(activities=activities) as gprof:
+        decode(tok)
+        sync()
+    gops = device_ops(gprof.key_averages())
+    graph = dict(device_ms=sum(e.self_device_time_total for e in gops) / 1e3,
+                 device_ops=sum(e.count for e in gops))
+    n = max(args.decode_tokens, 1)
     top = [dict(name=e.key[:90], count=e.count,
                 device_ms=e.self_device_time_total / 1e3) for e in ops[:10]]
     print(f"{'range':20s} {'calls':>6s} {'host ms':>9s} {'device ms':>10s}")
@@ -140,12 +161,17 @@ def run_profile_textgen(cfg, params, args) -> dict:
     print("top device ops:")
     for t in top:
         print(f"  {t['device_ms']:9.3f} ms  x{t['count']:5d}  {t['name']}")
+    print(f"decode steps as the engine runs them (captured): "
+          f"{graph['device_ms'] / n:.3f} device ms and "
+          f"{graph['device_ops'] / n:.1f} device ops a step")
     print(f"trace written to {trace} (open in Perfetto or chrome://tracing)")
     return {"preset": args.preset, "layers": cfg.num_layers,
             "ctx": ctx, "decode_tokens": args.decode_tokens, "trace": trace,
             "device_ms": sum(e.self_device_time_total for e in ops) / 1e3,
             "device_ops": sum(e.count for e in ops), "ranges": ranges,
-            "top_device_ops": top}
+            "top_device_ops": top,
+            "graph_decode_device_ms_per_step": graph["device_ms"] / n,
+            "graph_decode_device_ops_per_step": graph["device_ops"] / n}
 
 
 def main(argv=None):
