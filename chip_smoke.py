@@ -7,7 +7,15 @@ Phases, each fatal on failure:
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build every CUDA kernel of the port (one nvcc per source, all
      started together);
-  3. each kernel against its plain PyTorch version at the serving
+  3. the unfused decode step's selection first (the estimate's physical
+     route within 1e-5 of ``page_scores_physical_plain``, the select's
+     ids and num_valid bit for bit those of ``select_pages_plain``, the
+     two together with no id flipped outside 1e-5 of the K-th score:
+     B=1 over 32768 tokens and B=2 rows of 5000+2500 at page 16, fp8
+     metadata at page 32, per query head, group sum, groups of 3 and 1,
+     the 256 fp8 codes, idle rows, K > P, tie rows; timed in turns with
+     the plain versions, ``torch.bmm`` and ``torch.topk``); then
+     each kernel against its plain PyTorch version at the serving
      path's shapes (Llama-3.1-8B attention: 32 query heads, 8 KV heads,
      head dim 128, page 16, bf16, 64-page allocation blocks, a shuffled
      block table, a bf16 query as the serving path gives it; once more
@@ -904,6 +912,230 @@ def fused_tie_rows(cache, q, kw):
                 bound_ms=None, bound_by="bytes", bitwise_equal=True)
 
 
+F32_FLOPS = 67e12                # f32 FMA peak outside the tensor cores
+
+
+def in_turns(timer, fns):
+    """Each of ``fns`` (name: callable) timed twice, in turns (each in
+    order, then in reverse); returns {name: [ms, ms]}."""
+    names = list(fns) + list(fns)[::-1]
+    out = {}
+    for n in names:
+        out.setdefault(n, []).append(timer(fns[n]))
+    return out
+
+
+def scratch_and_shared(cache, seq):
+    """Rewrites the block table as the scheduler leaves it: every block
+    past a row's length on the scratch block 0, and row 1's first block
+    the same physical block as row 0's (a shared prompt prefix)."""
+    bt = cache.block_pages * cache.page_size
+    tab = cache.block_tab
+    for b, n in enumerate(seq.tolist()):
+        tab[b, -(-n // bt):] = 0
+    if tab.shape[0] > 1:
+        tab[1, 0] = tab[0, 0]
+
+
+def selection_cases(timer, gen):
+    """The unfused decode step's selection on its kernels at the main
+    path's shapes (Llama-3.1-8B attention, 64-page blocks, a shuffled
+    block table): the estimate's physical route against
+    ``page_scores_physical_plain`` (within 1e-5 relative; bf16 metadata
+    at page 16, B=1 over 32768 tokens and B=2 with rows of 5000 and 2500
+    in a 16384-token pool whose idle blocks sit on scratch block 0 and
+    whose rows share a block; fp8 metadata at page 32; per query head;
+    group sum; groups of 3 and 1; bf16 and f32 queries; the 256 fp8
+    codes widened exactly), and ``select_pages`` on the card (the select
+    kernel with junk id P - 1) against ``select_pages_plain``: ids and
+    num_valid bit for bit, junk slots included, on those scores and on
+    rows of 0, 1 and 17 tokens, K > P and the tie rows. The pipeline as
+    a whole against the plain one: no selected id flipped outside 1e-5
+    of the K-th score. Timed in turns with the plain versions and a
+    library call (``torch.bmm`` over metadata gathered and widened
+    beforehand; ``torch.topk``)."""
+    from quest_tpu_torch.ops.estimate import (page_scores_physical,
+                                              page_scores_physical_plain)
+    from quest_tpu_torch.ops.reference import selection_flips
+    from quest_tpu_torch.ops.topk import select_pages, select_pages_plain
+    out = {"estimate": [], "topk_select": []}
+    D = 128
+
+    def est(label, q, cache, agg="max", per_q=False, timed=False):
+        args = (q, cache.k_max[0], cache.k_min[0], cache.block_tab)
+        kw = dict(group_agg=agg, per_q_head=per_q)
+        got = page_scores_physical(*args, **kw)
+        want = page_scores_physical_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        assert err <= 1e-5, f"physical estimate disagrees ({label}): {err}"
+        B, Hq, _ = q.shape
+        Hkv, _, bpp, _ = cache.k_max.shape[1:]
+        P = cache.block_tab.shape[1] * bpp
+        blocks = torch.unique(cache.block_tab).numel()
+        nbytes = (q.numel() * q.element_size() + cache.block_tab.numel() * 4
+                  + 2 * Hkv * blocks * bpp * D * cache.k_max.element_size()
+                  + got.numel() * 4)
+        flops = 2 * 2 * B * Hq * P * D
+        row = dict(case=label, max_abs_err=float((got - want).abs().max()),
+                   max_rel_err=err, ms=None, plain_ms=None, library_ms=None,
+                   bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                flops / F32_FLOPS) * 1e3,
+                   bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                   >= flops / F32_FLOPS else "operations")
+        if timed:
+            # Library yardstick: one f32 bmm over the rows' metadata,
+            # gathered through the block table and widened beforehand.
+            phys = (cache.block_tab.long()[:, :, None] * bpp
+                    + torch.arange(bpp, device="cuda")).reshape(B, P)
+            m = torch.cat([cache.k_max[0], cache.k_min[0]], dim=-1).reshape(
+                Hkv, -1, 2 * D)[:, phys].float()           # [Hkv, B, P, 2D]
+            mc = m.transpose(0, 1).reshape(B * Hkv, P, 2 * D).transpose(
+                1, 2).contiguous()
+            del m
+            qf = q.float().reshape(B * Hkv, Hq // Hkv, D)
+            qc = torch.cat([qf.clamp(min=0), qf.clamp(max=0)], dim=-1)
+            t = in_turns(timer, {
+                "ms": lambda: page_scores_physical(*args, **kw),
+                "plain_ms": lambda: page_scores_physical_plain(*args, **kw),
+                "library_ms": lambda: torch.bmm(qc, mc)})
+            row.update({k: statistics.mean(v) for k, v in t.items()},
+                       turns_ms=t)
+            del mc
+        out["estimate"].append(row)
+        log(f"estimate[physical, {label}]: rel err {err:.2e}"
+            + (f", {row['ms'] * 1e3:.1f} us (bound "
+               f"{row['bound_ms'] * 1e3:.2f} us, plain "
+               f"{row['plain_ms'] * 1e3:.1f} us, f32 bmm "
+               f"{row['library_ms'] * 1e3:.1f} us; turns "
+               f"{json.dumps(row['turns_ms'])})" if timed else ""))
+        return got, want
+
+    def sel(label, scores, seq, page, K, timed=False):
+        got = select_pages(scores, seq, page, K)
+        want = select_pages_plain(scores, seq, page, K)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        assert same, f"select kernel ids or num_valid differ ({label})"
+        B, H, P = scores.shape
+        n = ((seq.long() + page - 1) // page).clamp(max=P)
+        nbytes = (int(n.sum()) * H * 4 + B * H * K * 4 + 2 * B * 4)
+        row = dict(case=label, max_abs_err=0.0, max_rel_err=0.0,
+                   bitwise_equal=True, ms=None, plain_ms=None,
+                   library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        if timed:
+            t = in_turns(timer, {
+                "ms": lambda: select_pages(scores, seq, page, K),
+                "plain_ms": lambda: select_pages_plain(scores, seq, page, K),
+                "library_ms": lambda: torch.topk(scores, K, dim=-1)})
+            row.update({k: statistics.mean(v) for k, v in t.items()},
+                       turns_ms=t)
+        out["topk_select"].append(row)
+        log(f"topk_select[select_pages, {label}]: ids and num_valid bitwise "
+            f"equal" + (f", {row['ms'] * 1e3:.1f} us (bound "
+                        f"{row['bound_ms'] * 1e3:.3f} us, plain "
+                        f"{row['plain_ms'] * 1e3:.1f} us, torch.topk "
+                        f"{row['library_ms'] * 1e3:.1f} us; turns "
+                        f"{json.dumps(row['turns_ms'])})" if timed else ""))
+        return got
+
+    def flips(label, got_ids, want_ids, scores, seq, page):
+        B, H, P = scores.shape
+        K = got_ids.shape[-1]
+        n = ((seq.long() + page - 1) // page).repeat_interleave(H)
+        c, gap = selection_flips(got_ids.reshape(B * H, K),
+                                 want_ids.reshape(B * H, K),
+                                 scores.reshape(B * H, P), n)
+        log(f"selection[{label}]: kernels vs the plain pipeline: {c} ids "
+            f"differ (largest distance from the K-th score {gap:.1e} "
+            f"relative, limit 1e-5)")
+        assert c == 0 or gap <= 1e-5, f"selection flips ({label}): {c}, {gap}"
+        return dict(flipped_ids=c, flip_max_rel_gap=gap)
+
+    def route(label, q, cache, seq, agg="max", per_q=False, timed=False):
+        page = cache.page_size
+        K = 2048 // page                   # the default 2048-token budget
+        got, want = est(label, q, cache, agg, per_q, timed)
+        ids = sel(label, got, seq, page, K, timed)
+        want_ids, _ = select_pages_plain(want, seq, page, K)
+        out["topk_select"][-1].update(flips(label, ids[0], want_ids, want,
+                                            seq, page))
+
+    # The bench_textgen --ab-full shape: B=1, 32768 tokens, page 16.
+    cfg, quest, cache = make_pool(32768, 1, gen)
+    seq = torch.tensor([32768], dtype=torch.int32, device="cuda")
+    q = torch.randn((1, 32, D), generator=gen, device="cuda")
+    route("B=1, 32768 tokens, bf16 page 16", q.to(torch.bfloat16), cache,
+          seq, timed=True)
+    est("B=1, 32768 tokens, bf16 page 16, f32 query", q, cache)
+    del cache
+    # The serving phase's rows in its 16384-token pool, idle blocks on
+    # scratch, a shared block.
+    cfg, quest, cache = make_pool(16384, 2, gen)
+    seq = torch.tensor([5000, 2500], dtype=torch.int32, device="cuda")
+    scratch_and_shared(cache, seq)
+    q = torch.randn((2, 32, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    route("B=2, 5000+2500 tokens, bf16 page 16", q, cache, seq, timed=True)
+    route("B=2, 5000+2500 tokens, group sum", q, cache, seq, agg="sum")
+    route("B=2, 5000+2500 tokens, per query head", q, cache, seq,
+          per_q=True)
+    for G in (3, 1):
+        qg = torch.randn((2, 8 * G, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        route(f"B=2, 5000+2500 tokens, group {G}", qg, cache, seq)
+    # Rows of 0, 1 and 17 tokens (an idle slot, one page, two pages) and
+    # a full one; K above the page count.
+    scores = torch.randn((4, 8, cache.max_pages), generator=gen,
+                         device="cuda")
+    seq4 = torch.tensor([0, 1, 17, 16384], dtype=torch.int32, device="cuda")
+    sel("rows of 0, 1, 17 and 16384 tokens", scores, seq4, 16, 128)
+    sel("K=128 over 100 pages", scores[:2, :, :100].contiguous(),
+        torch.tensor([1600, 800], dtype=torch.int32, device="cuda"), 16, 128)
+    for s, k, sl in tie_rows():
+        sel(f"tie row, K={k}", s.cuda()[None, None],
+            torch.tensor([sl], dtype=torch.int32, device="cuda"), 16, k)
+    del cache
+    # The serving configuration's metadata: fp8 e4m3 at page 32.
+    cfg, quest, cache = make_pool(32768, 1, gen, page_size=32,
+                                  meta_dtype=torch.float8_e4m3fn)
+    seq = torch.tensor([32768], dtype=torch.int32, device="cuda")
+    q = torch.randn((1, 32, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    route("B=1, 32768 tokens, fp8 page 32", q, cache, seq, timed=True)
+    del cache
+    torch.cuda.empty_cache()
+    # Every fp8 code, denormals and NaNs included, widened exactly: page p
+    # holds code p in k_max's dim 0 and k_min's dim 5; query head 0 reads
+    # dim 0, head 1 dim 5 negated (per query head, G=2).
+    codes = torch.arange(256, dtype=torch.uint8, device="cuda")
+    kx = torch.zeros((1, 4, 64, D), dtype=torch.uint8, device="cuda")
+    kn = torch.zeros_like(kx)
+    kx.view(256, D)[:, 0] = codes
+    kn.view(256, D)[:, 5] = codes
+    kx, kn = (t.view(torch.float8_e4m3fn) for t in (kx, kn))
+    qc = torch.zeros((1, 2, D), device="cuda")
+    qc[0, 0, 0], qc[0, 1, 5] = 1.0, -1.0
+    tab = torch.tensor([[2, 0, 3, 1]], dtype=torch.int32, device="cuda")
+    got = page_scores_physical(qc, kx, kn, tab, per_q_head=True)
+    want = page_scores_physical_plain(qc, kx, kn, tab, per_q_head=True)
+    vals = codes.view(torch.float8_e4m3fn).float().reshape(4, 64)[
+        tab[0].long()].reshape(-1)
+    torch.cuda.synchronize()
+    for w in (want[0, 0], -want[0, 1]):
+        assert torch.equal(w.isnan(), vals.isnan())
+        assert torch.equal(w[~vals.isnan()], vals[~vals.isnan()])
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    out["estimate"].append(dict(
+        case="256 fp8 codes widened exactly (denormals, NaN)",
+        max_abs_err=0.0, max_rel_err=0.0, bitwise_equal=True, ms=None,
+        plain_ms=None, library_ms=None, bound_ms=None, bound_by="bytes"))
+    log("estimate[physical, 256 fp8 codes]: every code read bit for bit as "
+        "PyTorch's cast reads it (denormals kept, NaN codes NaN)")
+    return out
+
+
 def fp8_cases(timer, gen):
     """The fp8 e4m3 branches of the four attention kernels at the
     serving configuration's shapes (Llama-3.1-8B attention, B=2, 32768 +
@@ -1427,9 +1659,14 @@ def cache_bytes(cache):
 SERVING_PATHS = ("unfused", "fused", "serving", "serving_fp8")
 # Device ops (kernels, copies, memsets) of one decode step in the profile:
 # the sparse and dense kernels merge their splits in the same launch, one
-# launch a layer (30 sparse + 2 dense layers unfused, 2 dense fused).
-DEVICE_OPS_PER_STEP = {"unfused": 4450, "fused": 3130, "serving": 4450,
-                       "serving_fp8": 4514}
+# launch a layer (30 sparse + 2 dense layers unfused, 2 dense fused); a
+# sparse layer's selection is two launches unfused (the estimate's
+# physical route and the select), none fused (inside its one kernel).
+DEVICE_OPS_PER_STEP = {"unfused": 3190, "fused": 3130, "serving": 3190,
+                       "serving_fp8": 3254}
+# The kernels a sparse layer launches on the unfused decode step, one
+# each.
+SPARSE_LAYER_KERNELS = ("estimate", "topk_select", "sparse_decode")
 # Idle seconds between a profiled window's edges and the steps inside it.
 PROFILE_MARGIN_S = 0.25
 
@@ -1493,7 +1730,8 @@ def serving_phase(kernels, smi):
         sparse = (L - skip) * (N - 1)
         want = dict.fromkeys(kernels, 0)
         want.update(prefill=L * chunks, dense_decode=skip * (N - 1))
-        want["fused_decode" if path == "fused" else "sparse_decode"] = sparse
+        want.update(dict.fromkeys(("fused_decode",) if path == "fused"
+                                  else SPARSE_LAYER_KERNELS, sparse))
         log(f"serving[{path}, {label}]: prompts {[len(p) for p in prompts]}, "
             f"{N} tokens each in {dt:.2f} s; launches {got}")
         assert got == want, f"launch counts {got} != path {want}"
@@ -1886,8 +2124,6 @@ def small_scheduler_phase(fused=False, kv_dtype=torch.float32):
     from quest_tpu_torch.config import QuestConfig, small_tpu_model
     from quest_tpu_torch.engine.scheduler import ContinuousBatchingEngine
     from quest_tpu_torch.models.llama import init_params
-    from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
-    from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
                               num_kv_heads=2, dtype=torch.float32)
     quest = QuestConfig(page_size=16, token_budget=64, max_seq_len=2048,
@@ -1910,14 +2146,16 @@ def small_scheduler_phase(fused=False, kv_dtype=torch.float32):
     else:
         reqs = scheduler_requests(cfg.vocab_size, bt)
         gpu = engine("cuda")
-    fused_sparse_decode.launches = sparse_decode_attention.launches = 0
+    counted = {n: k for n, k in kernel_wrappers().items()
+               if n in ("fused_decode",) + SPARSE_LAYER_KERNELS}
+    for k in counted.values():
+        k.launches = 0
     t = time.time()
     with KernelTap(scheduler_tap_rule(gpu)) as tap:
         gens, ticks = drive_lockstep([gpu, cpu] if against_cpu else [gpu],
                                      reqs)
     torch.cuda.synchronize()
-    launches = {"fused_decode": fused_sparse_decode.launches,
-                "sparse_decode": sparse_decode_attention.launches}
+    launches = {n: k.launches for n, k in counted.items()}
     name = (f"{'fused' if fused else 'unfused'}, "
             f"{str(kv_dtype).split('.')[-1]} KV")
     g = gens[0]
@@ -1951,6 +2189,8 @@ def small_scheduler_phase(fused=False, kv_dtype=torch.float32):
     assert gpu.prefix_hits >= 1, "the prefix cache was never hit"
     assert launches["fused_decode" if fused else "sparse_decode"] > 0
     assert launches["sparse_decode" if fused else "fused_decode"] == 0
+    assert all(launches[k] == launches["sparse_decode"]
+               for k in SPARSE_LAYER_KERNELS), launches
     cases = check_taps(tap, f"4-layer {name}", tap_needs(quest))
     return dict(ticks=len(ticks), prefix_hits=gpu.prefix_hits,
                 **launches), cases
@@ -2037,7 +2277,8 @@ def scheduler_phase(params, kernels, smi):
                 want["prefill"] = L
             else:
                 want.update(dense_decode=skip * n_steps,
-                            sparse_decode=(L - skip) * n_steps)
+                            **dict.fromkeys(SPARSE_LAYER_KERNELS,
+                                            (L - skip) * n_steps))
                 run["decode_steps"] += n_steps
                 run["generated"] += len(events)
             if eng.last_tick is not None:
@@ -2417,7 +2658,7 @@ def quantized_serving_phase(params, kernels, smi):
         got = {n: k.launches for n, k in kernels.items()}
         want = dict.fromkeys(kernels, 0)
         want.update(prefill=L, dense_decode=skip * (N - 1),
-                    sparse_decode=(L - skip) * (N - 1),
+                    **dict.fromkeys(SPARSE_LAYER_KERNELS, (L - skip) * (N - 1)),
                     **quant_launches(cfg, N - 1, 1))
         log(f"quantized[{name}, generate_ondevice]: prompts "
             f"{[len(p) for p in prompts]}, {N} tokens each in "
@@ -2641,7 +2882,8 @@ def eval_phase(cfg, params, kernels, device="cuda", warmup=3000,
         if kernels:
             want.update(prefill=L * pre[1],
                         dense_decode=min(skip, L) * steps[0],
-                        sparse_decode=max(L - skip, 0) * steps[0])
+                        **dict.fromkeys(SPARSE_LAYER_KERNELS,
+                                        max(L - skip, 0) * steps[0]))
         assert got == want, f"launches {got} != path {want}"
         return value, dict(wall_s=wall, prefill_s=pre[0],
                            prefill_calls=pre[1], decode_steps=steps[0],
@@ -2761,8 +3003,8 @@ def tools_phase(params, kernels, smi):
         skip, ab = args.skip_layers, "full_cache_ms_per_token" in out
         want = {"prefill": L * chunks * (3 if ab else 2),
                 "dense_decode": skip * steps + (L * steps if ab else 0),
-                "fused_decode" if args.fused else "sparse_decode":
-                    (L - skip) * steps}
+                **dict.fromkeys(("fused_decode",) if args.fused
+                                else SPARSE_LAYER_KERNELS, (L - skip) * steps)}
         log(f"tools[bench_textgen, {label}]: {json.dumps(out)}; launches "
             f"{got}")
         assert got == want, f"launches {got} != path {want}"
@@ -3004,8 +3246,8 @@ def world1_phase(params, kernels):
         assert cs == cu, f"15a: launches {cs} != unsharded {cu}"
         want = dict(prefill=cfg.num_layers,
                     dense_decode=quest.skip_layers * (N - 1),
-                    sparse_decode=(cfg.num_layers - quest.skip_layers)
-                    * (N - 1))
+                    **dict.fromkeys(SPARSE_LAYER_KERNELS, (
+                        cfg.num_layers - quest.skip_layers) * (N - 1)))
         assert cs == want, f"15a: launches {cs} != the path's {want}"
         # Decode ms a step, in turns (unsharded, sharded, sharded,
         # unsharded), 16 steps from the current state each.
@@ -3408,9 +3650,9 @@ KERNEL_META = {
     "prefill": ("quest_tpu_torch/csrc/prefill.cu",
                 "quest_tpu/ops/prefill.py:245", "unfused"),
     "estimate": ("quest_tpu_torch/csrc/estimate.cu",
-                 "quest_tpu/ops/estimate.py:229", None),
+                 "quest_tpu/ops/estimate.py:229", "unfused"),
     "topk_select": ("quest_tpu_torch/csrc/topk_select.cu",
-                    "exp/select_compile.py:48", None),
+                    "exp/select_compile.py:48", "unfused"),
     "fused_decode": ("quest_tpu_torch/csrc/fused_decode.cu",
                      "quest_tpu/ops/fused_decode.py:606", "fused"),
     "copy_probe": ("quest_tpu_torch/csrc/copy_probe.cu",
@@ -3431,7 +3673,7 @@ def kernel_wrappers():
     """Each kernel's wrapper, which counts its launches."""
     from quest_tpu_torch.ops.copy_probe import copy_probe
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
-    from quest_tpu_torch.ops.estimate import page_scores_kernel
+    from quest_tpu_torch.ops.estimate import page_scores_physical
     from quest_tpu_torch.ops.fused_decode import (exact_topk_select,
                                                   fused_sparse_decode)
     from quest_tpu_torch.ops.prefill import prefill_attention
@@ -3440,7 +3682,7 @@ def kernel_wrappers():
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return {"sparse_decode": sparse_decode_attention,
             "dense_decode": dense_decode_attention,
-            "prefill": prefill_attention, "estimate": page_scores_kernel,
+            "prefill": prefill_attention, "estimate": page_scores_physical,
             "topk_select": exact_topk_select,
             "fused_decode": fused_sparse_decode,
             "copy_probe": copy_probe, "select_pieces": select_pieces,
@@ -3461,10 +3703,13 @@ def main():
     torch.manual_seed(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
+    selection = selection_cases(timer, gen)
     results = {"sparse_decode": sparse_cases(timer, gen),
                "dense_decode": dense_cases(timer, gen),
                "prefill": prefill_cases(timer, gen),
                **fused_slice_cases(timer, gen)}
+    for kname, cases in selection.items():      # the main path's first
+        results[kname] = cases + results[kname]
     for kname, cases in fp8_cases(timer, gen).items():
         results[kname] += cases
     group = group_cases(timer, gen)

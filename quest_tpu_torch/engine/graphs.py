@@ -83,7 +83,8 @@ def launch_counters() -> tuple:
     """Every kernel wrapper that counts its launches."""
     from quest_tpu_torch.ops.copy_probe import copy_probe
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
-    from quest_tpu_torch.ops.estimate import page_scores_kernel
+    from quest_tpu_torch.ops.estimate import (page_scores_kernel,
+                                              page_scores_physical)
     from quest_tpu_torch.ops.fused_decode import (exact_topk_select,
                                                   fused_sparse_decode)
     from quest_tpu_torch.ops.prefill import prefill_attention
@@ -92,7 +93,8 @@ def launch_counters() -> tuple:
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return (sparse_decode_attention, dense_decode_attention,
             fused_sparse_decode, prefill_attention, page_scores_kernel,
-            exact_topk_select, qgemv, dequant, copy_probe, select_pieces)
+            page_scores_physical, exact_topk_select, qgemv, dequant,
+            copy_probe, select_pieces)
 
 
 class CudaGraph:

@@ -39,8 +39,10 @@ SIGNATURES = {
     "dense_decode": ("dense_decode_launch",
                      [_P] * 8 + [_I] * 10 + [_F, _I, _P, _P]),
     "prefill": ("prefill_launch", [_P] * 6 + [_I] * 10 + [_F, _I, _P, _P]),
+    # The library's second entry point, estimate_physical_launch, is
+    # bound by ops/estimate.py.
     "estimate": ("estimate_launch", [_P] * 4 + [_I] * 7 + [_P]),
-    "topk_select": ("topk_select_launch", [_P] * 4 + [_I] * 3 + [_P]),
+    "topk_select": ("topk_select_launch", [_P] * 4 + [_I] * 6 + [_P]),
     "fused_decode": ("fused_decode_launch", [_P] * 8 + [_I] * 12 + [_F, _P]),
     "copy_probe": ("copy_probe_launch", [_P] * 5 + [_I] * 9 + [_P]),
     "select_pieces": ("select_pieces_launch", [_P] * 2 + [_I] * 2 + [_P]),

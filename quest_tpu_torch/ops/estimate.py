@@ -16,9 +16,15 @@ card.
 Pallas ``page_scores_kernel``): on a CUDA tensor it launches
 ``csrc/estimate.cu``, whose scoring code the fused decode kernel shares;
 on a CPU tensor it runs :func:`page_scores_kernel_plain`.
+:func:`page_scores_physical`, the unfused decode step's estimate, launches
+the same source's physical route on a CUDA tensor (the counterpart of the
+XLA fusion the JAX package runs there) and
+:func:`page_scores_physical_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -61,21 +67,17 @@ def page_scores_per_qhead(q: torch.Tensor, k_max: torch.Tensor,
     return _group_scores(q, k_max, k_min).reshape(B, Hq, -1)
 
 
-def page_scores_physical(q: torch.Tensor, k_max_l: torch.Tensor,
-                         k_min_l: torch.Tensor, block_tab: torch.Tensor,
-                         group_agg: str = "max",
-                         per_q_head: bool = False) -> torch.Tensor:
-    """Criticality scores over the PHYSICAL pool, gathered per slot.
-
-    Scores every physical page once for the whole batch (metadata is
-    keyed by physical page, kv/paged_kv.py), then gathers each slot's
-    logical scores through its block table with an exact index gather
-    (the JAX package used a one-hot contraction, a TPU workaround).
-
-    q: [B, Hq, D] un-scaled; k_max_l/k_min_l: [Hkv, NPB, bpp, D] (one
-    layer); block_tab: [B, NB]. Returns [B, Hkv, P] f32 ([B, Hq, P]
-    when ``per_q_head``), P = NB * bpp.
-    """
+def page_scores_physical_plain(q: torch.Tensor, k_max_l: torch.Tensor,
+                               k_min_l: torch.Tensor, block_tab: torch.Tensor,
+                               group_agg: str = "max",
+                               per_q_head: bool = False) -> torch.Tensor:
+    """Eager version of :func:`page_scores_physical`, as the JAX package
+    computes it: scores every physical page once for the whole batch
+    (metadata is keyed by physical page, kv/paged_kv.py) with f32 q and
+    metadata widened by the plain cast (fp8 denormals kept), then
+    gathers each slot's logical scores through its block table with an
+    exact index gather (the JAX package used a one-hot contraction, a TPU
+    workaround)."""
     Hkv, NPB, bpp, D = k_max_l.shape
     B, Hq, _ = q.shape
     km = k_max_l.reshape(Hkv, NPB * bpp, D).float()
@@ -89,6 +91,64 @@ def page_scores_physical(q: torch.Tensor, k_max_l: torch.Tensor,
     idx = block_tab.long()[:, None, :, None].expand(B, H, NB, bpp)
     return torch.gather(s.reshape(B, H, NPB, bpp), 2, idx).reshape(
         B, H, NB * bpp)
+
+
+def _physical_entry(lib):
+    fn = lib.estimate_physical_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def page_scores_physical(q: torch.Tensor, k_max_l: torch.Tensor,
+                         k_min_l: torch.Tensor, block_tab: torch.Tensor,
+                         group_agg: str = "max",
+                         per_q_head: bool = False) -> torch.Tensor:
+    """Criticality scores over the PHYSICAL pool, per slot: each slot's
+    logical pages scored through its block table, q kept in f32.
+
+    q: [B, Hq, D] un-scaled; k_max_l/k_min_l: [Hkv, NPB, bpp, D] (one
+    layer, f32, bf16 or fp8 e4m3); block_tab: [B, NB], entries in
+    [0, NPB). Returns [B, Hkv, P] f32 ([B, Hq, P] when ``per_q_head``),
+    P = NB * bpp. On a CUDA tensor one launch of ``csrc/estimate.cu``'s
+    physical route; on a CPU tensor :func:`page_scores_physical_plain`.
+    """
+    if group_agg not in ("max", "sum"):
+        raise ValueError(f"unknown group_agg {group_agg!r}")
+    if not q.is_cuda:
+        return page_scores_physical_plain(q, k_max_l, k_min_l, block_tab,
+                                          group_agg, per_q_head)
+    meta_code = check_pool_dtype(k_max_l.dtype, "page metadata")
+    if k_min_l.dtype != k_max_l.dtype or k_min_l.shape != k_max_l.shape:
+        raise ValueError("k_max and k_min must share dtype and shape")
+    Hkv, NPB, bpp, _ = k_max_l.shape
+    G = check_kernel_operands(q, Hkv, k_max_l, k_min_l)
+    if G > 128:
+        raise NotImplementedError(
+            f"the physical estimate takes groups of at most 128 query "
+            f"heads, got {G}")
+    if block_tab.device != q.device:
+        raise ValueError("block_tab must be on the query's device")
+    B, Hq, _ = q.shape
+    NB = block_tab.shape[1]
+    qk = kernel_query(q)
+    tab = block_tab.to(torch.int32).contiguous()
+    out = torch.empty((B, Hq if per_q_head else Hkv, NB * bpp),
+                      dtype=torch.float32, device=q.device)
+    lib = _build.load("estimate")
+    code = _physical_entry(lib)(
+        _build.ptr(qk), _build.ptr(k_max_l), _build.ptr(k_min_l),
+        _build.ptr(tab), _build.ptr(out), B, Hkv, G, NPB, bpp, NB, meta_code,
+        2 if per_q_head else int(group_agg == "sum"),
+        int(qk.dtype == torch.bfloat16), _build.stream_of(q))
+    _build.check(lib, code, "estimate (physical)")
+    page_scores_physical.launches += 1
+    return out
+
+
+page_scores_physical.launches = 0
 
 
 def split_query(q: torch.Tensor, Hkv: int, dtype: torch.dtype):

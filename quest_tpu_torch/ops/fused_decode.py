@@ -38,14 +38,30 @@ def order_keys(scores: torch.Tensor) -> torch.Tensor:
     return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
 
 
+def _check_rows(num_pages: torch.Tensor, R: int, page_size: int,
+                rows_per_len: int) -> None:
+    """num_pages must hold one entry a ``rows_per_len`` rows of R (a [B]
+    vector where [B * Hkv] is meant would be read past on the card)."""
+    if rows_per_len < 1 or R % rows_per_len or page_size < 1:
+        raise ValueError(f"{R} rows do not take num_pages {rows_per_len} "
+                         f"rows apiece in pages of {page_size}")
+    if tuple(num_pages.shape) != (R // rows_per_len,):
+        raise ValueError(f"num_pages must have shape ({R // rows_per_len},),"
+                         f" one entry a {rows_per_len} rows of scores; got "
+                         f"{tuple(num_pages.shape)}")
+
+
 def exact_topk_select_plain(scores: torch.Tensor, num_pages: torch.Tensor,
-                            budget_pages: int):
+                            budget_pages: int, *, junk: int = 0,
+                            page_size: int = 1, rows_per_len: int = 1):
     """Eager version of :func:`exact_topk_select`: the first K of a
     stable descending sort of the keys, re-sorted by page id."""
     R, P = scores.shape
+    _check_rows(num_pages, R, page_size, rows_per_len)
     K = budget_pages
     dev = scores.device
-    n = num_pages.long().clamp(0, P)
+    n = ((num_pages.long().clamp(min=0) + page_size - 1) // page_size
+         ).repeat_interleave(rows_per_len).clamp(max=P)
     pid = torch.arange(P, device=dev)[None, :]
     s = torch.where(pid < n[:, None], scores.float(),
                     torch.full_like(scores, float("-inf"), dtype=torch.float32))
@@ -59,28 +75,33 @@ def exact_topk_select_plain(scores: torch.Tensor, num_pages: torch.Tensor,
     slot = torch.arange(K, device=dev)[None, :]
     valid = slot < num_valid[:, None]
     ids = torch.sort(torch.where(valid, order, P + slot), dim=-1).values
-    ids = torch.where(valid, ids, torch.zeros_like(ids))
-    return ids.to(torch.int32), num_valid.to(torch.int32)
+    ids = torch.where(valid, ids, torch.full_like(ids, junk))
+    return ids.to(torch.int32), num_valid[::rows_per_len].to(torch.int32)
 
 
 def exact_topk_select(scores: torch.Tensor, num_pages: torch.Tensor,
-                      budget_pages: int):
+                      budget_pages: int, *, junk: int = 0,
+                      page_size: int = 1, rows_per_len: int = 1):
     """Exact top-K pages per row, in ascending page order.
 
-    scores: [R, P] f32; num_pages: [R] pages of each row. Pages >=
-    num_pages score -inf and the last page (num_pages - 1) +inf; the K
-    largest order-preserving keys (:func:`order_keys`) are selected,
-    ties at the boundary going to the lowest page ids (``lax.top_k``'s
-    policy). Returns (ids [R, K] int32, num_valid [R] int32):
+    scores: [R, P] f32; num_pages: [R / rows_per_len] pages of each
+    row, row r taking entry r // rows_per_len; with ``page_size`` > 1
+    the entries are lengths in tokens, and a row's pages ceil(len /
+    page_size); a row's pages must not pass P. Pages >= num_pages score
+    -inf and the last page (num_pages - 1) +inf; the K largest
+    order-preserving keys (:func:`order_keys`) are selected, ties at the
+    boundary going to the lowest page ids (``lax.top_k``'s policy).
+    Returns (ids [R, K] int32, num_valid [R / rows_per_len] int32):
     num_valid = min(K, num_pages) ids ascend in the first slots, and
-    every junk slot holds page 0, which is always in range.
+    every junk slot holds ``junk`` (page 0 for the fused kernel's probe;
+    P - 1 where it stands in for ``ops/topk.py:select_pages``).
     """
     R, P = scores.shape
-    if tuple(num_pages.shape) != (R,):
-        raise ValueError(f"num_pages must have shape ({R},), one entry a "
-                         f"row of scores; got {tuple(num_pages.shape)}")
     if not scores.is_cuda:
-        return exact_topk_select_plain(scores, num_pages, budget_pages)
+        return exact_topk_select_plain(scores, num_pages, budget_pages,
+                                       junk=junk, page_size=page_size,
+                                       rows_per_len=rows_per_len)
+    _check_rows(num_pages, R, page_size, rows_per_len)
     if scores.dtype != torch.float32:
         raise TypeError(f"scores must be float32, got {scores.dtype}")
     if num_pages.device != scores.device:
@@ -89,11 +110,13 @@ def exact_topk_select(scores: torch.Tensor, num_pages: torch.Tensor,
     s = scores.contiguous()
     n = num_pages.to(torch.int32).contiguous()
     ids = torch.empty((R, K), dtype=torch.int32, device=s.device)
-    num_valid = torch.empty((R,), dtype=torch.int32, device=s.device)
+    num_valid = torch.empty((R // rows_per_len,), dtype=torch.int32,
+                            device=s.device)
     lib = _build.load("topk_select")
     code = lib.topk_select_launch(_build.ptr(s), _build.ptr(n),
                                   _build.ptr(ids), _build.ptr(num_valid), R,
-                                  P, K, _build.stream_of(s))
+                                  P, K, rows_per_len, page_size, junk,
+                                  _build.stream_of(s))
     _build.check(lib, code, "topk_select")
     exact_topk_select.launches += 1
     return ids, num_valid

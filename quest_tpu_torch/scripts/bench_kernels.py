@@ -9,12 +9,14 @@ events, L2 flushed between launches; ``--iters`` timed launches after
 three untimed ones); with ``--device cpu`` the plain versions are timed by the
 host clock.
 
-Stages: ``estimate`` (``page_scores`` over the logical metadata),
-``topk`` (``select_pages``), ``sparse`` (the sparse decode kernel over the
-selected pages), ``dense`` (the dense decode kernel over the context),
-``append`` (``append_decode_at`` at a fixed position), ``prefill`` (a
-2048-token chunk at the end of the context) and ``pipeline`` (estimate ->
-top-k -> sparse). The JSON line holds each stage's microseconds under the
+Stages: ``estimate`` (``page_scores_physical``, the decode step's
+estimate over the physical metadata through the block table: the
+physical route of ``csrc/estimate.cu`` on the card), ``topk``
+(``select_pages``: ``csrc/topk_select.cu`` on the card), ``sparse``
+(the sparse decode kernel over the selected pages), ``dense`` (the
+dense decode kernel over the context), ``append`` (``append_decode_at``
+at a fixed position), ``prefill`` (a 2048-token chunk at the end of the
+context) and ``pipeline`` (estimate -> top-k -> sparse). The JSON line holds each stage's microseconds under the
 JAX script's names.
 
     python -m quest_tpu_torch.scripts.bench_kernels [--ctx 32768]
@@ -99,9 +101,12 @@ class HostTimer:
 def stage_kernels():
     """Stage -> the kernel wrapper it launches (None: plain PyTorch ops)."""
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
+    from quest_tpu_torch.ops.estimate import page_scores_physical
+    from quest_tpu_torch.ops.fused_decode import exact_topk_select
     from quest_tpu_torch.ops.prefill import prefill_attention
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
-    return {"estimate": None, "topk": None, "sparse": sparse_decode_attention,
+    return {"estimate": page_scores_physical, "topk": exact_topk_select,
+            "sparse": sparse_decode_attention,
             "dense": dense_decode_attention, "append": None,
             "prefill": prefill_attention, "pipeline": sparse_decode_attention}
 
@@ -114,7 +119,7 @@ def run_bench_kernels(args, detail=None) -> dict:
     from quest_tpu_torch.kv.paged_kv import (append_decode_at,
                                              append_prefill_at, init_cache)
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
-    from quest_tpu_torch.ops.estimate import page_scores
+    from quest_tpu_torch.ops.estimate import page_scores_physical
     from quest_tpu_torch.ops.prefill import prefill_attention
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     from quest_tpu_torch.ops.topk import select_pages
@@ -146,9 +151,13 @@ def run_bench_kernels(args, detail=None) -> dict:
     append_prefill_at(cache, 0, normal(B, CTX, Hkv, D), normal(B, CTX, Hkv, D))
     cache.seq_lens.fill_(CTX)
     seq = cache.seq_lens.clone()
-    view = cache.layer(0)                # logical metadata, as JAX times it
     q0 = normal(B, Hq, D)
-    scores0 = page_scores(q0, view.k_max, view.k_min)
+
+    def estimate():
+        return page_scores_physical(q0, cache.k_max[0], cache.k_min[0],
+                                    cache.block_tab)
+
+    scores0 = estimate()
     idx0, nv0 = select_pages(scores0, seq, page, S)
 
     nbytes = stage_bytes(B, Hkv, D, page, CTX, S, P)
@@ -158,13 +167,12 @@ def run_bench_kernels(args, detail=None) -> dict:
     kv1 = q0[:, :Hkv, :].contiguous()
 
     def pipeline():
-        s = page_scores(q0, view.k_max, view.k_min)
-        idx, nv = select_pages(s, seq, page, S)
+        idx, nv = select_pages(estimate(), seq, page, S)
         return sparse_decode_attention(q0, cache.kv_pages, idx, nv, seq,
                                        sm_scale=sm, **kw)
 
     fns = {
-        "estimate": lambda: page_scores(q0, view.k_max, view.k_min),
+        "estimate": estimate,
         "topk": lambda: select_pages(scores0, seq, page, S),
         "sparse": lambda: sparse_decode_attention(
             q0, cache.kv_pages, idx0, nv0, seq, sm_scale=sm, **kw),
