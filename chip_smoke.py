@@ -11,10 +11,13 @@ Phases, each fatal on failure:
      route within 1e-5 of ``page_scores_physical_plain``, the select's
      ids and num_valid bit for bit those of ``select_pages_plain``, the
      two together with no id flipped outside 1e-5 of the K-th score:
-     B=1 over 32768 tokens and B=2 rows of 5000+2500 at page 16, fp8
-     metadata at page 32, per query head, group sum, groups of 3 and 1,
-     the 256 fp8 codes, idle rows, K > P, tie rows; timed in turns with
-     the plain versions, ``torch.bmm`` and ``torch.topk``); then
+     B=1 over 32768 and 131072 tokens and B=2 rows of 5000+2500 at page
+     16, fp8 metadata at page 32, per query head, group sum, groups of 3
+     and 1, the 256 fp8 codes, idle rows, K > P, tie rows; timed in
+     turns with the plain versions, ``torch.bmm`` and ``torch.topk``, the
+     estimate under the memset flush and ``Timer(flush="read")``; the
+     estimate's registers and shared memory from ``-Xptxas -v`` and its
+     launch plans); then
      each kernel against its plain PyTorch version at the serving
      path's shapes (Llama-3.1-8B attention: 32 query heads, 8 KV heads,
      head dim 128, page 16, bf16, 64-page allocation blocks, a shuffled
@@ -110,8 +113,9 @@ Phases, each fatal on failure:
  14. the tools (``quest_tpu_torch/scripts``) at full width over phase 6's
      weights, each through its ``run_*`` with the launches counted:
      bench_textgen at 32K (the default engine with its full-cache
-     control, fused, fp8 KV and metadata at page 32, bursts of 8;
-     launches equal to the path's), bench_kernels at its defaults and at
+     control, fused, fp8 KV and metadata at page 32, bursts of 8) and at
+     131040 tokens against the control (16 tokens; launches equal to the
+     path's, seconds logged), bench_kernels at its defaults and at
      32/8 heads (no reading above 3.35 TB/s or 989 TFLOP/s; each stage's
      kernel launched once a call), bench_serving (tokens generated and
      prefix hits), profile_textgen (every range of the unfused path with
@@ -211,7 +215,7 @@ def build_phase():
 
 def ptxas_kernels(text):
     """{mangled kernel name: (registers, spill store bytes, spill load
-    bytes)} from an ``-Xptxas -v`` log."""
+    bytes, static shared memory bytes)} from an ``-Xptxas -v`` log."""
     out, name, spill = {}, None, (0, 0)
     for ln in text.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
@@ -221,7 +225,9 @@ def ptxas_kernels(text):
             spill = (nums[1], nums[2])
         elif "Used" in ln and "registers" in ln and name is not None:
             regs = int(ln.split("Used")[1].split()[0])
-            out[name] = (regs,) + spill
+            smem = [int(w.split()[0]) for w in ln.split(",")
+                    if "bytes smem" in w]
+            out[name] = (regs,) + spill + (smem[0] if smem else 0,)
             spill = (0, 0)
     return out
 
@@ -248,8 +254,9 @@ def registers_of(ptxas, key):
     hit = [v for k, v in ptxas.items() if key in k]
     if not hit:
         return "registers not in this build's log"
-    regs, st, ld = hit[0]
-    return f"{regs} registers, {st}/{ld} bytes spilled (stores/loads)"
+    regs, st, ld, smem = hit[0]
+    return (f"{regs} registers, {smem} bytes static shared memory, "
+            f"{st}/{ld} bytes spilled (stores/loads)")
 
 
 # ---------------------------------------------------------------------------
@@ -915,14 +922,22 @@ def fused_tie_rows(cache, q, kw):
 F32_FLOPS = 67e12                # f32 FMA peak outside the tensor cores
 
 
-def in_turns(timer, fns):
-    """Each of ``fns`` (name: callable) timed twice, in turns (each in
-    order, then in reverse); returns {name: [ms, ms]}."""
-    names = list(fns) + list(fns)[::-1]
-    out = {}
-    for n in names:
-        out.setdefault(n, []).append(timer(fns[n]))
-    return out
+def bmm_yardstick(q, k_max_l, k_min_l, block_tab):
+    """The estimate's library yardstick: the operands of one f32
+    ``torch.bmm`` over the rows' metadata, gathered through the block
+    table and widened beforehand, whose product [B * Hkv, G, P] is the
+    physical route's per-query-head scores. Returns (qc, mc)."""
+    Hkv, _, bpp, D = k_max_l.shape
+    B, Hq, _ = q.shape
+    P = block_tab.shape[1] * bpp
+    phys = (block_tab.long()[:, :, None] * bpp
+            + torch.arange(bpp, device=q.device)).reshape(B, P)
+    m = torch.cat([k_max_l, k_min_l], dim=-1).reshape(
+        Hkv, -1, 2 * D)[:, phys].float()                   # [Hkv, B, P, 2D]
+    mc = m.transpose(0, 1).reshape(B * Hkv, P, 2 * D).transpose(
+        1, 2).contiguous()
+    qf = q.float().reshape(B * Hkv, Hq // Hkv, D)
+    return torch.cat([qf.clamp(min=0), qf.clamp(max=0)], dim=-1), mc
 
 
 def scratch_and_shared(cache, seq):
@@ -937,29 +952,41 @@ def scratch_and_shared(cache, seq):
         tab[1, 0] = tab[0, 0]
 
 
-def selection_cases(timer, gen):
+def selection_cases(timer, gen, ptxas):
     """The unfused decode step's selection on its kernels at the main
     path's shapes (Llama-3.1-8B attention, 64-page blocks, a shuffled
     block table): the estimate's physical route against
     ``page_scores_physical_plain`` (within 1e-5 relative; bf16 metadata
-    at page 16, B=1 over 32768 tokens and B=2 with rows of 5000 and 2500
-    in a 16384-token pool whose idle blocks sit on scratch block 0 and
-    whose rows share a block; fp8 metadata at page 32; per query head;
-    group sum; groups of 3 and 1; bf16 and f32 queries; the 256 fp8
-    codes widened exactly), and ``select_pages`` on the card (the select
+    at page 16, B=1 over 32768 and over 131072 tokens, and B=2 with rows
+    of 5000 and 2500 in a 16384-token pool whose idle blocks sit on
+    scratch block 0 and whose rows share a block; fp8 metadata at page
+    32; per query head; group sum; groups of 3 and 1; bf16 and f32
+    queries; the 256 fp8 codes widened exactly), and ``select_pages`` on the card (the select
     kernel with junk id P - 1) against ``select_pages_plain``: ids and
     num_valid bit for bit, junk slots included, on those scores and on
     rows of 0, 1 and 17 tokens, K > P and the tie rows. The pipeline as
     a whole against the plain one: no selected id flipped outside 1e-5
     of the K-th score. Timed in turns with the plain versions and a
     library call (``torch.bmm`` over metadata gathered and widened
-    beforehand; ``torch.topk``)."""
+    beforehand; ``torch.topk``); the estimate, a streaming kernel, under
+    ``timer``'s memset flush (its ``ms``, ``plain_ms`` and ``library_ms``,
+    as every row) and under ``Timer(flush="read")`` (``read_ms``,
+    ``read_plain_ms``, ``read_library_ms``). ``ptxas``: ``ptxas_kernels``
+    of the estimate library, whose physical route's registers and shared
+    memory are logged beside each case's launch plan."""
     from quest_tpu_torch.ops.estimate import (page_scores_physical,
-                                              page_scores_physical_plain)
+                                              page_scores_physical_plain,
+                                              physical_plan)
     from quest_tpu_torch.ops.reference import selection_flips
     from quest_tpu_torch.ops.topk import select_pages, select_pages_plain
+    from quest_tpu_torch.utils.benchmarking import Timer, in_turns
     out = {"estimate": [], "topk_select": []}
     D = 128
+    read_timer = Timer(flush="read")
+    for t, key in (("f32", "IfE"), ("bf16", "I13__nv_bfloat16E"),
+                   ("fp8", "I13__nv_fp8_e4m3E")):
+        log(f"estimate[physical, {t} metadata]: "
+            + registers_of(ptxas, "estimate_physical_kernel" + key))
 
     def est(label, q, cache, agg="max", per_q=False, timed=False):
         args = (q, cache.k_max[0], cache.k_min[0], cache.block_tab)
@@ -983,32 +1010,29 @@ def selection_cases(timer, gen):
                                 flops / F32_FLOPS) * 1e3,
                    bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                    >= flops / F32_FLOPS else "operations")
+        plan = physical_plan(cache.k_max[0], B, cache.block_tab.shape[1],
+                             Hq // Hkv)
         if timed:
-            # Library yardstick: one f32 bmm over the rows' metadata,
-            # gathered through the block table and widened beforehand.
-            phys = (cache.block_tab.long()[:, :, None] * bpp
-                    + torch.arange(bpp, device="cuda")).reshape(B, P)
-            m = torch.cat([cache.k_max[0], cache.k_min[0]], dim=-1).reshape(
-                Hkv, -1, 2 * D)[:, phys].float()           # [Hkv, B, P, 2D]
-            mc = m.transpose(0, 1).reshape(B * Hkv, P, 2 * D).transpose(
-                1, 2).contiguous()
-            del m
-            qf = q.float().reshape(B * Hkv, Hq // Hkv, D)
-            qc = torch.cat([qf.clamp(min=0), qf.clamp(max=0)], dim=-1)
-            t = in_turns(timer, {
-                "ms": lambda: page_scores_physical(*args, **kw),
-                "plain_ms": lambda: page_scores_physical_plain(*args, **kw),
-                "library_ms": lambda: torch.bmm(qc, mc)})
-            row.update({k: statistics.mean(v) for k, v in t.items()},
-                       turns_ms=t)
+            qc, mc = bmm_yardstick(*args)
+            fns = {"ms": lambda: page_scores_physical(*args, **kw),
+                   "plain_ms": lambda: page_scores_physical_plain(*args,
+                                                                  **kw),
+                   "library_ms": lambda: torch.bmm(qc, mc)}
+            tm = in_turns(timer, fns)
+            t = in_turns(read_timer, fns)
+            row.update({k: statistics.mean(v) for k, v in tm.items()},
+                       **{"read_" + k: statistics.mean(v)
+                          for k, v in t.items()},
+                       turns_ms={"memset": tm, "read": t})
             del mc
         out["estimate"].append(row)
-        log(f"estimate[physical, {label}]: rel err {err:.2e}"
-            + (f", {row['ms'] * 1e3:.1f} us (bound "
-               f"{row['bound_ms'] * 1e3:.2f} us, plain "
-               f"{row['plain_ms'] * 1e3:.1f} us, f32 bmm "
-               f"{row['library_ms'] * 1e3:.1f} us; turns "
-               f"{json.dumps(row['turns_ms'])})" if timed else ""))
+        us = (lambda k: f"{row[k] * 1e3:.2f} / "
+              f"{row['read_' + k] * 1e3:.2f}")
+        log(f"estimate[physical, {label}]: rel err {err:.2e}; plan {plan}"
+            + (f"; us, memset / read flush: {us('ms')} (bound "
+               f"{row['bound_ms'] * 1e3:.2f} us), plain {us('plain_ms')}, "
+               f"f32 bmm {us('library_ms')}; turns "
+               f"{json.dumps(row['turns_ms'])}" if timed else ""))
         return got, want
 
     def sel(label, scores, seq, page, K, timed=False):
@@ -1070,6 +1094,15 @@ def selection_cases(timer, gen):
           seq, timed=True)
     est("B=1, 32768 tokens, bf16 page 16, f32 query", q, cache)
     del cache
+    # The longest context of Llama-3.1-8B: 131072 positions, 33.5 MB of
+    # metadata a layer.
+    cfg, quest, cache = make_pool(131072, 1, gen)
+    seq = torch.tensor([131072], dtype=torch.int32, device="cuda")
+    q = torch.randn((1, 32, D), generator=gen, device="cuda")
+    route("B=1, 131072 tokens, bf16 page 16", q.to(torch.bfloat16), cache,
+          seq, timed=True)
+    del cache
+    torch.cuda.empty_cache()
     # The serving phase's rows in its 16384-token pool, idle blocks on
     # scratch, a shared block.
     cfg, quest, cache = make_pool(16384, 2, gen)
@@ -1133,6 +1166,7 @@ def selection_cases(timer, gen):
         plain_ms=None, library_ms=None, bound_ms=None, bound_by="bytes"))
     log("estimate[physical, 256 fp8 codes]: every code read bit for bit as "
         "PyTorch's cast reads it (denormals kept, NaN codes NaN)")
+    del read_timer
     return out
 
 
@@ -2938,6 +2972,7 @@ def eval_phase(cfg, params, kernels, device="cuda", warmup=3000,
 # Phase 14: the tools (quest_tpu_torch/scripts), each through its run_*.
 # ---------------------------------------------------------------------------
 
+LONG_CTX = 131072 - 2 * 16         # + a burst of warm-up and 16 tokens
 TEXTGEN_RUNS = {"default": ["--ab-full"], "fused": ["--fused"],
                 "fp8": ["--kv-dtype", "fp8", "--meta-dtype", "fp8",
                         "--page", "32"],
@@ -2959,7 +2994,8 @@ def tools_phase(params, kernels, smi):
     """The tools at full Llama-3.1-8B width over phase 6's bf16 weights:
     bench_textgen (32 layers, ctx 32768, budget 2048, B=1, 32 decode
     tokens: the default engine with its full-cache control, fused, fp8
-    KV and metadata at page 32, bursts of 8), bench_kernels (its defaults
+    KV and metadata at page 32, bursts of 8; then ctx 131040 and 16
+    decode tokens against the control), bench_kernels (its defaults
     and 32/8 heads), bench_serving (4 slots, 8 requests of 1024 tokens
     with a 512-token shared prefix, 32 generated), profile_textgen (ctx
     8192, 8 decode tokens), accuracy_delta (ctx 4096, 64 eval tokens,
@@ -2987,13 +3023,19 @@ def tools_phase(params, kernels, smi):
     # timed steps.
     # Phase 16: each run but the bursts also under eager() (the
     # --eager flag), after its captured run.
-    for label, extra in [(lb + m, x + f) for lb, x in TEXTGEN_RUNS.items()
-                         for m, f in (("", []), ("_eager", ["--eager"]))
-                         if lb != "burst8" or not f]:
+    # The last run: Quest at the longest context of Llama-3.1-8B's 131072
+    # positions that leaves room for the timed tokens and their warm-up,
+    # sparse against the full-cache control, captured.
+    runs = [(lb + m, ["--ctx", "32768", "--decode-tokens", "32"] + x + f)
+            for lb, x in TEXTGEN_RUNS.items()
+            for m, f in (("", []), ("_eager", ["--eager"]))
+            if lb != "burst8" or not f]
+    runs.append(("long", ["--ctx", str(LONG_CTX), "--decode-tokens", "16",
+                          "--ab-full"]))
+    for label, extra in runs:
         t = time.time()
         args = bench_textgen.parse_args(
-            ["--layers", "0", "--ctx", "32768", "--budget", "2048",
-             "--batch", "1", "--decode-tokens", "32"] + extra)
+            ["--layers", "0", "--budget", "2048", "--batch", "1"] + extra)
         with eager() if args.eager else contextlib.nullcontext():
             out, got = counted_launches(kernels, lambda: bench_textgen.
                                         run_bench_textgen(cfg, params, args))
@@ -3011,7 +3053,8 @@ def tools_phase(params, kernels, smi):
         assert all(math.isfinite(v) and v > 0 for k, v in out.items()
                    if k.endswith(("_ms", "_per_token", "_per_s",
                                   "speedup"))), out
-        res[f"bench_textgen_{label}"] = dict(out, launches=got)
+        res[f"bench_textgen_{label}"] = dict(out, launches=got,
+                                             seconds=time.time() - t)
         done(f"bench_textgen, {label}", t)
         torch.cuda.empty_cache()
 
@@ -3699,11 +3742,13 @@ def main():
     from quest_tpu_torch.utils.benchmarking import Timer
 
     name, smi = device_phase()
-    ptxas = ptxas_kernels(build_phase().get("qgemv", ""))
+    logs = build_phase()
+    ptxas = ptxas_kernels(logs.get("qgemv", ""))
     torch.manual_seed(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
-    selection = selection_cases(timer, gen)
+    selection = selection_cases(timer, gen,
+                                ptxas_kernels(logs.get("estimate", "")))
     results = {"sparse_decode": sparse_cases(timer, gen),
                "dense_decode": dense_cases(timer, gen),
                "prefill": prefill_cases(timer, gen),

@@ -39,8 +39,8 @@ SIGNATURES = {
     "dense_decode": ("dense_decode_launch",
                      [_P] * 8 + [_I] * 10 + [_F, _I, _P, _P]),
     "prefill": ("prefill_launch", [_P] * 6 + [_I] * 10 + [_F, _I, _P, _P]),
-    # The library's second entry point, estimate_physical_launch, is
-    # bound by ops/estimate.py.
+    # The library's other entry points, estimate_physical_launch and
+    # estimate_physical_plan, are bound by ops/estimate.py.
     "estimate": ("estimate_launch", [_P] * 4 + [_I] * 7 + [_P]),
     "topk_select": ("topk_select_launch", [_P] * 4 + [_I] * 6 + [_P]),
     "fused_decode": ("fused_decode_launch", [_P] * 8 + [_I] * 12 + [_F, _P]),

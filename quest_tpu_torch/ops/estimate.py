@@ -93,6 +93,10 @@ def page_scores_physical_plain(q: torch.Tensor, k_max_l: torch.Tensor,
         B, H, NB * bpp)
 
 
+PLAN_KEYS = ("bulk", "stage_pages", "stages", "units", "grid",
+             "smem_bytes", "ctas_per_sm")
+
+
 def _physical_entry(lib):
     fn = lib.estimate_physical_launch
     if fn.argtypes is None:
@@ -100,6 +104,25 @@ def _physical_entry(lib):
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def physical_plan(k_max_l: torch.Tensor, B: int, NB: int, G: int) -> dict:
+    """The launch plan that :func:`page_scores_physical` takes on the
+    current card for metadata ``k_max_l`` [Hkv, NPB, bpp, D], a [B, NB]
+    block table and groups of ``G`` query rows, as ``csrc/estimate.cu``'s
+    launcher works it out (``phys_plan``): {key of :data:`PLAN_KEYS`:
+    int}. Needs the card."""
+    Hkv, _, bpp, _ = k_max_l.shape
+    lib = _build.load("estimate")
+    fn = lib.estimate_physical_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    plan = (ctypes.c_int64 * len(PLAN_KEYS))()
+    code = fn(B, Hkv, G, bpp, NB,
+              check_pool_dtype(k_max_l.dtype, "page metadata"), plan)
+    _build.check(lib, code, "estimate (physical plan)")
+    return dict(zip(PLAN_KEYS, plan))
 
 
 def page_scores_physical(q: torch.Tensor, k_max_l: torch.Tensor,
@@ -113,7 +136,8 @@ def page_scores_physical(q: torch.Tensor, k_max_l: torch.Tensor,
     layer, f32, bf16 or fp8 e4m3); block_tab: [B, NB], entries in
     [0, NPB). Returns [B, Hkv, P] f32 ([B, Hq, P] when ``per_q_head``),
     P = NB * bpp. On a CUDA tensor one launch of ``csrc/estimate.cu``'s
-    physical route; on a CPU tensor :func:`page_scores_physical_plain`.
+    physical route (:func:`physical_plan`); on a CPU tensor
+    :func:`page_scores_physical_plain`.
     """
     if group_agg not in ("max", "sum"):
         raise ValueError(f"unknown group_agg {group_agg!r}")

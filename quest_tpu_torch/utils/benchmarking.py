@@ -53,3 +53,14 @@ class Timer:
             end.record()
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def in_turns(timer, fns):
+    """Each of ``fns`` (name: callable) timed by ``timer`` twice, in turns
+    (each in order, then in reverse), so that two versions compared meet
+    the card in the same states; returns {name: [ms, ms]}."""
+    names = list(fns) + list(fns)[::-1]
+    out = {}
+    for n in names:
+        out.setdefault(n, []).append(timer(fns[n]))
+    return out

@@ -8,22 +8,29 @@ inputs: the select kernel's plain version with the junk id P - 1 gives
 rows of 0 and 1 pages, K > P, per-query-head row counts); the physical
 estimate over block tables that share a block and park an idle slot on
 the scratch block, at pages 16 and 32, over bf16 and fp8 metadata with
-denormal codes; the two together select what JAX selects. Card
-(``cuda``-marked): the estimate's physical route (``csrc/estimate.cu``)
-and the select kernel (``csrc/topk_select.cu``) against those plain
-versions, and a decode step's launches. The JAX side is imported inside
+denormal codes; the two together select what JAX selects;
+``chip_smoke.py``'s yardstick and readings of the estimate. Card
+(``cuda``-marked): the estimate's physical route (``csrc/estimate.cu``:
+its launch plan, every page of a row in one unit within the kernel's
+limits; bpp 1-128, groups of 1-128, rows over 8192 pages, scratch and
+shared blocks, a second launch bitwise equal) and the select kernel
+(``csrc/topk_select.cu``) against those plain versions, and a decode
+step's launches. The JAX side is imported inside
 a fixture, so the card cases run without it: ``python -m pytest
 --noconftest -m cuda tests/test_torch_selection.py``.
 """
 
 import os
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from quest_tpu_torch.ops.estimate import (page_scores_physical,
-                                          page_scores_physical_plain)
+                                          page_scores_physical_plain,
+                                          physical_plan)
 from quest_tpu_torch.ops.fused_decode import (exact_topk_select,
                                               exact_topk_select_plain)
 from quest_tpu_torch.ops.reference import selection_flips
@@ -31,6 +38,11 @@ from quest_tpu_torch.ops.topk import select_pages, select_pages_plain
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402  (the estimate's yardstick and readings)
 
 FP8 = torch.float8_e4m3fn
 D = 128
@@ -287,6 +299,61 @@ def test_selection_wrappers_launch_nothing_on_cpu():
             exact_topk_select.launches) == before
 
 
+@pytest.mark.parametrize("meta", ["bf16", "fp8"])
+@pytest.mark.parametrize("page", [16, 32])
+def test_bmm_yardstick_computes_the_per_query_head_scores(meta, page):
+    """``chip_smoke.py``'s ``torch.bmm`` yardstick of the estimate (its
+    library time) computes the physical route's function: its product is
+    the per-query-head scores of the plain version, over shared and
+    scratch blocks."""
+    q, kmax, kmin, tab = physical_operands(page + len(meta), meta, page)
+    args = (torch.from_numpy(q), as_torch_meta(kmax, meta),
+            as_torch_meta(kmin, meta), torch.from_numpy(tab))
+    qc, mc = chip_smoke.bmm_yardstick(*args)
+    want = page_scores_physical_plain(*args, per_q_head=True)
+    got = torch.bmm(qc, mc).reshape(want.shape)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_in_turns_times_each_version_in_order_then_in_reverse():
+    from quest_tpu_torch.utils.benchmarking import in_turns
+    seen = []
+    fns = {n: (lambda n=n: n) for n in ("kernel", "plain", "library")}
+    out = in_turns(lambda fn: seen.append(fn()) or float(len(seen)), fns)
+    assert seen == ["kernel", "plain", "library", "library", "plain",
+                    "kernel"]
+    assert out == {"kernel": [1.0, 6.0], "plain": [2.0, 5.0],
+                   "library": [3.0, 4.0]}
+
+
+def test_ptxas_kernels_reads_registers_spills_and_static_smem():
+    """``chip_smoke.py``'s reading of an ``-Xptxas -v`` log, whose lines
+    for the physical route it logs."""
+    name = "_ZN2qt24estimate_physical_kernelI13__nv_bfloat16EEvPKv"
+    log = (f"ptxas info    : Compiling entry function '{name}' for "
+           "'sm_90a'\n"
+           f"ptxas info    : Function properties for {name}\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 154 registers, used 1 barriers, 256 bytes "
+           "smem, 472 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function 'k2' for 'sm_90a'\n"
+           "ptxas info    : Used 40 registers, 380 bytes cmem[0]\n")
+    got = chip_smoke.ptxas_kernels(log)
+    assert got == {name: (154, 8, 12, 256), "k2": (40, 0, 0, 0)}
+    assert chip_smoke.registers_of(got, "estimate_physical_kernelI13") == (
+        "154 registers, 256 bytes static shared memory, 8/12 bytes "
+        "spilled (stores/loads)")
+
+
+def test_estimate_stages_script_runs_its_plain_version(capsys):
+    """``exp/estimate_stages.py --cpu``: the script's pool of scratch and
+    shared blocks through the plain version."""
+    from quest_tpu_torch.exp import estimate_stages
+    assert estimate_stages.main(["--cpu"]) == 0
+    assert "scores (2, 8, 128), finite True" in capsys.readouterr().out
+
+
 # --------------------------------------------------------------------------
 # On the card: the kernels against the plain versions.
 
@@ -294,10 +361,77 @@ def card_rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+# The physical route's launch plan, as csrc/estimate.cu's launcher works
+# it out on the card.
+
+def plan_units(plan, bpp, NB):
+    """(first page, pages) of each unit of a (row, KV head), in the order
+    csrc/estimate.cu:phys_unit numbers them."""
+    sp, P = plan["stage_pages"], NB * bpp
+    if plan["bulk"]:
+        return [(n * bpp + k, min(sp, bpp - k)) for n in range(NB)
+                for k in range(0, bpp, sp)]
+    return [(p0, min(sp, P - p0)) for p0 in range(0, P, sp)]
+
+
+def sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("meta", [torch.float32, torch.bfloat16, FP8])
-@pytest.mark.parametrize("bpp", [1, 2, 4, 64])
-@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("bpp", [1, 2, 4, 16, 32, 48, 64, 100, 128])
+@pytest.mark.parametrize("G", [1, 4, 128])
+def test_physical_plan_covers_every_page_within_the_kernel_limits(
+        cuda, meta, bpp, G):
+    NB, B, Hkv = 7, 3, 8
+    kmax = torch.empty((Hkv, 1, bpp, D), dtype=meta, device=cuda)
+    plan = physical_plan(kmax, B, NB, G)
+    row = D * kmax.element_size()
+    assert plan["bulk"] == (bpp * row >= 2048)
+    stage = 2 * plan["stage_pages"] * row
+    assert 1 <= plan["stage_pages"] <= (128 if plan["bulk"] else 64)
+    assert stage <= 32 << 10 and 2 <= plan["stages"] <= 16
+    assert plan["smem_bytes"] == plan["stages"] * stage + G * D * 4
+    assert plan["ctas_per_sm"] in (1, 2)
+    units = plan_units(plan, bpp, NB)
+    assert plan["units"] == B * Hkv * len(units)
+    assert 1 <= plan["grid"] == min(plan["units"],
+                                    plan["ctas_per_sm"] * sm_count(cuda))
+    # Every page of a row once, in order; a bulk unit inside one block,
+    # a 16-byte-path unit over at most 64 table entries.
+    assert [p for p0, n in units for p in range(p0, p0 + n)] == list(
+        range(NB * bpp))
+    for p0, n in units:
+        first, last = p0 // bpp, (p0 + n - 1) // bpp
+        assert first == last if plan["bulk"] else last - first < 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("meta,page,tokens,B,G,want", [
+    (torch.bfloat16, 16, 32768, 1, 4, (1, 64, 3, 256, 2)),  # 32K
+    (torch.bfloat16, 16, 131072, 1, 4, (1, 64, 3, 1024, 2)),
+    (torch.bfloat16, 16, 16384, 2, 4, (1, 64, 3, 256, 2)),  # serving
+    (FP8, 32, 32768, 1, 4, (1, 64, 6, 128, 2)),             # fp8, page 32
+    (torch.float32, 16, 32768, 1, 128, (1, 32, 3, 512, 1)),
+])
+def test_physical_plan_of_the_main_path(cuda, meta, page, tokens, B, G,
+                                        want):
+    """Llama-3.1-8B (8 KV heads, G = 4), 64-page blocks: one unit a block
+    (two bulk copies of 16 KB, 8 KB in fp8), a 96 KB ring, two CTAs an
+    SM. 128 query rows of f32 q (64 KB) beside an f32 ring leave room for
+    one."""
+    kmax = torch.empty((8, 1, 64, D), dtype=meta, device=cuda)
+    plan = physical_plan(kmax, B, tokens // page // 64, G)
+    assert (plan["bulk"], plan["stage_pages"], plan["stages"],
+            plan["units"], plan["ctas_per_sm"]) == want
+    assert plan["grid"] == min(plan["units"], want[-1] * sm_count(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("meta", [torch.float32, torch.bfloat16, FP8])
+@pytest.mark.parametrize("bpp", [1, 2, 4, 32, 48, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 16, 32, 128])
 @pytest.mark.parametrize("mode", ["max", "sum", "per_q_head"])
 def test_physical_estimate_kernel_matches_plain(cuda, meta, bpp, G, mode):
     gen = torch.Generator(device=cuda).manual_seed(G * 100 + bpp)
@@ -318,6 +452,44 @@ def test_physical_estimate_kernel_matches_plain(cuda, meta, bpp, G, mode):
         torch.cuda.synchronize()
         assert got.shape == want.shape
         assert card_rel_err(got, want) <= 1e-5, (qd, card_rel_err(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("meta", [torch.float32, torch.bfloat16, FP8])
+@pytest.mark.parametrize("bpp,NB", [(64, 129), (2, 1000)])
+@pytest.mark.parametrize("G", [3, 4, 8])
+@pytest.mark.parametrize("mode", ["max", "sum", "per_q_head"])
+def test_physical_estimate_kernel_long_rows(cuda, meta, bpp, NB, G, mode):
+    """B=4, 8 KV heads, rows of more than 8192 pages at bpp 64 (more
+    units than CTAs: ranges that cross (row, head) boundaries, the ring
+    wrapping, whole blocks a unit), and of 2000 pages at bpp 2 (the
+    16-byte path): rows 0 and 1 share their first three blocks, row 2
+    points at one of row 0's blocks, row 3 is an idle slot on scratch
+    block 0. Every page matches the plain version, and a second launch
+    is bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(bpp + NB + G)
+    B, Hkv = 4, 8
+    NPB = B * NB + 1
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=cuda)
+    shape = (Hkv, NPB, bpp, D)
+    kmax = torch.randn(shape, generator=gen, device=cuda).to(meta)
+    kmin = torch.randn(shape, generator=gen, device=cuda).to(meta)
+    perm = torch.randperm(NPB - 1, generator=torch.Generator().manual_seed(2))
+    tab = (1 + perm[:B * NB]).reshape(B, NB).to(torch.int32).to(cuda)
+    tab[1, :3] = tab[0, :3]
+    tab[2, NB // 2] = tab[0, NB // 3]
+    tab[3] = 0
+    kw = dict(group_agg="sum" if mode == "sum" else "max",
+              per_q_head=mode == "per_q_head")
+    qb = q.to(torch.bfloat16)
+    got = page_scores_physical(qb, kmax, kmin, tab, **kw)
+    again = page_scores_physical(qb, kmax, kmin, tab, **kw)
+    want = page_scores_physical_plain(qb, kmax, kmin, tab, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, Hkv * (G if kw["per_q_head"]
+                                                 else 1), NB * bpp)
+    assert torch.equal(got, again)
+    assert card_rel_err(got, want) <= 1e-5, card_rel_err(got, want)
 
 
 @pytest.mark.cuda
