@@ -35,6 +35,13 @@ Phases, each fatal on failure:
      selected id that differs from the plain selection inside a 1e-5
      band around the K-th score, timed beside the unfused pipeline, and
      once more over 8-token pages (two pages an attention chunk);
+     then the layer's plain-op region on its two kernels, bit for bit
+     against their plain versions: the decode append (``csrc/append.cu``)
+     at the main path's B=2 shape, over every (pool, metadata) dtype pair
+     with scratch, shared-block, first-token and clamped rows, and an fp8
+     pool on all 65536 bf16 codes; rope of q and k (``csrc/rope.cu``) at
+     decode and prefill shapes in bf16 and f32; both timed under the
+     memset and the read flush beside their plain versions;
      then the fp8 e4m3 branches of the sparse, dense, prefill and
      estimate kernels (fp8 pool and metadata) at page 16 and at page 32,
      each also timed beside its bf16 branch on the same values;
@@ -115,9 +122,10 @@ Phases, each fatal on failure:
      bench_textgen at 32K (the default engine with its full-cache
      control, fused, fp8 KV and metadata at page 32, bursts of 8) and at
      131040 tokens against the control (16 tokens; launches equal to the
-     path's, seconds logged), bench_kernels at its defaults and at
-     32/8 heads (no reading above 3.35 TB/s or 989 TFLOP/s; each stage's
-     kernel launched once a call), bench_serving (tokens generated and
+     path's, seconds logged), bench_kernels at its defaults, at
+     32/8 heads and (append, rope, rope_prefill) at 32/8 heads and B=2
+     (no reading above 3.35 TB/s or 989 TFLOP/s; each stage's kernel
+     launched once a call), bench_serving (tokens generated and
      prefix hits), profile_textgen (every range of the unfused path with
      device time, read under ``eager()``; the captured step's device ms
      and ops), accuracy_delta (the control's delta 0, every row finite),
@@ -1170,6 +1178,288 @@ def selection_cases(timer, gen, ptxas):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3, the layer's plain-op region: the decode append and rope.
+# ---------------------------------------------------------------------------
+
+LAYER_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                "fp8": torch.float8_e4m3fn}
+
+
+def append_case(pool, meta, page, bpp, B, H=2, D=16, seed=0, device="cpu"):
+    """A two-layer cache whose pool and metadata start random, a shuffled
+    block table with rows 1 and 2 sharing their first block, and the
+    lengths of each step's append: row 0 at a page's first token, then
+    the next; row 1 mid-page, in the shared block's pages (bpp 64) or its
+    own; row 2 past the table's last block (its block index clamps, its
+    page in the block does not); row 3 inactive (scratch block 0, which
+    no other row writes). One row: the first token, the next, then past
+    the table. ``pool`` and ``meta`` name dtypes of
+    :data:`LAYER_DTYPES`. Returns (cache, [(seq_lens, active)] a step)."""
+    from quest_tpu_torch.config import ModelConfig, QuestConfig
+    from quest_tpu_torch.kv.paged_kv import init_cache
+    P = 8 if bpp == 1 else 2 * bpp
+    quest = QuestConfig(page_size=page, max_seq_len=P * page,
+                        block_pages=bpp, kv_dtype=LAYER_DTYPES[pool],
+                        meta_dtype=LAYER_DTYPES[meta])
+    cache = init_cache(ModelConfig(num_kv_heads=H, num_heads=H, head_dim=D),
+                       quest, batch_size=B, num_layers=2, device=device)
+    rng = np.random.default_rng(seed)
+
+    def rand(t):
+        x = torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32))
+        return (2 * x).to(t.dtype).to(device)
+
+    cache.kv_pages = rand(cache.kv_pages)
+    hi, lo = rand(cache.k_max).float(), rand(cache.k_min).float()
+    cache.k_max = torch.maximum(hi, lo).to(LAYER_DTYPES[meta])
+    cache.k_min = torch.minimum(hi, lo).to(LAYER_DTYPES[meta])
+    NPB, NB = cache.k_max.shape[2], cache.block_tab.shape[1]
+    tab = rng.permutation(np.arange(1, NPB))[:B * NB].reshape(B, NB)
+    if B > 2:
+        tab[2, 0] = tab[1, 0]                       # a shared prefix block
+    cache.block_tab = torch.from_numpy(tab.astype(np.int32)).to(device)
+    if B == 1:
+        steps = [([3 * page], None), ([3 * page + 1], [True]),
+                 ([(P + 3) * page + 7], [True])]
+    else:
+        first = [(P // 2) * page, page + 5, (P + 3) * page + 7, 2 * page + 3]
+        act = [True, True, True, False]
+        steps = [(first, act), ([s + a for s, a in zip(first, act)], act)]
+    return cache, [(torch.tensor(s, dtype=torch.int32, device=device),
+                    None if a is None else torch.tensor(a, device=device))
+                   for s, a in steps]
+
+
+def append_inputs(B, H, D, inp, seed, device="cpu", large=False):
+    """k, v [B, H, D] of dtype ``inp`` with an inf and a NaN lane; with
+    ``large`` also values an fp8 cast saturates or not by torch version
+    (470, -1000, 465) and one a bf16 cast rounds up to 3.0e38."""
+    rng = np.random.default_rng(seed)
+    k = 2 * rng.standard_normal((B, H, D)).astype(np.float32)
+    v = 2 * rng.standard_normal((B, H, D)).astype(np.float32)
+    k[0, 0, 3], k[-1, -1, 1], v[0, -1, 5] = np.inf, np.nan, -np.inf
+    if large:
+        k[0, -1, :4] = [470.0, -1000.0, 465.0, 3e38]
+    return (torch.from_numpy(k).to(LAYER_DTYPES[inp]).to(device),
+            torch.from_numpy(v).to(LAYER_DTYPES[inp]).to(device))
+
+
+def fp8_code_case(meta, inp, device="cuda"):
+    """An fp8 pool over 64 rows on distinct pages (half at a page's first
+    token, half folding into random ``meta`` metadata) and k holding each
+    of the 65536 bf16 codes once (v a permutation), as ``inp``."""
+    from quest_tpu_torch.config import ModelConfig, QuestConfig
+    from quest_tpu_torch.kv.paged_kv import init_cache
+    B, H, D, page = 64, 8, 128, 16
+    quest = QuestConfig(page_size=page, max_seq_len=4 * page, block_pages=1,
+                        kv_dtype=torch.float8_e4m3fn,
+                        meta_dtype=LAYER_DTYPES[meta])
+    cache = init_cache(ModelConfig(num_kv_heads=H, num_heads=H, head_dim=D),
+                       quest, batch_size=B, num_layers=1, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    hi = torch.randn(cache.k_max.shape, generator=gen, device=device)
+    lo = hi - torch.rand(hi.shape, generator=gen, device=device)
+    cache.k_max = hi.to(LAYER_DTYPES[meta])
+    cache.k_min = lo.to(LAYER_DTYPES[meta])
+    codes = torch.arange(1 << 16, dtype=torch.int32, device=device)
+    k = codes.to(torch.int16).view(torch.bfloat16).reshape(B, H, D)
+    perm = torch.randperm(1 << 16, generator=gen, device=device)
+    v = k.reshape(-1)[perm].reshape(B, H, D)
+    cache.seq_lens = (torch.arange(B, dtype=torch.int32, device=device) % 2
+                      * 5 + 2 * page)
+    return cache, k.to(LAYER_DTYPES[inp]), v.to(LAYER_DTYPES[inp])
+
+
+def clone_cache(cache):
+    from quest_tpu_torch.kv.paged_kv import PagedKVCache
+    return PagedKVCache(cache.kv_pages.clone(), cache.k_max.clone(),
+                        cache.k_min.clone(), cache.block_tab.clone(),
+                        cache.seq_lens.clone())
+
+
+def same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def append_bytes(cache, k, active):
+    """What one append must move: k and v read, their pool rows written,
+    the lengths, table entries and mask read, and the metadata rows of
+    active rows (read where the page already holds a token) written."""
+    B, H, D = k.shape
+    page = cache.page_size
+    act = (torch.ones(B, dtype=torch.bool, device=k.device) if active is None
+           else active)
+    n_act = int(act.sum())
+    n_fold = int((act & (cache.seq_lens % page != 0)).sum())
+    meta = H * D * cache.k_max.element_size()
+    return (2 * k.numel() * k.element_size()
+            + 2 * B * H * D * cache.kv_pages.element_size()
+            + B * 8 + (0 if active is None else B)
+            + 2 * meta * (n_act + n_fold))
+
+
+def layer_op_cases(timer, gen):
+    """The two kernels of every layer's plain-op region against their
+    plain versions, bit for bit. The decode append (``csrc/append.cu``
+    against ``append_decode_at_plain``) at the main path's shape
+    (Llama-3.1-8B's 8 KV heads, page 16, 64-page blocks, bf16 pool,
+    metadata and k/v, B=2 rows at 5000 and 2500 tokens of a 16384-token
+    pool), timed in turns with the plain version under the memset flush
+    (``ms``) and ``Timer(flush="read")`` (``read_ms``); then every
+    (pool, metadata) dtype pair at pages 16 and 32 (64-page blocks) and
+    page 16 with 1-page blocks, bf16 and f32 inputs: a page's first token
+    and the next, a row past the table's last block, two rows sharing a
+    block, an inactive row on scratch block 0, non-finite and large
+    inputs; and the fp8 pool on all 65536 bf16 codes with each metadata
+    dtype. Rope (``csrc/rope.cu``, q and k in one launch, against
+    ``rotate_plain`` of each): decode at B=2 (32 and 8 heads, bf16 and
+    f32) and prefill chunks of 8192 tokens (B=1) and of the serving
+    phase's 5120 (B=2), timed the same way. No single PyTorch call
+    computes either function, so ``library_ms`` is null."""
+    from quest_tpu_torch.kv.paged_kv import (append_decode_at,
+                                             append_decode_at_plain)
+    from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
+                                          rotate_plain, rotate_qk)
+    from quest_tpu_torch.ops.utils import fp8_cast_codes
+    from quest_tpu_torch.utils.benchmarking import Timer, in_turns
+    out = {"append_decode": [], "rope": []}
+    read_timer = Timer(flush="read")
+    dev = torch.device("cuda")
+    log("layer ops: no single PyTorch call computes the append (scatter, "
+        "cast and metadata fold) or rope of q and k: library_ms is null")
+    log("layer ops: the card's torch casts to e4m3 (code of 1000, of 470): "
+        f"from bf16 {fp8_cast_codes(dev, torch.bfloat16)}, from f32 "
+        f"{fp8_cast_codes(dev, torch.float32)}")
+
+    def timed(row, fns, nbytes):
+        tm = in_turns(timer, fns)
+        tr = in_turns(read_timer, fns)
+        row.update({k: statistics.mean(v) for k, v in tm.items()},
+                   **{"read_" + k: statistics.mean(v) for k, v in tr.items()},
+                   turns_ms={"memset": tm, "read": tr})
+        return (f"; us, memset / read flush: {row['ms'] * 1e3:.2f} / "
+                f"{row['read_ms'] * 1e3:.2f} (bound "
+                f"{row['bound_ms'] * 1e3:.3f}, {nbytes / 1e6:.3f} MB), plain "
+                f"{row['plain_ms'] * 1e3:.1f} / "
+                f"{row['read_plain_ms'] * 1e3:.1f}")
+
+    def append(label, cache, lens, k, v, active, time_it=False,
+               record=True):
+        cache.seq_lens = lens
+        ref = clone_cache(cache)
+        lay = cache.kv_pages.shape[0] - 1           # the last layer
+        append_decode_at(cache, lay, k, v, active=active)
+        append_decode_at_plain(ref, lay, k, v, active=active)
+        torch.cuda.synchronize()
+        for name in ("kv_pages", "k_max", "k_min"):
+            assert same_bits(getattr(cache, name), getattr(ref, name)), \
+                f"append kernel's {name} differs from the plain version " \
+                f"({label})"
+        nbytes = append_bytes(cache, k, active)
+        row = dict(case=label, max_abs_err=0.0, max_rel_err=0.0,
+                   bitwise_equal=True, ms=None, plain_ms=None,
+                   library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        msg = ""
+        if time_it:
+            msg = timed(row, {
+                "ms": lambda: append_decode_at(cache, lay, k, v, active),
+                "plain_ms": lambda: append_decode_at_plain(cache, lay, k, v,
+                                                           active)}, nbytes)
+        if record:
+            out["append_decode"].append(row)
+            log(f"append_decode[{label}]: pool and metadata bitwise "
+                f"equal{msg}")
+        return row
+
+    # The main path's shape: phase 6's B=2 rows in its 16384-token pool.
+    cfg, _, cache = make_pool(16384, 2, gen)
+    H, D = cfg.num_kv_heads, cfg.head_dim
+    k = torch.randn((2, H, D), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((2, H, D), generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor([5000, 2500], dtype=torch.int32, device="cuda")
+    act = torch.ones(2, dtype=torch.bool, device="cuda")
+    append("main path: bf16, page 16, B=2 at 5000 and 2500 tokens", cache,
+           lens, k, v, act, time_it=True)
+    del cache
+    # Every dtype pair: one row a pair, over all its geometries and steps.
+    geoms = ((16, 64, 4), (32, 64, 4), (16, 1, 4), (16, 64, 1))
+    for pool in LAYER_DTYPES:
+        for meta in LAYER_DTYPES:
+            n, first = 0, None
+            for page, bpp, B in geoms:
+                for inp in ("bf16", "f32"):
+                    if inp == "f32" and (page, bpp, B) != geoms[0]:
+                        continue
+                    c, steps = append_case(pool, meta, page, bpp, B, H=H,
+                                           D=D, seed=page + bpp, device=dev)
+                    for i, (lens, act) in enumerate(steps):
+                        k, v = append_inputs(B, H, D, inp, seed=i,
+                                             device=dev, large=True)
+                        row = append(f"{pool} pool, {meta} metadata, {inp} "
+                                     f"k/v, page {page}, {bpp}-page blocks, "
+                                     f"B={B}, step {i}", c, lens, k, v, act,
+                                     record=False)
+                        first, n = first or row, n + 1
+            first["case"] = (f"{pool} pool, {meta} metadata: {n} appends "
+                             f"(pages 16 and 32, 64- and 1-page blocks, B=4 "
+                             f"and 1, bf16 and f32 k/v; first tokens, a "
+                             f"clamped block, a shared block, scratch)")
+            out["append_decode"].append(first)
+            log(f"append_decode[{first['case']}]: pool and metadata bitwise "
+                f"equal in every one")
+    for meta, inp in (("f32", "bf16"), ("bf16", "bf16"), ("fp8", "bf16"),
+                      ("fp8", "f32")):
+        c, k, v = fp8_code_case(meta, inp)
+        append(f"fp8 pool on all 65536 bf16 codes, {meta} metadata, {inp} "
+               f"k/v", c, c.seq_lens, k, v, None)
+
+    def rope(label, B, T, Hq, Hkv, dtype, pos0, time_it=False):
+        q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dtype)
+        kk = torch.randn((B, T, Hkv, D), generator=gen,
+                         device="cuda").to(dtype)
+        inv, ps, att = compute_rope_params(cfg.rope, D)
+        pos = (torch.tensor(pos0, device="cuda")[:, None]
+               + torch.arange(T, device="cuda")).int()
+        cs = rope_cos_sin(pos, inv, ps, att)
+        qo, ko = rotate_qk(q, kk, *cs)
+        wq, wk = rotate_plain(q, *cs), rotate_plain(kk, *cs)
+        torch.cuda.synchronize()
+        assert same_bits(qo, wq) and same_bits(ko, wk), \
+            f"rope kernel differs from the plain version ({label})"
+        nbytes = (2 * (q.numel() + kk.numel()) * q.element_size()
+                  + 2 * cs[0].numel() * 4)
+        row = dict(case=label, max_abs_err=0.0, max_rel_err=0.0,
+                   bitwise_equal=True, ms=None, plain_ms=None,
+                   library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        msg = ""
+        if time_it:
+            msg = timed(row, {
+                "ms": lambda: rotate_qk(q, kk, *cs),
+                "plain_ms": lambda: (rotate_plain(q, *cs),
+                                     rotate_plain(kk, *cs))}, nbytes)
+        out["rope"].append(row)
+        log(f"rope[{label}]: q and k bitwise equal{msg}")
+
+    bf16 = torch.bfloat16
+    rope("decode, bf16, B=2, 32/8 heads at 5000 and 2500", 2, 1, 32, 8, bf16,
+         [5000, 2500], time_it=True)
+    rope("decode, f32, B=2, 32/8 heads", 2, 1, 32, 8, torch.float32,
+         [5000, 2500])
+    rope("prefill chunk, bf16, B=1, T=8192, 32/8 heads", 1, 8192, 32, 8,
+         bf16, [0], time_it=True)
+    rope("serving prefill, bf16, B=2, T=5120, 32/8 heads", 2, 5120, 32, 8,
+         bf16, [0, 0], time_it=True)
+    rope("prefill, f32, B=2, T=2048 at 30000, 32/8 heads", 2, 2048, 32, 8,
+         torch.float32, [30000, 7])
+    rope("decode, bf16, B=4, 8/8 heads", 4, 1, 8, 8, bf16, [0, 1, 16, 131071])
+    del read_timer
+    return out
+
+
 def fp8_cases(timer, gen):
     """The fp8 e4m3 branches of the four attention kernels at the
     serving configuration's shapes (Llama-3.1-8B attention, B=2, 32768 +
@@ -1696,11 +1986,25 @@ SERVING_PATHS = ("unfused", "fused", "serving", "serving_fp8")
 # launch a layer (30 sparse + 2 dense layers unfused, 2 dense fused); a
 # sparse layer's selection is two launches unfused (the estimate's
 # physical route and the select), none fused (inside its one kernel).
-DEVICE_OPS_PER_STEP = {"unfused": 3190, "fused": 3130, "serving": 3190,
-                       "serving_fp8": 3254}
+# The append and rope are one launch each a layer: a layer's
+# append_kv_decode range held 44 ops (46 over an fp8 pool: its two casts
+# of k and v; the `new_lens > 0` mask one of them) and its rope range 18
+# (profile_textgen before the kernels), now 1 + 1, and the mask is made
+# once a step: 3190 - 32 x (44 + 18 - 2) + 1 = 1271 unfused and serving,
+# 3130 - 1920 + 1 = 1211 fused, 3254 - 32 x (46 + 18 - 2) + 1 = 1271
+# serving fp8.
+DEVICE_OPS_PER_STEP = {"unfused": 1271, "fused": 1211, "serving": 1271,
+                       "serving_fp8": 1271}
 # The kernels a sparse layer launches on the unfused decode step, one
 # each.
 SPARSE_LAYER_KERNELS = ("estimate", "topk_select", "sparse_decode")
+
+
+def layer_launches(L, forwards, decode_steps):
+    """The launches of the two kernels every layer of every path runs:
+    rope once a forward (a prefill chunk or a decode step), the append
+    once a decode step."""
+    return {"rope": L * forwards, "append_decode": L * decode_steps}
 # Idle seconds between a profiled window's edges and the steps inside it.
 PROFILE_MARGIN_S = 0.25
 
@@ -1763,7 +2067,8 @@ def serving_phase(kernels, smi):
         chunks = -(-max(map(len, prompts)) // engines[path].prefill_chunk)
         sparse = (L - skip) * (N - 1)
         want = dict.fromkeys(kernels, 0)
-        want.update(prefill=L * chunks, dense_decode=skip * (N - 1))
+        want.update(prefill=L * chunks, dense_decode=skip * (N - 1),
+                    **layer_launches(L, chunks + N - 1, N - 1))
         want.update(dict.fromkeys(("fused_decode",) if path == "fused"
                                   else SPARSE_LAYER_KERNELS, sparse))
         log(f"serving[{path}, {label}]: prompts {[len(p) for p in prompts]}, "
@@ -2308,11 +2613,12 @@ def scheduler_phase(params, kernels, smi):
                 run["totals"][n] += got[n]
             want = dict.fromkeys(kernels, 0)
             if eng.last_tick == "prefill":
-                want["prefill"] = L
+                want.update(prefill=L, **layer_launches(L, 1, 0))
             else:
                 want.update(dense_decode=skip * n_steps,
                             **dict.fromkeys(SPARSE_LAYER_KERNELS,
-                                            (L - skip) * n_steps))
+                                            (L - skip) * n_steps),
+                            **layer_launches(L, n_steps, n_steps))
                 run["decode_steps"] += n_steps
                 run["generated"] += len(events)
             if eng.last_tick is not None:
@@ -2693,7 +2999,8 @@ def quantized_serving_phase(params, kernels, smi):
         want = dict.fromkeys(kernels, 0)
         want.update(prefill=L, dense_decode=skip * (N - 1),
                     **dict.fromkeys(SPARSE_LAYER_KERNELS, (L - skip) * (N - 1)),
-                    **quant_launches(cfg, N - 1, 1))
+                    **quant_launches(cfg, N - 1, 1),
+                    **layer_launches(L, N, N - 1))
         log(f"quantized[{name}, generate_ondevice]: prompts "
             f"{[len(p) for p in prompts]}, {N} tokens each in "
             f"{t_gen[name]:.2f} s; launches {got}")
@@ -2917,7 +3224,8 @@ def eval_phase(cfg, params, kernels, device="cuda", warmup=3000,
             want.update(prefill=L * pre[1],
                         dense_decode=min(skip, L) * steps[0],
                         **dict.fromkeys(SPARSE_LAYER_KERNELS,
-                                        max(L - skip, 0) * steps[0]))
+                                        max(L - skip, 0) * steps[0]),
+                        **layer_launches(L, pre[1] + steps[0], steps[0]))
         assert got == want, f"launches {got} != path {want}"
         return value, dict(wall_s=wall, prefill_s=pre[0],
                            prefill_calls=pre[1], decode_steps=steps[0],
@@ -3043,10 +3351,12 @@ def tools_phase(params, kernels, smi):
         steps = nb + -(-args.decode_tokens // nb) * nb
         chunks = -(-out["ctx"] // args.prefill_chunk)
         skip, ab = args.skip_layers, "full_cache_ms_per_token" in out
+        forwards, decodes = chunks * (3 if ab else 2), steps * (2 if ab else 1)
         want = {"prefill": L * chunks * (3 if ab else 2),
                 "dense_decode": skip * steps + (L * steps if ab else 0),
                 **dict.fromkeys(("fused_decode",) if args.fused
-                                else SPARSE_LAYER_KERNELS, (L - skip) * steps)}
+                                else SPARSE_LAYER_KERNELS, (L - skip) * steps),
+                **layer_launches(L, forwards + decodes, decodes)}
         log(f"tools[bench_textgen, {label}]: {json.dumps(out)}; launches "
             f"{got}")
         assert got == want, f"launches {got} != path {want}"
@@ -3061,7 +3371,10 @@ def tools_phase(params, kernels, smi):
     # bench_kernels: rates under the card's peaks, and each stage's kernel
     # launched once a timed or warm-up call (none for the plain stages).
     for label, extra in (("32/32 heads", []), ("32/8 heads",
-                                              ["--kv-heads", "8"])):
+                                              ["--kv-heads", "8"]),
+                         ("32/8 heads, B=2, the layer's append and rope",
+                          ["--kv-heads", "8", "--batch", "2", "--stages",
+                           "append,rope,rope_prefill"])):
         t = time.time()
         detail = {}
         args = bench_kernels.parse_args(extra)
@@ -3290,7 +3603,8 @@ def world1_phase(params, kernels):
         want = dict(prefill=cfg.num_layers,
                     dense_decode=quest.skip_layers * (N - 1),
                     **dict.fromkeys(SPARSE_LAYER_KERNELS, (
-                        cfg.num_layers - quest.skip_layers) * (N - 1)))
+                        cfg.num_layers - quest.skip_layers) * (N - 1)),
+                    **layer_launches(cfg.num_layers, N, N - 1))
         assert cs == want, f"15a: launches {cs} != the path's {want}"
         # Decode ms a step, in turns (unsharded, sharded, sharded,
         # unsharded), 16 steps from the current state each.
@@ -3707,6 +4021,12 @@ KERNEL_META = {
               "quest_tpu/models/quantize.py:84", "quantized"),
     "dequant": ("quest_tpu_torch/csrc/qgemv.cu",
                 "quest_tpu/models/quantize.py:84", "quantized"),
+    # No Pallas counterpart: they replace XLA's fusions of the JAX
+    # append_decode_at and the jitted apply_rope.
+    "append_decode": ("quest_tpu_torch/csrc/append.cu",
+                      "quest_tpu/kv/paged_kv.py:354", "unfused"),
+    "rope": ("quest_tpu_torch/csrc/rope.cu", "quest_tpu/ops/rope.py:85",
+             "unfused"),
 }
 # A second TPU kernel that the same CUDA kernel replaces.
 ALSO_REPLACES = {"copy_probe": "exp/dma_probe.py:111"}
@@ -3714,6 +4034,7 @@ ALSO_REPLACES = {"copy_probe": "exp/dma_probe.py:111"}
 
 def kernel_wrappers():
     """Each kernel's wrapper, which counts its launches."""
+    from quest_tpu_torch.kv.paged_kv import append_decode_at
     from quest_tpu_torch.ops.copy_probe import copy_probe
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_physical
@@ -3721,6 +4042,7 @@ def kernel_wrappers():
                                                   fused_sparse_decode)
     from quest_tpu_torch.ops.prefill import prefill_attention
     from quest_tpu_torch.ops.qdot import dequant, qgemv
+    from quest_tpu_torch.ops.rope import rotate_qk
     from quest_tpu_torch.ops.select_pieces import select_pieces
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return {"sparse_decode": sparse_decode_attention,
@@ -3729,7 +4051,8 @@ def kernel_wrappers():
             "topk_select": exact_topk_select,
             "fused_decode": fused_sparse_decode,
             "copy_probe": copy_probe, "select_pieces": select_pieces,
-            "qgemv": qgemv, "dequant": dequant}
+            "qgemv": qgemv, "dequant": dequant,
+            "append_decode": append_decode_at, "rope": rotate_qk}
 
 
 def main():
@@ -3752,7 +4075,8 @@ def main():
     results = {"sparse_decode": sparse_cases(timer, gen),
                "dense_decode": dense_cases(timer, gen),
                "prefill": prefill_cases(timer, gen),
-               **fused_slice_cases(timer, gen)}
+               **fused_slice_cases(timer, gen),
+               **layer_op_cases(timer, gen)}
     for kname, cases in selection.items():      # the main path's first
         results[kname] = cases + results[kname]
     for kname, cases in fp8_cases(timer, gen).items():

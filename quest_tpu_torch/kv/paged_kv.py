@@ -31,7 +31,9 @@ import dataclasses
 import torch
 
 from quest_tpu_torch.config import ModelConfig, QuestConfig
-from quest_tpu_torch.ops.utils import resolve_device
+from quest_tpu_torch.ops import _build
+from quest_tpu_torch.ops.utils import (check_pool_dtype, fp8_cast_codes,
+                                       resolve_device)
 
 K, V = 0, 1      # kv_pages axis -3
 
@@ -226,7 +228,69 @@ def append_decode_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
     ``k_new, v_new``: [B, Hkv, D]; written at ``seq_lens[b]``. Slots with
     ``active=False`` are routed to the scratch block and their metadata
     fold is a no-op. Does not advance ``seq_lens``.
+
+    On a CUDA tensor one launch of ``csrc/append.cu`` (the counterpart of
+    the XLA fusion of the JAX ``append_decode_at``), bit for bit
+    :func:`append_decode_at_plain`: it reads ``seq_lens``, the block
+    table and ``active`` on the device, so a replayed graph sees each
+    step's. It takes head dim 128, bf16 or f32 ``k_new`` / ``v_new`` of
+    one dtype, contiguous, an int32 table and lengths, a bool ``active``
+    and f32 / bf16 / fp8 e4m3 pools and metadata; anything else raises.
+    On a CPU tensor :func:`append_decode_at_plain`.
     """
+    if not k_new.is_cuda:
+        return append_decode_at_plain(cache, layer, k_new, v_new, active)
+    kv, kmax, kmin = cache.kv_pages[layer], cache.k_max[layer], cache.k_min[layer]
+    B, Hkv, D = k_new.shape
+    if D != 128:
+        raise NotImplementedError("the CUDA kernels take head_dim 128")
+    if k_new.dtype not in (torch.bfloat16, torch.float32) or (
+            v_new.dtype != k_new.dtype or v_new.shape != k_new.shape):
+        raise TypeError(f"k_new / v_new must be one shape and bf16 or f32, "
+                        f"got {k_new.dtype} {tuple(k_new.shape)} and "
+                        f"{v_new.dtype} {tuple(v_new.shape)}")
+    if kv.shape[0] != Hkv or kv.shape[-1] != D:
+        raise ValueError(f"k_new {tuple(k_new.shape)} does not fit the pool "
+                         f"{tuple(kv.shape)}")
+    tab, lens = cache.block_tab, cache.seq_lens
+    if tab.dtype != torch.int32 or lens.dtype != torch.int32 or (
+            lens.shape != (B,) or tab.shape[0] != B):
+        raise TypeError("block_tab [B, NB] and seq_lens [B] must be int32")
+    if active is not None and (active.dtype != torch.bool
+                               or active.shape != (B,)):
+        raise TypeError("active must be a bool [B] tensor")
+    for t in (k_new, v_new, kv, kmax, kmin, tab, lens, active):
+        if t is not None and (t.device != k_new.device
+                              or not t.is_contiguous()):
+            raise ValueError("the append takes contiguous operands on "
+                             "k_new's device")
+    kv_code = check_pool_dtype(kv.dtype)
+    meta_code = check_pool_dtype(kmax.dtype, "metadata")
+    fp8 = torch.float8_e4m3fn
+    pool_codes = (fp8_cast_codes(kv.device, k_new.dtype)
+                  if kv.dtype == fp8 else (0, 0))
+    meta_codes = (fp8_cast_codes(kv.device, torch.float32)
+                  if kmax.dtype == fp8 else (0, 0))
+    lib = _build.load("append")
+    code = lib.append_decode_launch(
+        _build.ptr(kv), _build.ptr(kmax), _build.ptr(kmin), _build.ptr(tab),
+        _build.ptr(lens), _build.ptr(active), _build.ptr(k_new),
+        _build.ptr(v_new), B, Hkv, kv.shape[1], kv.shape[-2], kmax.shape[1],
+        kmax.shape[2], tab.shape[1], int(k_new.dtype == torch.bfloat16),
+        kv_code, meta_code, *pool_codes, *meta_codes,
+        _build.stream_of(k_new))
+    _build.check(lib, code, "append_decode")
+    append_decode_at.launches += 1
+
+
+append_decode_at.launches = 0
+
+
+def append_decode_at_plain(cache: PagedKVCache, layer: int,
+                           k_new: torch.Tensor, v_new: torch.Tensor,
+                           active: torch.Tensor | None = None) -> None:
+    """:func:`append_decode_at` in plain PyTorch ops (the CPU's path, and
+    what the kernel is held to on the card)."""
     kv, kmax, kmin = cache.kv_pages[layer], cache.k_max[layer], cache.k_min[layer]
     page = kv.shape[-2]
     bpp = cache.block_pages

@@ -34,7 +34,7 @@ from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
 from quest_tpu_torch.ops.prefill import prefill_attention
 from quest_tpu_torch.ops.rms_norm import rms_norm
 from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
-                                      rotate)
+                                      rotate_qk)
 from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
 from quest_tpu_torch.ops.topk import select_pages
 from quest_tpu_torch.ops.utils import resolve_device
@@ -267,9 +267,10 @@ class QuestModel(nn.Module):
                 block_tab=cache.block_tab, block_pages=cache.block_pages)
 
     def _layer(self, x, l: int, cache: PagedKVCache, use_sparse: bool,
-               rope, is_prefill: bool, new_lens):
+               rope, is_prefill: bool, new_lens, active):
         """One transformer layer; x: [B, T, hid]; rope: the (cos, sin)
-        pair of this pass's positions."""
+        pair of this pass's positions; active: a decode step's rows with
+        a new token (``new_lens > 0``, made once a step)."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -280,8 +281,7 @@ class QuestModel(nn.Module):
             k = self._linear(h, "wk", l).reshape(B, T, Hkv, D)
             v = self._linear(h, "wv", l).reshape(B, T, Hkv, D)
         with trace_range("rope"):
-            q = rotate(q, *rope)
-            k = rotate(k, *rope)
+            q, k = rotate_qk(q, k, *rope)
 
         if is_prefill:
             with trace_range("append_kv_prefill"):
@@ -295,8 +295,7 @@ class QuestModel(nn.Module):
             with trace_range("append_kv_decode"):
                 # Inactive slots (new_lens == 0) must not fold their
                 # garbage key into the page metadata.
-                append_decode_at(cache, l, k[:, 0], v[:, 0],
-                                 active=new_lens > 0)
+                append_decode_at(cache, l, k[:, 0], v[:, 0], active=active)
             attn = self._attn_decode(q[:, 0], cache, l, use_sparse,
                                      cache.seq_lens + 1)[:, None]
 
@@ -324,9 +323,10 @@ class QuestModel(nn.Module):
                      + torch.arange(T, dtype=torch.int32, device=dev)[None, :])
         rope = rope_cos_sin(positions, self.inv_freq, self._pos_scale,
                             self._attn_scale)
+        active = None if is_prefill else new_lens > 0
         for l in range(cache.kv_pages.shape[0]):
             x = self._layer(x, l, cache, l >= quest.skip_layers, rope,
-                            is_prefill, new_lens)
+                            is_prefill, new_lens, active)
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         if last_only:
             last = (new_lens.long() - 1).clamp(min=0)

@@ -49,6 +49,8 @@ SIGNATURES = {
     # The library's second entry point, dequant_launch, is bound by
     # ops/qdot.py.
     "qgemv": ("qgemv_launch", [_P] * 7 + [_I] * 9 + [_P, _P]),
+    "append": ("append_decode_launch", [_P] * 8 + [_I] * 14 + [_P]),
+    "rope": ("rope_launch", [_P] * 6 + [_I] * 4 + [_P]),
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import List
 
 import torch
@@ -90,6 +91,21 @@ def kernel_query(q: torch.Tensor) -> torch.Tensor:
     un-scaled (the kernels scale it in f32 and round it to the compute
     dtype, as :func:`scaled_query` does)."""
     return (q if q.dtype == torch.bfloat16 else q.float()).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def fp8_cast_codes(device: torch.device, dtype: torch.dtype):
+    """The e4m3 codes that torch's cast ``.to(torch.float8_e4m3fn)`` on
+    ``device`` gives a finite ``dtype`` value at or past 480, and one in
+    (464, 480), which rounds into the NaN code's mantissa: (ovf, carry).
+    Torch versions differ there (NaN 0x7F in older ones, 448 = 0x7E in
+    newer ones); everywhere else the cast is c10's routine, which
+    ``csrc/append.cu`` repeats. Asked once a (device, dtype): a host
+    read, so the first call must not come under a graph capture (a
+    step's first call runs eagerly before its capture)."""
+    x = torch.tensor([1000.0, 470.0], dtype=dtype, device=device)
+    ovf, carry = x.to(torch.float8_e4m3fn).view(torch.uint8).tolist()
+    return ovf, carry
 
 
 # The element type code the kernels' C entry points take.

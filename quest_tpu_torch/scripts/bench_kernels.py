@@ -15,12 +15,18 @@ physical route of ``csrc/estimate.cu`` on the card), ``topk``
 (``select_pages``: ``csrc/topk_select.cu`` on the card), ``sparse``
 (the sparse decode kernel over the selected pages), ``dense`` (the
 dense decode kernel over the context), ``append`` (``append_decode_at``
-at a fixed position), ``prefill`` (a 2048-token chunk at the end of the
-context) and ``pipeline`` (estimate -> top-k -> sparse). The JSON line holds each stage's microseconds under the
-JAX script's names.
+at a fixed position: ``csrc/append.cu`` on the card), ``prefill`` (a
+2048-token chunk at the end of the context) and ``pipeline`` (estimate
+-> top-k -> sparse). The JSON line holds each stage's microseconds under
+the JAX script's names. The port's own stages, which the JAX script does
+not have, run when named: ``rope`` (``rotate_qk`` of a decode step's bf16
+q and k, one token a row: ``csrc/rope.cu`` on the card) and
+``rope_prefill`` (the same over a chunk of up to 8192 tokens).
 
     python -m quest_tpu_torch.scripts.bench_kernels [--ctx 32768]
         [--budget 2048] [--heads 32] [--kv-heads 32] [--stages all|...]
+    python -m quest_tpu_torch.scripts.bench_kernels --stages \\
+        append,rope,rope_prefill --kv-heads 8      # the layer's plain-op region
     python -m quest_tpu_torch.scripts.bench_kernels --device cpu \\
         --ctx 2048 --budget 256 --heads 4 --kv-heads 2          # smoke
 """
@@ -44,6 +50,9 @@ RESULT_KEYS = {"estimate": "estimate", "topk": "topk",
                "sparse": "sparse_attn", "dense": "dense_attn",
                "append": "append_decode", "prefill": "prefill",
                "pipeline": "sparse_pipeline"}
+# The port's own stages (not in "all": the JAX script has none), by key.
+PORT_STAGES = {"rope": "rope_decode", "rope_prefill": "rope_prefill"}
+ROPE_CHUNK = 8192                # rope_prefill's tokens (at most ctx)
 
 
 def log(*a):
@@ -78,6 +87,11 @@ def stage_bytes(B, Hkv, D, page, ctx, budget_pages, max_pages,
             "pipeline": meta + pages}
 
 
+def rope_bytes(B, T, Hq, Hkv, D, bpe=2) -> int:
+    """q and k read and written once, cos and sin (f32) read once."""
+    return 2 * B * T * (Hq + Hkv) * D * bpe + 2 * B * T * (D // 2) * 4
+
+
 def prefill_flops(B, Hq, D, ctx, chunk) -> float:
     """Two matmuls x 2 FLOPs a MAC x chunk x the mean causal span x D, a
     head: a chunk at the end of the context attends to all of it."""
@@ -100,36 +114,42 @@ class HostTimer:
 
 def stage_kernels():
     """Stage -> the kernel wrapper it launches (None: plain PyTorch ops)."""
+    from quest_tpu_torch.kv.paged_kv import append_decode_at
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_physical
     from quest_tpu_torch.ops.fused_decode import exact_topk_select
     from quest_tpu_torch.ops.prefill import prefill_attention
+    from quest_tpu_torch.ops.rope import rotate_qk
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return {"estimate": page_scores_physical, "topk": exact_topk_select,
             "sparse": sparse_decode_attention,
-            "dense": dense_decode_attention, "append": None,
-            "prefill": prefill_attention, "pipeline": sparse_decode_attention}
+            "dense": dense_decode_attention, "append": append_decode_at,
+            "prefill": prefill_attention, "pipeline": sparse_decode_attention,
+            "rope": rotate_qk, "rope_prefill": rotate_qk}
 
 
 def run_bench_kernels(args, detail=None) -> dict:
     """Runs the stages of ``args`` (see :func:`parse_args`); returns
     {JAX stage name: us}. ``detail``, if a dict, receives each stage's
     bytes or FLOPs, rate, kernel launches and timed calls."""
-    from quest_tpu_torch.config import ModelConfig, QuestConfig
+    from quest_tpu_torch.config import ModelConfig, QuestConfig, RopeConfig
     from quest_tpu_torch.kv.paged_kv import (append_decode_at,
                                              append_prefill_at, init_cache)
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_physical
     from quest_tpu_torch.ops.prefill import prefill_attention
+    from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
+                                          rotate_qk)
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     from quest_tpu_torch.ops.topk import select_pages
     from quest_tpu_torch.ops.utils import resolve_device
 
     asked = set(args.stages.split(","))
-    if asked - set(STAGES) - {"all"}:
-        raise SystemExit(f"unknown stages {sorted(asked - set(STAGES))}; "
-                         f"known: {STAGES}")
-    want = STAGES if "all" in asked else [s for s in STAGES if s in asked]
+    known = STAGES + tuple(PORT_STAGES)
+    if asked - set(known) - {"all"}:
+        raise SystemExit(f"unknown stages {sorted(asked - set(known))}; "
+                         f"known: {known}")
+    want = STAGES if "all" in asked else [s for s in known if s in asked]
     dev = resolve_device(args.device)
     B, Hq, Hkv, D = args.batch, args.heads, args.kv_heads, args.head_dim
     page, CTX, BUDGET = args.page, args.ctx, args.budget
@@ -171,6 +191,21 @@ def run_bench_kernels(args, detail=None) -> dict:
         return sparse_decode_attention(q0, cache.kv_pages, idx, nv, seq,
                                        sm_scale=sm, **kw)
 
+    def rope_args(T):
+        """bf16 q [B, T, Hq, D] and k [B, T, Hkv, D] at the context's end,
+        and their (cos, sin)."""
+        inv, ps, att = compute_rope_params(RopeConfig(), D)
+        pos = (seq[:, None] - T + torch.arange(T, device=dev)).int()
+        return (normal(B, T, Hq, D).bfloat16(),
+                normal(B, T, Hkv, D).bfloat16(),
+                *rope_cos_sin(pos, inv, ps, att))
+
+    RT = min(ROPE_CHUNK, CTX)
+    rope_in = {n: rope_args(t) for n, t in (("rope", 1), ("rope_prefill", RT))
+               if n in want}
+    nbytes.update(rope=rope_bytes(B, 1, Hq, Hkv, D),
+                  rope_prefill=rope_bytes(B, RT, Hq, Hkv, D))
+
     fns = {
         "estimate": estimate,
         "topk": lambda: select_pages(scores0, seq, page, S),
@@ -183,6 +218,8 @@ def run_bench_kernels(args, detail=None) -> dict:
         "prefill": lambda: prefill_attention(qp, cache.kv_pages, offs, seq,
                                              sm_scale=sm, **kw),
         "pipeline": pipeline,
+        "rope": lambda: rotate_qk(*rope_in["rope"]),
+        "rope_prefill": lambda: rotate_qk(*rope_in["rope_prefill"]),
     }
     if dev.type == "cuda":
         from quest_tpu_torch.utils.benchmarking import Timer
@@ -190,6 +227,7 @@ def run_bench_kernels(args, detail=None) -> dict:
     else:
         timer = HostTimer()
     kernels = stage_kernels()
+    keys = {**RESULT_KEYS, **PORT_STAGES}
     results = {}
     for name in want:
         kernel = kernels[name]
@@ -209,12 +247,12 @@ def run_bench_kernels(args, detail=None) -> dict:
                 f"TFLOP/s (chunk {CHUNK} @ end of {CTX})")
         else:
             row.update(bytes=nbytes[name], gbps=nbytes[name] / t / 1e9)
-            log(f"{RESULT_KEYS[name]:16s} {t * 1e6:9.1f} us   "
+            log(f"{keys[name]:16s} {t * 1e6:9.1f} us   "
                 f"{nbytes[name] / t / 1e9:7.1f} GB/s "
                 f"({nbytes[name] / 1e6:.1f} MB)")
-        results[RESULT_KEYS[name]] = round(ms * 1e3, 1)
+        results[keys[name]] = round(ms * 1e3, 1)
         if detail is not None:
-            detail[RESULT_KEYS[name]] = row
+            detail[keys[name]] = row
     return results
 
 

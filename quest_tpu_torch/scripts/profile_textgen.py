@@ -10,7 +10,8 @@ profiler up, the third is traced. The Chrome trace goes to
 script prints, for each of the model's trace ranges
 (``models/llama.py:TRACE_RANGES``, the JAX model's ``jax.named_scope``
 names), its calls, host ms and the device ms of the device ops inside
-its spans on the device timeline, then the top device ops. Then the N
+its spans on the device timeline (split between the prefill pass and
+the decode steps, and by device op), then the top device ops. Then the N
 decode steps run as the engine runs them (captured once, replayed) in a
 second profile, and it prints their device ms and device ops a step
 beside the eager ones.
@@ -60,16 +61,27 @@ def device_ops(events):
             and e.key not in TRACE_RANGES]
 
 
+# Ranges that only a decode step opens: the first of their spans on the
+# device timeline ends the prefill pass.
+DECODE_RANGES = ("append_kv_decode", "quest_fused_decode", "quest_estimate",
+                 "quest_topk", "quest_sparse_attn", "dense_decode_attn")
+
+
 def range_times(events) -> dict:
     """Each trace range among ``prof.events()``: calls, host ms, and the
     device ms of the ops inside its ``gpu_user_annotation`` spans (the
     device timeline's range spans; ranges do not nest and one stream
     runs them in order, so a device op belongs to the span that holds
-    its start) beside the spans' own ms, idle gaps included."""
+    its start) beside the spans' own ms, idle gaps included. The device
+    ms is also split between the prefill pass and the decode steps
+    (``prefill_device_ms``, ``decode_device_ms``: before and after the
+    first span of a :data:`DECODE_RANGES` range) and by device op
+    (``ops``: op name -> [count, device ms])."""
     from torch.autograd import DeviceType
 
     from quest_tpu_torch.models.llama import TRACE_RANGES
-    out = {name: dict(calls=0, host_ms=0.0, device_ms=0.0, span_ms=0.0)
+    out = {name: dict(calls=0, host_ms=0.0, device_ms=0.0, span_ms=0.0,
+                      prefill_device_ms=0.0, decode_device_ms=0.0, ops={})
            for name in TRACE_RANGES}
     spans = []
     for e in events:
@@ -84,10 +96,19 @@ def range_times(events) -> dict:
             spans.append((e.time_range.start, e.time_range.end, e.key))
     spans.sort()
     starts = [s[0] for s in spans]
+    decode_start = min((s for s, _, k in spans if k in DECODE_RANGES),
+                       default=float("inf"))
     for op in device_ops(events):
         i = bisect.bisect_right(starts, op.time_range.start) - 1
         if i >= 0 and op.time_range.start < spans[i][1]:
-            out[spans[i][2]]["device_ms"] += op.time_range.elapsed_us() / 1e3
+            row = out[spans[i][2]]
+            ms = op.time_range.elapsed_us() / 1e3
+            row["device_ms"] += ms
+            row["decode_device_ms" if op.time_range.start >= decode_start
+                else "prefill_device_ms"] += ms
+            n_ms = row["ops"].setdefault(op.key[:90], [0, 0.0])
+            n_ms[0] += 1
+            n_ms[1] += ms
     return {k: v for k, v in out.items() if v["calls"]}
 
 
@@ -154,10 +175,15 @@ def run_profile_textgen(cfg, params, args) -> dict:
     n = max(args.decode_tokens, 1)
     top = [dict(name=e.key[:90], count=e.count,
                 device_ms=e.self_device_time_total / 1e3) for e in ops[:10]]
-    print(f"{'range':20s} {'calls':>6s} {'host ms':>9s} {'device ms':>10s}")
+    print(f"{'range':20s} {'calls':>6s} {'host ms':>9s} {'device ms':>10s} "
+          f"{'prefill':>9s} {'decode':>9s}")
     for name, r in sorted(ranges.items(), key=lambda kv: -kv[1]["device_ms"]):
         print(f"{name:20s} {r['calls']:6d} {r['host_ms']:9.3f} "
-              f"{r['device_ms']:10.3f}")
+              f"{r['device_ms']:10.3f} {r['prefill_device_ms']:9.3f} "
+              f"{r['decode_device_ms']:9.3f}")
+        for op, (count, ms) in sorted(r["ops"].items(),
+                                      key=lambda kv: -kv[1][1])[:8]:
+            print(f"    {ms:9.3f} ms  x{count:5d}  {op}")
     print("top device ops:")
     for t in top:
         print(f"  {t['device_ms']:9.3f} ms  x{t['count']:5d}  {t['name']}")
