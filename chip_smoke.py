@@ -42,6 +42,14 @@ Phases, each fatal on failure:
      pool on all 65536 bf16 codes; rope of q and k (``csrc/rope.cu``) at
      decode and prefill shapes in bf16 and f32; both timed under the
      memset and the read flush beside their plain versions;
+     then the two kernels in place of the JAX model's norm and head
+     fusions: RMSNorm with its residual add (``csrc/rms_norm.cu``) at
+     decode and prefill shapes, bf16 and f32, h bit for bit and the norm
+     within note d's bound of ``rms_norm_plain``, and the f32 product
+     with the bf16 lm_head (``csrc/head_gemv.cu``) at M = 1, 2, 4 and 16
+     over 4096 x 128256, the tp = 2 shard and an odd vocabulary, within
+     1e-5 of the f32 product, each timed under both flushes beside its
+     plain version and the library call;
      then the fp8 e4m3 branches of the sparse, dense, prefill and
      estimate kernels (fp8 pool and metadata) at page 16 and at page 32,
      each also timed beside its bf16 branch on the same values;
@@ -94,7 +102,8 @@ Phases, each fatal on failure:
      w_down, and the lm_head with an f32 activation), int8 and int4, M =
      1, 2, 4 and 16 rows: within 2e-2 (bf16) or 1e-5 (f32), dequant bit
      for bit; each timed beside its bound, its plain version and the bf16
-     ``torch.matmul`` over the unquantized weight;
+     ``torch.matmul`` over the unquantized weight (the lm_head also beside
+     ``head_gemv`` over the bf16 head, the unquantized model's route);
  10. the 4-layer f32 model with int8 and with int4 weights on the card
      against the CPU's plain path (greedy tokens equal over prefill and 8
      decode steps, logits within 2e-3, the weight kernels' launches the
@@ -123,7 +132,8 @@ Phases, each fatal on failure:
      control, fused, fp8 KV and metadata at page 32, bursts of 8) and at
      131040 tokens against the control (16 tokens; launches equal to the
      path's, seconds logged), bench_kernels at its defaults, at
-     32/8 heads and (append, rope, rope_prefill) at 32/8 heads and B=2
+     32/8 heads, (append, rope, rope_prefill) at 32/8 heads and B=2 and
+     (rms_norm, rms_norm_prefill, head_gemv) at B=2
      (no reading above 3.35 TB/s or 989 TFLOP/s; each stage's kernel
      launched once a call), bench_serving (tokens generated and
      prefix hits), profile_textgen (every range of the unfused path with
@@ -1300,6 +1310,24 @@ def append_bytes(cache, k, active):
             + 2 * meta * (n_act + n_fold))
 
 
+def timed_both(timer, read_timer, row, fns):
+    """Each of ``fns`` (``ms``, ``plain_ms``, ...: callables) timed in
+    turns under the memset flush (``timer``) and the read flush
+    (``read_timer``): each mean into ``row`` as ``<name>`` and
+    ``read_<name>``, every turn under ``turns_ms``. Returns the log's
+    text, us memset / read a name."""
+    from quest_tpu_torch.utils.benchmarking import in_turns
+    tm = in_turns(timer, fns)
+    tr = in_turns(read_timer, fns)
+    row.update({k: statistics.mean(v) for k, v in tm.items()},
+               **{"read_" + k: statistics.mean(v) for k, v in tr.items()},
+               turns_ms={"memset": tm, "read": tr})
+    return "; us, memset / read flush: " + ", ".join(
+        f"{k[:-3] or 'kernel'} {row[k] * 1e3:.2f} / "
+        f"{row['read_' + k] * 1e3:.2f}" for k in fns) + (
+        f" (bound {row['bound_ms'] * 1e3:.3f})")
+
+
 def layer_op_cases(timer, gen):
     """The two kernels of every layer's plain-op region against their
     plain versions, bit for bit. The decode append (``csrc/append.cu``
@@ -1323,7 +1351,7 @@ def layer_op_cases(timer, gen):
     from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
                                           rotate_plain, rotate_qk)
     from quest_tpu_torch.ops.utils import fp8_cast_codes
-    from quest_tpu_torch.utils.benchmarking import Timer, in_turns
+    from quest_tpu_torch.utils.benchmarking import Timer
     out = {"append_decode": [], "rope": []}
     read_timer = Timer(flush="read")
     dev = torch.device("cuda")
@@ -1334,16 +1362,8 @@ def layer_op_cases(timer, gen):
         f"{fp8_cast_codes(dev, torch.float32)}")
 
     def timed(row, fns, nbytes):
-        tm = in_turns(timer, fns)
-        tr = in_turns(read_timer, fns)
-        row.update({k: statistics.mean(v) for k, v in tm.items()},
-                   **{"read_" + k: statistics.mean(v) for k, v in tr.items()},
-                   turns_ms={"memset": tm, "read": tr})
-        return (f"; us, memset / read flush: {row['ms'] * 1e3:.2f} / "
-                f"{row['read_ms'] * 1e3:.2f} (bound "
-                f"{row['bound_ms'] * 1e3:.3f}, {nbytes / 1e6:.3f} MB), plain "
-                f"{row['plain_ms'] * 1e3:.1f} / "
-                f"{row['read_plain_ms'] * 1e3:.1f}")
+        return (timed_both(timer, read_timer, row, fns)
+                + f", {nbytes / 1e6:.3f} MB")
 
     def append(label, cache, lens, k, v, active, time_it=False,
                record=True):
@@ -1457,6 +1477,169 @@ def layer_op_cases(timer, gen):
          torch.float32, [30000, 7])
     rope("decode, bf16, B=4, 8/8 heads", 4, 1, 8, 8, bf16, [0, 1, 16, 131071])
     del read_timer
+    return out
+
+
+def ulp_distance(a, b):
+    """Units in the last place between a and b (one dtype, bf16 or f32),
+    by their bit patterns mapped to a monotone integer line."""
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    top = 1 << (15 if a.dtype == torch.bfloat16 else 31)
+
+    def line(t):
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -top - i, i)
+    return (line(a) - line(b)).abs()
+
+
+NORM_VAR_ULPS = 4                     # note d: the variance, f32 ulps
+HEAD_TOL = 1e-5                       # head_gemv vs the f32 product
+HEAD_ROWS = (2, 1, 4, 16)             # the main path's M = 2 first
+
+
+def norm_head_cases(timer, gen):
+    """The two kernels that replace XLA fusions of the JAX model's norm
+    and head. ``rms_norm`` (``csrc/rms_norm.cu``) against
+    ``rms_norm_plain`` at Llama-3.1-8B's width 4096: a decode step's B=2
+    rows, a prefill chunk of 8192 tokens (B=1) and the serving phase's
+    B=2 x 5120, each with the residual folded in and without, in bf16 and
+    f32, and a width of 4100 (the element-at-a-time route): ``h`` bit
+    for bit, each row's variance (the kernel's ``var_out``) within
+    NORM_VAR_ULPS f32 ulps of the plain version's and, given the kernel's
+    variance, the norm ``rms_scale_plain``'s bit for bit (note d); the
+    share of outputs that differ from the plain version and by how many
+    ulps printed. The bf16 rows with the residual are timed under the memset
+    and the read flush beside the plain version and
+    ``torch.nn.functional.rms_norm`` of h (the norm alone: no PyTorch
+    call adds the residual). ``head_gemv`` (``csrc/head_gemv.cu``) at M =
+    2, 1, 4 and 16 rows over the 4096 x 128256 bf16 head, the tp = 2
+    shard's 64128 columns and an odd vocabulary (128257), within
+    HEAD_TOL of the f32 product, timed under both flushes beside its
+    plain version (``x @ w.float()``), the f32 ``torch.matmul`` over an
+    f32 copy of the head (the port's route before: ``library_ms``) and
+    the bf16 ``torch.matmul`` of the same shape."""
+    from quest_tpu_torch.ops.decode_common import sm_count
+    from quest_tpu_torch.ops.head_gemv import (head_gemv, head_gemv_plain,
+                                               head_gemv_plan)
+    from quest_tpu_torch.ops.rms_norm import (rms_norm, rms_norm_plain,
+                                              rms_scale_plain)
+    from quest_tpu_torch.utils.benchmarking import Timer
+    out = {"rms_norm": [], "head_gemv": []}
+    read_timer = Timer(flush="read")
+    eps = 1e-5
+
+    def timed(row, fns):
+        return timed_both(timer, read_timer, row, fns)
+
+    def norm(label, shape, dtype, residual, time_it=False):
+        H = shape[-1]
+        rows = math.prod(shape[:-1])
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        r = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = (1 + 0.5 * torch.randn((H,), generator=gen, device="cuda")
+             ).to(dtype)
+        var = torch.empty(rows, device="cuda")
+        if residual:
+            h, got = rms_norm(x, w, eps, residual=r, var_out=var)
+            want_h, want = rms_norm_plain(x, w, eps, residual=r)
+            assert same_bits(h, want_h), f"rms_norm's h differs ({label})"
+        else:
+            got = rms_norm(x, w, eps, var_out=var)
+            want_h, want = x, rms_norm_plain(x, w, eps)
+        torch.cuda.synchronize()
+        hf = want_h.float().reshape(rows, H)
+        var_ulps = int(ulp_distance(var, (hf * hf).mean(dim=-1)).max())
+        given = same_bits(got, rms_scale_plain(
+            want_h, var.reshape(shape[:-1]), w, eps))
+        d = ulp_distance(got, want)
+        esz = x.element_size()
+        nbytes = (4 if residual else 2) * rows * H * esz + H * esz
+        row = dict(case=label, max_abs_err=float(
+                       (got.float() - want.float()).abs().max()),
+                   max_rel_err=rel_err(got, want), h_bitwise=residual,
+                   var_max_ulps=var_ulps, bitwise_given_var=given,
+                   out_max_ulps=int(d.max()),
+                   out_share_differing=float((d > 0).float().mean()),
+                   bitwise_equal=bool((d == 0).all()), ms=None,
+                   plain_ms=None, library_ms=None,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        msg = ""
+        if time_it:
+            args = (x, w, eps) + ((r,) if residual else ())
+            msg = timed(row, {
+                "ms": lambda: rms_norm(*args),
+                "plain_ms": lambda: rms_norm_plain(*args),
+                "library_ms": lambda: torch.nn.functional.rms_norm(
+                    want_h, (H,), w, eps)})
+        out["rms_norm"].append(row)
+        log(f"rms_norm[{label}]: h bit for bit {residual}; variance within "
+            f"{var_ulps} f32 ulps (limit {NORM_VAR_ULPS}); given it, the "
+            f"norm bit for bit {given}; "
+            f"{100 * row['out_share_differing']:.4f}% of outputs differ from "
+            f"the plain version, by at most {row['out_max_ulps']} ulp{msg}")
+        assert var_ulps <= NORM_VAR_ULPS, f"rms_norm variance ({label})"
+        assert given, f"rms_norm differs given its variance ({label})"
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    log("rms_norm: library_ms is torch.nn.functional.rms_norm of h (the "
+        "norm alone; no PyTorch call adds the residual)")
+    norm("decode, bf16, B=2, 4096, residual", (2, 1, 4096), bf16, True,
+         time_it=True)
+    norm("decode, bf16, B=2, 4096, no residual", (2, 1, 4096), bf16, False)
+    norm("decode, f32, B=2, 4096, residual", (2, 1, 4096), f32, True)
+    norm("decode, f32, B=2, 4096, no residual", (2, 1, 4096), f32, False)
+    norm("prefill chunk, bf16, T=8192, 4096, residual", (1, 8192, 4096),
+         bf16, True, time_it=True)
+    norm("prefill chunk, bf16, T=8192, 4096, no residual", (1, 8192, 4096),
+         bf16, False)
+    norm("serving prefill, bf16, B=2 T=5120, 4096, residual",
+         (2, 5120, 4096), bf16, True, time_it=True)
+    norm("serving prefill, f32, B=2 T=5120, 4096, residual",
+         (2, 5120, 4096), f32, True)
+    norm("serving prefill, f32, B=2 T=5120, 4096, no residual",
+         (2, 5120, 4096), f32, False)
+    norm("width 4100, bf16, 33 rows, residual", (33, 4100), bf16, True)
+    norm("width 4100, f32, 33 rows, no residual", (33, 4100), f32, False)
+
+    K, V = 4096, 128256
+    w = (torch.randn((K, V + 1), generator=gen, device="cuda")
+         / math.sqrt(K)).to(bf16)
+    sms = sm_count(torch.device("cuda"))
+    for label, N, rows_list in (("Llama-3.1-8B head", V, HEAD_ROWS),
+                                ("tp = 2 shard", V // 2, (2,)),
+                                ("odd vocabulary", V + 1, (2,))):
+        wn = w[:, :N].contiguous() if N != V + 1 else w
+        w32 = wn.float()
+        for M in rows_list:
+            x = torch.randn((M, K), generator=gen, device="cuda")
+            got = head_gemv(x, wn)
+            want = x @ w32
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            nbytes = K * N * 2 + M * (K + N) * 4
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * M * K * N / F32_FLOPS * 1e3
+            plan = head_gemv_plan(K, N, sms, M)
+            row = dict(case=f"{label}, {K}x{N}, M={M}",
+                       max_abs_err=float((got - want).abs().max()),
+                       max_rel_err=err, plan=plan._asdict(),
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            xb = x.to(bf16)
+            msg = timed(row, {
+                "ms": lambda: head_gemv(x, wn),
+                "plain_ms": lambda: head_gemv_plain(x, wn),
+                "library_ms": lambda: x @ w32,
+                "bf16_matmul_ms": lambda: xb @ wn})
+            out["head_gemv"].append(row)
+            log(f"head_gemv[{row['case']}]: rel err {err:.2e} (limit "
+                f"{HEAD_TOL}); plan {tuple(plan)}{msg}; library: the f32 "
+                f"matmul over an f32 head")
+            assert err <= HEAD_TOL, f"head_gemv disagrees ({row['case']})"
+        del w32, wn
+        torch.cuda.empty_cache()
+    del w, read_timer
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1900,10 +2083,11 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
     agree within ``tol`` where one is given. In bf16 none is: the CPU's
     and cuBLAS's bf16 matrix products round differently, and over four
     layers that alone moves the logits by more than the kernels' own
-    2e-2 (held in phase 3). With ``fused`` the sparse layers take the
-    fused kernel: the pool grows to 2048 tokens (128 pages, where the
-    model's gate opens), and the card's fused launches must be 2 a
-    step. With ``serving_kv`` (a KV dtype) the engines run the serving
+    2e-2 (held in phase 3). Every forward launches 2L + 1 norms and, over
+    a plain bf16 head, one ``head_gemv``. With ``fused`` the sparse
+    layers take the fused kernel: the pool grows to 2048 tokens (128
+    pages, where the model's gate opens), and the card's fused launches
+    must be 2 a step. With ``serving_kv`` (a KV dtype) the engines run the serving
     configuration instead: page 32, fp8 e4m3 metadata, a 4-page budget,
     that KV dtype. With ``bits`` (8 or 4) the weights are quantized (RTN)
     first and the card's weight kernels' launches must be the path's: a
@@ -1915,7 +2099,9 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
     from quest_tpu_torch.models.llama import init_params
     from quest_tpu_torch.models.quantize import quantize_params
     from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
+    from quest_tpu_torch.ops.head_gemv import head_gemv
     from quest_tpu_torch.ops.qdot import dequant, qgemv
+    from quest_tpu_torch.ops.rms_norm import rms_norm
     cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
                               num_kv_heads=2, dtype=dtype)
     if serving_kv is not None:
@@ -1935,6 +2121,7 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
     gpu = QuestEngine(cfg, quest, params, batch_size=2, device="cuda")
     cpu = QuestEngine(cfg, quest, params, batch_size=2, device="cpu")
     fused_sparse_decode.launches = qgemv.launches = dequant.launches = 0
+    rms_norm.launches = head_gemv.launches = 0
     g, c = gpu.prefill(prompts), cpu.prefill(prompts)
     errs, same = [], []
     assert all(-(-len(p) // quest.page_size) > quest.page_budget
@@ -1949,6 +2136,7 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
     torch.cuda.synchronize()
     launches = fused_sparse_decode.launches
     weight_launches = dict(qgemv=qgemv.launches, dequant=dequant.launches)
+    norm_head = dict(rms_norm=rms_norm.launches, head_gemv=head_gemv.launches)
     name = str(dtype).split(".")[-1] + ("/fused" if fused else "") + (
         f"/serving {str(serving_kv).split('.')[-1]} KV" if serving_kv
         else "") + (f"/int{bits} weights" if bits else "")
@@ -1964,6 +2152,12 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
             else dict(qgemv=0, dequant=0))
     assert weight_launches == want, (
         f"weight kernel launches {weight_launches} != path {want}")
+    # A forward (the one-chunk prefill, each decode step) runs 2L + 1
+    # norms, and one head_gemv where the head is plain bf16.
+    want = dict(rms_norm=(2 * cfg.num_layers + 1) * (steps + 1),
+                head_gemv=(steps + 1) if dtype == torch.bfloat16
+                and not bits else 0)
+    assert norm_head == want, f"norm / head launches {norm_head} != {want}"
     assert all(same), f"greedy tokens differ from the CPU path ({name})"
     assert tol is None or max(errs) <= tol, (
         f"card path disagrees with the CPU path: {max(errs)}")
@@ -1992,19 +2186,26 @@ SERVING_PATHS = ("unfused", "fused", "serving", "serving_fp8")
 # (profile_textgen before the kernels), now 1 + 1, and the mask is made
 # once a step: 3190 - 32 x (44 + 18 - 2) + 1 = 1271 unfused and serving,
 # 3130 - 1920 + 1 = 1211 fused, 3254 - 32 x (46 + 18 - 2) + 1 = 1271
-# serving fp8.
-DEVICE_OPS_PER_STEP = {"unfused": 1271, "fused": 1211, "serving": 1271,
-                       "serving_fp8": 1271}
+# serving fp8. The 2L + 1 = 65 norms are one launch each where each was 9
+# plain ops, and the 64 residual adds are folded into them; the head's
+# f32 GEMV over an f32 copy (one cuBLAS kernel) is one head_gemv launch:
+# 1271 - 65 x 8 - 64 = 687, 1211 - 584 = 627.
+DEVICE_OPS_PER_STEP = {"unfused": 687, "fused": 627, "serving": 687,
+                       "serving_fp8": 687}
 # The kernels a sparse layer launches on the unfused decode step, one
 # each.
 SPARSE_LAYER_KERNELS = ("estimate", "topk_select", "sparse_decode")
 
 
-def layer_launches(L, forwards, decode_steps):
-    """The launches of the two kernels every layer of every path runs:
-    rope once a forward (a prefill chunk or a decode step), the append
-    once a decode step."""
-    return {"rope": L * forwards, "append_decode": L * decode_steps}
+def layer_launches(L, forwards, decode_steps, heads=None):
+    """The launches of the kernels every layer of every path runs: rope
+    and the 2L + 1 norms once a forward (a prefill chunk or a decode
+    step), the append once a decode step; and ``head_gemv``, once a
+    forward of a plain bf16 head over at most 16 rows (``heads``, default
+    ``forwards``; 0 for a quantized head)."""
+    return {"rope": L * forwards, "append_decode": L * decode_steps,
+            "rms_norm": (2 * L + 1) * forwards,
+            "head_gemv": forwards if heads is None else heads}
 # Idle seconds between a profiled window's edges and the steps inside it.
 PROFILE_MARGIN_S = 0.25
 
@@ -2760,8 +2961,8 @@ def weight_kernel_phase(timer, gen, ptxas):
     within 2e-2 (bf16) or 1e-5 (f32, the lm_head), ``dequant`` bitwise;
     each timed beside its bound, its plain version and the bf16
     ``torch.matmul`` over the unquantized weight that quantization must
-    beat (the lm_head also beside the f32 product of the unquantized
-    model). Each case prints the registers and spills of the kernel
+    beat (the lm_head also beside the unquantized model's route, the f32
+    product over its bf16 head by ``head_gemv``). Each case prints the registers and spills of the kernel
     instantiation it launches (``ptxas``: ``ptxas_kernels`` of the qgemv
     library's build log). Each bf16 ``dequant`` is also timed followed
     by the ``torch.matmul`` of a 2048-row prefill chunk with the L2 left
@@ -2769,6 +2970,7 @@ def weight_kernel_phase(timer, gen, ptxas):
     Returns each kernel's cases, the main path's first (w_gate at M = 2
     in int8)."""
     from quest_tpu_torch.models.quantize import quantize_weight
+    from quest_tpu_torch.ops.head_gemv import head_gemv
     from quest_tpu_torch.ops.qdot import (dequant, dequant_plain, qgemv,
                                           qgemv_plain)
     gemv, deq = [], []
@@ -2776,7 +2978,6 @@ def weight_kernel_phase(timer, gen, ptxas):
         xdt = torch.float32 if label == "lm_head" else torch.bfloat16
         w = (torch.randn((K, N), generator=gen, device="cuda")
              / math.sqrt(K)).to(torch.bfloat16)
-        w32 = w.float() if xdt == torch.float32 else None
         for bits in (8, 4):
             qw = quantize_weight(w, bits)
             for M in QUANT_ROWS:
@@ -2798,8 +2999,8 @@ def weight_kernel_phase(timer, gen, ptxas):
                                                        bits, xdt)),
                     library_ms=timer(lambda: xb @ w), bound_ms=bound,
                     bound_by=by)
-                if w32 is not None:
-                    case["f32_matmul_ms"] = timer(lambda: x @ w32)
+                if xdt == torch.float32:
+                    case["bf16_head_ms"] = timer(lambda: head_gemv(x, w))
                 gemv.append(case)
                 case["registers"] = registers_of(
                     ptxas, weight_instantiation("qgemv", bits, M, xdt))
@@ -2807,8 +3008,8 @@ def weight_kernel_phase(timer, gen, ptxas):
                     f"{case['ms'] * 1e3:.1f} us (bound {bound * 1e3:.1f} us "
                     f"{by}, plain {case['plain_ms'] * 1e3:.1f} us, bf16 "
                     f"matmul {case['library_ms'] * 1e3:.1f} us"
-                    + (f", f32 matmul {case['f32_matmul_ms'] * 1e3:.1f} us"
-                       if w32 is not None else "")
+                    + (f", bf16 head_gemv {case['bf16_head_ms'] * 1e3:.1f} us"
+                       if xdt == torch.float32 else "")
                     + f"); {case['registers']}")
                 assert err <= tol, f"qgemv disagrees ({case['case']}): {err}"
             got = dequant(qw.q, qw.s, None, bits, xdt)
@@ -2845,7 +3046,7 @@ def weight_kernel_phase(timer, gen, ptxas):
                 f"{case['plain_ms'] * 1e3:.1f} us){pair}; "
                 f"{case['registers']}")
             del qw, got, want
-        del w, w32
+        del w
         torch.cuda.empty_cache()
     gemv.sort(key=lambda c: not c["case"].startswith(
         "w_gate/w_up 4096x14336 int8 M=2 "))
@@ -3000,7 +3201,7 @@ def quantized_serving_phase(params, kernels, smi):
         want.update(prefill=L, dense_decode=skip * (N - 1),
                     **dict.fromkeys(SPARSE_LAYER_KERNELS, (L - skip) * (N - 1)),
                     **quant_launches(cfg, N - 1, 1),
-                    **layer_launches(L, N, N - 1))
+                    **layer_launches(L, N, N - 1, heads=0))
         log(f"quantized[{name}, generate_ondevice]: prompts "
             f"{[len(p) for p in prompts]}, {N} tokens each in "
             f"{t_gen[name]:.2f} s; launches {got}")
@@ -3374,7 +3575,10 @@ def tools_phase(params, kernels, smi):
                                               ["--kv-heads", "8"]),
                          ("32/8 heads, B=2, the layer's append and rope",
                           ["--kv-heads", "8", "--batch", "2", "--stages",
-                           "append,rope,rope_prefill"])):
+                           "append,rope,rope_prefill"]),
+                         ("B=2, the norm and the head",
+                          ["--kv-heads", "8", "--batch", "2", "--stages",
+                           "rms_norm,rms_norm_prefill,head_gemv"])):
         t = time.time()
         detail = {}
         args = bench_kernels.parse_args(extra)
@@ -3604,7 +3808,9 @@ def world1_phase(params, kernels):
                     dense_decode=quest.skip_layers * (N - 1),
                     **dict.fromkeys(SPARSE_LAYER_KERNELS, (
                         cfg.num_layers - quest.skip_layers) * (N - 1)),
-                    **layer_launches(cfg.num_layers, N, N - 1))
+                    # The prefill's head takes every row (the widened
+                    # chunks), each decode step's head_gemv.
+                    **layer_launches(cfg.num_layers, N, N - 1, heads=N - 1))
         assert cs == want, f"15a: launches {cs} != the path's {want}"
         # Decode ms a step, in turns (unsharded, sharded, sharded,
         # unsharded), 16 steps from the current state each.
@@ -4027,6 +4233,13 @@ KERNEL_META = {
                       "quest_tpu/kv/paged_kv.py:354", "unfused"),
     "rope": ("quest_tpu_torch/csrc/rope.cu", "quest_tpu/ops/rope.py:85",
              "unfused"),
+    # No Pallas counterpart: they replace XLA's fusions of the JAX
+    # rms_norm (with the residual add before it) and of the lm_head's f32
+    # dot over the bf16 head.
+    "rms_norm": ("quest_tpu_torch/csrc/rms_norm.cu",
+                 "quest_tpu/ops/rms_norm.py:16", "unfused"),
+    "head_gemv": ("quest_tpu_torch/csrc/head_gemv.cu",
+                  "quest_tpu/models/llama.py:329", "unfused"),
 }
 # A second TPU kernel that the same CUDA kernel replaces.
 ALSO_REPLACES = {"copy_probe": "exp/dma_probe.py:111"}
@@ -4040,8 +4253,10 @@ def kernel_wrappers():
     from quest_tpu_torch.ops.estimate import page_scores_physical
     from quest_tpu_torch.ops.fused_decode import (exact_topk_select,
                                                   fused_sparse_decode)
+    from quest_tpu_torch.ops.head_gemv import head_gemv
     from quest_tpu_torch.ops.prefill import prefill_attention
     from quest_tpu_torch.ops.qdot import dequant, qgemv
+    from quest_tpu_torch.ops.rms_norm import rms_norm
     from quest_tpu_torch.ops.rope import rotate_qk
     from quest_tpu_torch.ops.select_pieces import select_pieces
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
@@ -4052,7 +4267,8 @@ def kernel_wrappers():
             "fused_decode": fused_sparse_decode,
             "copy_probe": copy_probe, "select_pieces": select_pieces,
             "qgemv": qgemv, "dequant": dequant,
-            "append_decode": append_decode_at, "rope": rotate_qk}
+            "append_decode": append_decode_at, "rope": rotate_qk,
+            "rms_norm": rms_norm, "head_gemv": head_gemv}
 
 
 def main():
@@ -4076,7 +4292,8 @@ def main():
                "dense_decode": dense_cases(timer, gen),
                "prefill": prefill_cases(timer, gen),
                **fused_slice_cases(timer, gen),
-               **layer_op_cases(timer, gen)}
+               **layer_op_cases(timer, gen),
+               **norm_head_cases(timer, gen)}
     for kname, cases in selection.items():      # the main path's first
         results[kname] = cases + results[kname]
     for kname, cases in fp8_cases(timer, gen).items():

@@ -88,15 +88,18 @@ def launch_counters() -> tuple:
                                               page_scores_physical)
     from quest_tpu_torch.ops.fused_decode import (exact_topk_select,
                                                   fused_sparse_decode)
+    from quest_tpu_torch.ops.head_gemv import head_gemv
     from quest_tpu_torch.ops.prefill import prefill_attention
     from quest_tpu_torch.ops.qdot import dequant, qgemv
+    from quest_tpu_torch.ops.rms_norm import rms_norm
     from quest_tpu_torch.ops.rope import rotate_qk
     from quest_tpu_torch.ops.select_pieces import select_pieces
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return (sparse_decode_attention, dense_decode_attention,
             fused_sparse_decode, prefill_attention, page_scores_kernel,
             page_scores_physical, exact_topk_select, qgemv, dequant,
-            copy_probe, select_pieces, append_decode_at, rotate_qk)
+            copy_probe, select_pieces, append_decode_at, rotate_qk,
+            rms_norm, head_gemv)
 
 
 class CudaGraph:

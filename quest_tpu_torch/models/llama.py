@@ -3,9 +3,10 @@
 
 ``QuestModel`` is an ``nn.Module`` holding stacked ``[L, in, out]``
 weights as buffers, plain or int8/int4 quantized (every linear is a
-``models.quantize.qdot``). Each layer runs RMSNorm, the q/k/v projections,
-rope, then either the prefill path (append the chunk, causal prefill
-attention) or the decode path (append one token; the first
+``models.quantize.qdot``). Each layer runs RMSNorm (the residual add
+before it folded in: one launch of ``ops/rms_norm.py`` on the card), the
+q/k/v projections, rope, then either the prefill path (append the chunk,
+causal prefill attention) or the decode path (append one token; the first
 ``skip_layers`` layers attend densely, the others run estimate ->
 top-k -> sparse attention, or the fused kernel where :func:`fused_gate`
 allows it), then the o-projection and the SwiGLU MLP. The cache is
@@ -136,10 +137,11 @@ class QuestModel(nn.Module):
     linear may be a ``models.quantize.QuantizedLinear`` (int8 or int4):
     its ``q``, ``s`` and ``inv_s`` become buffers ``<name>_q``,
     ``<name>_s`` and ``<name>_inv_s`` and every product with it goes
-    through ``models.quantize.qdot``. The f32 ``lm_head`` product of the
-    JAX model is kept by casting a plain head to f32 once here (the bf16
-    copy is not kept); a quantized head stays packed and ``qdot`` makes
-    its product in f32.
+    through ``models.quantize.qdot``. The ``lm_head`` is kept as given
+    (bf16 in a bf16 model, as JAX keeps it) and its product with the f32
+    activation is f32, as JAX's dot widens the head: ``qdot`` routes it to
+    ``ops/head_gemv.py:head_gemv`` on the card; a quantized head stays
+    packed and ``qdot`` makes its product in f32.
 
     ``linear_hook``, None unless set, is called as ``linear_hook(name,
     layer, x, w)`` in place of ``qdot(x, w)`` for every linear (``layer``
@@ -148,8 +150,8 @@ class QuestModel(nn.Module):
 
     On the card, building the model switches TF32 off for CUDA matrix
     products (``torch.backends.cuda.matmul.allow_tf32 = False``, for the
-    whole process): the page estimate and the f32 ``lm_head`` are full
-    f32 products, as in the JAX model.
+    whole process): the page estimate and the ``lm_head``'s product over
+    more than 16 rows are full f32 products, as in the JAX model.
 
     ``tp_group``, the counterpart of the JAX model's ``tp_axis``: a
     ``torch.distributed`` process group over which this model is one
@@ -177,9 +179,7 @@ class QuestModel(nn.Module):
         for k in LAYER_KEYS:
             self._register_weight(k, params["layers"][k])
         self.register_buffer("final_norm", params["final_norm"])
-        head = params["lm_head"]
-        self._register_weight("lm_head", head if isinstance(
-            head, QuantizedLinear) else head.float())
+        self._register_weight("lm_head", params["lm_head"])
         inv_freq, self._pos_scale, self._attn_scale = compute_rope_params(
             cfg.rope, cfg.head_dim)
         self.register_buffer("inv_freq", inv_freq.to(self.embed.device))
@@ -230,6 +230,15 @@ class QuestModel(nn.Module):
             return self.linear_hook(name, layer, x, w)
         return qdot(x, w, dtype)
 
+    def _norm(self, x, pending, weight):
+        """``(x + pending, its RMSNorm)``: the residual add folded into the
+        norm (one launch on the card); ``(x, its norm)`` where nothing is
+        pending."""
+        eps = self.cfg.rms_norm_eps
+        if pending is None:
+            return x, rms_norm(x, weight, eps)
+        return rms_norm(pending, weight, eps, residual=x)
+
     # ------------------------------------------------------------------
     def _attn_decode(self, q, cache: PagedKVCache, layer: int,
                      use_sparse: bool, seq_lens):
@@ -266,17 +275,21 @@ class QuestModel(nn.Module):
                 q, cache.kv_pages, seq_lens, sm_scale=sm, layer=layer,
                 block_tab=cache.block_tab, block_pages=cache.block_pages)
 
-    def _layer(self, x, l: int, cache: PagedKVCache, use_sparse: bool,
-               rope, is_prefill: bool, new_lens, active):
-        """One transformer layer; x: [B, T, hid]; rope: the (cos, sin)
-        pair of this pass's positions; active: a decode step's rows with
-        a new token (``new_lens > 0``, made once a step)."""
+    def _layer(self, x, pending, l: int, cache: PagedKVCache,
+               use_sparse: bool, rope, is_prefill: bool, new_lens, active):
+        """One transformer layer; x: [B, T, hid], the residual stream
+        without ``pending``, the previous layer's MLP output not yet added
+        (None for the first layer), which the layer's first norm adds
+        (:meth:`_norm`); rope: the (cos, sin) pair of this pass's
+        positions; active: a decode step's rows with a new token
+        (``new_lens > 0``, made once a step). Returns the stream and this
+        layer's MLP output, pending."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         sm = 1.0 / math.sqrt(D)
         with trace_range("qkv_proj"):
-            h = rms_norm(x, self.ln_attn[l], cfg.rms_norm_eps)
+            x, h = self._norm(x, pending, self.ln_attn[l])
             q = self._linear(h, "wq", l).reshape(B, T, H, D)
             k = self._linear(h, "wk", l).reshape(B, T, Hkv, D)
             v = self._linear(h, "wv", l).reshape(B, T, Hkv, D)
@@ -301,12 +314,12 @@ class QuestModel(nn.Module):
 
         with trace_range("o_proj"):
             attn = attn.to(x.dtype).reshape(B, T, H * D)
-            x = x + self._maybe_all_reduce(self._linear(attn, "wo", l))
+            o = self._maybe_all_reduce(self._linear(attn, "wo", l))
         with trace_range("mlp"):
-            h2 = rms_norm(x, self.ln_mlp[l], cfg.rms_norm_eps)
+            x, h2 = self._norm(x, o, self.ln_mlp[l])
             gate = torch.nn.functional.silu(self._linear(h2, "w_gate", l))
             mlp = self._linear(gate * self._linear(h2, "w_up", l), "w_down", l)
-        return x + self._maybe_all_reduce(mlp)
+        return x, self._maybe_all_reduce(mlp)
 
     @torch.no_grad()
     def _forward(self, cache: PagedKVCache, tokens: torch.Tensor,
@@ -324,10 +337,12 @@ class QuestModel(nn.Module):
         rope = rope_cos_sin(positions, self.inv_freq, self._pos_scale,
                             self._attn_scale)
         active = None if is_prefill else new_lens > 0
+        pending = None
         for l in range(cache.kv_pages.shape[0]):
-            x = self._layer(x, l, cache, l >= quest.skip_layers, rope,
-                            is_prefill, new_lens, active)
-        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+            x, pending = self._layer(x, pending, l, cache,
+                                     l >= quest.skip_layers, rope,
+                                     is_prefill, new_lens, active)
+        _, x = self._norm(x, pending, self.final_norm)
         if last_only:
             last = (new_lens.long() - 1).clamp(min=0)
             x = x[torch.arange(B, device=dev), last][:, None]

@@ -15,8 +15,12 @@ quantized weight. On CPU tensors it runs JAX's expression
 16 rows (every decode step) launch the ``qgemv`` kernel, which reads the
 packed weights once; more rows (prefill) dequantize the layer into a
 reusable buffer with the ``dequant`` kernel and multiply with
-``torch.matmul``, as the JAX package leaves that product to XLA. There
-is no fallback: a kernel that fails to build or launch raises.
+``torch.matmul``, as the JAX package leaves that product to XLA. A
+plain bf16 lm_head (kept as given, as JAX keeps it) with the model's f32
+activation routes the same way: up to 16 rows launch
+``ops/head_gemv.py:head_gemv``, more widen the head in column chunks
+(:func:`widened_product`). There is no fallback: a kernel that fails to
+build or launch raises.
 
 JAX's ``slice_layer``, its static ``layer`` index and the
 ``optimization_barrier`` in its ``qdot`` only steer XLA's scheduler
@@ -31,11 +35,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from quest_tpu_torch.ops.head_gemv import head_gemv
 from quest_tpu_torch.ops.qdot import (MAX_ROWS, dequant, dequant_plain,
                                       qgemv, qgemv_plain)
 from quest_tpu_torch.ops.utils import hold
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+HEAD_CHUNK_COLS = 8192     # widened_product's columns a chunk (128 MB at 4096)
 
 
 @dataclasses.dataclass
@@ -96,9 +102,9 @@ _buffers: Dict[tuple, torch.Tensor] = {}
 
 
 def _dequant_buffer(device, dtype, numel: int) -> torch.Tensor:
-    """The prefill route's weight buffer, one per (device, dtype), grown
-    to the largest layer seen; a graph being captured holds it
-    (``utils.hold``)."""
+    """The prefill route's weight buffer (and :func:`widened_product`'s
+    chunk), one per (device, dtype), grown to the largest seen; a graph
+    being captured holds it (``utils.hold``)."""
     buf = _buffers.get((device, dtype))
     if buf is None or buf.numel() < numel:
         _buffers.pop((device, dtype), None)
@@ -108,12 +114,42 @@ def _dequant_buffer(device, dtype, numel: int) -> torch.Tensor:
     return buf
 
 
+def widened_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` [..., K] times a bf16 ``w`` [K, N] in f32 on the card for
+    more than ``MAX_ROWS`` rows: ``w`` widened ``HEAD_CHUNK_COLS`` columns
+    at a time into the reused f32 buffer, each chunk's product by
+    ``torch.matmul`` (TF32 off, as the model sets it). No whole f32 copy
+    of ``w`` is made."""
+    K, N = w.shape
+    x2 = x.reshape(-1, K)
+    out = torch.empty((x2.shape[0], N), dtype=torch.float32, device=x.device)
+    cols = min(N, HEAD_CHUNK_COLS)
+    buf = _dequant_buffer(x.device, torch.float32, K * cols)
+    for c0 in range(0, N, cols):
+        n = min(cols, N - c0)
+        wf = buf[:K * n].view(K, n)
+        wf.copy_(w[:, c0:c0 + n])
+        out[:, c0:c0 + n] = x2 @ wf
+    return out.reshape(*x.shape[:-1], N)
+
+
 def qdot(x: torch.Tensor, w, dtype: Optional[torch.dtype] = None
          ) -> torch.Tensor:
     """``x @ w`` where ``w`` is a plain tensor or one layer of a
-    :class:`QuantizedLinear`; the product is ``dtype`` (default x's)."""
+    :class:`QuantizedLinear`; the product is ``dtype`` (default x's). A
+    plain bf16 ``w`` with f32 ``x`` (the model's lm_head) gives the f32
+    product, as JAX's dot widens the head: up to ``MAX_ROWS`` rows (and on
+    the CPU) by ``ops/head_gemv.py:head_gemv``, more by
+    :func:`widened_product`."""
     if not isinstance(w, QuantizedLinear):
-        return x @ w
+        if x.dtype == w.dtype:
+            return x @ w
+        if x.dtype != torch.float32 or w.dtype != torch.bfloat16:
+            raise NotImplementedError(f"a plain product of {x.dtype} x and "
+                                      f"{w.dtype} w")
+        if not x.is_cuda or x.numel() // x.shape[-1] <= MAX_ROWS:
+            return head_gemv(x, w)
+        return widened_product(x, w)
     dtype = dtype or x.dtype
     if not x.is_cuda:
         return qgemv_plain(x, w.q, w.s, w.inv_s, w.bits, dtype)

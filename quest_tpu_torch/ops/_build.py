@@ -51,6 +51,8 @@ SIGNATURES = {
     "qgemv": ("qgemv_launch", [_P] * 7 + [_I] * 9 + [_P, _P]),
     "append": ("append_decode_launch", [_P] * 8 + [_I] * 14 + [_P]),
     "rope": ("rope_launch", [_P] * 6 + [_I] * 4 + [_P]),
+    "rms_norm": ("rms_norm_launch", [_P] * 6 + [_I] * 2 + [_F, _I, _P]),
+    "head_gemv": ("head_gemv_launch", [_P] * 5 + [_I] * 5 + [_P]),
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -92,7 +92,7 @@ def graph_capture(mesh) -> bool:
 
 def _shards(cfg: ModelConfig, quest: QuestConfig, mesh, steps):
     """``params -> (Shard, its compiled steps)``: built at the first call
-    with a params tree and kept (the model casts a plain lm_head to f32
+    with a params tree and kept (its model and captured steps are made
     once); ``steps(shard)`` gives the dict of step bodies to compile."""
     built: Dict[int, tuple] = {}
 

@@ -20,13 +20,20 @@ at a fixed position: ``csrc/append.cu`` on the card), ``prefill`` (a
 -> top-k -> sparse). The JSON line holds each stage's microseconds under
 the JAX script's names. The port's own stages, which the JAX script does
 not have, run when named: ``rope`` (``rotate_qk`` of a decode step's bf16
-q and k, one token a row: ``csrc/rope.cu`` on the card) and
-``rope_prefill`` (the same over a chunk of up to 8192 tokens).
+q and k, one token a row: ``csrc/rope.cu`` on the card),
+``rope_prefill`` (the same over a chunk of up to 8192 tokens),
+``rms_norm`` (a decode step's norm with its residual add, bf16 rows of
+the model width heads x head_dim: ``csrc/rms_norm.cu`` on the card),
+``rms_norm_prefill`` (the same over a chunk of up to 8192 tokens) and
+``head_gemv`` (the decode step's f32 product with a bf16 head of
+``--vocab`` columns: ``csrc/head_gemv.cu`` on the card).
 
     python -m quest_tpu_torch.scripts.bench_kernels [--ctx 32768]
         [--budget 2048] [--heads 32] [--kv-heads 32] [--stages all|...]
     python -m quest_tpu_torch.scripts.bench_kernels --stages \\
         append,rope,rope_prefill --kv-heads 8      # the layer's plain-op region
+    python -m quest_tpu_torch.scripts.bench_kernels --stages \\
+        rms_norm,rms_norm_prefill,head_gemv --batch 2    # norm and head
     python -m quest_tpu_torch.scripts.bench_kernels --device cpu \\
         --ctx 2048 --budget 256 --heads 4 --kv-heads 2          # smoke
 """
@@ -51,7 +58,10 @@ RESULT_KEYS = {"estimate": "estimate", "topk": "topk",
                "append": "append_decode", "prefill": "prefill",
                "pipeline": "sparse_pipeline"}
 # The port's own stages (not in "all": the JAX script has none), by key.
-PORT_STAGES = {"rope": "rope_decode", "rope_prefill": "rope_prefill"}
+PORT_STAGES = {"rope": "rope_decode", "rope_prefill": "rope_prefill",
+               "rms_norm": "rms_norm_decode",
+               "rms_norm_prefill": "rms_norm_prefill",
+               "head_gemv": "head_gemv"}
 ROPE_CHUNK = 8192                # rope_prefill's tokens (at most ctx)
 
 
@@ -68,6 +78,8 @@ def parse_args(argv=None):
     ap.add_argument("--kv-heads", type=int, default=32)
     ap.add_argument("--head-dim", type=int, default=128)
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--vocab", type=int, default=128256,
+                    help="the head_gemv stage's columns")
     ap.add_argument("--stages", type=str, default="all")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed launches a stage (the median is reported), "
@@ -90,6 +102,17 @@ def stage_bytes(B, Hkv, D, page, ctx, budget_pages, max_pages,
 def rope_bytes(B, T, Hq, Hkv, D, bpe=2) -> int:
     """q and k read and written once, cos and sin (f32) read once."""
     return 2 * B * T * (Hq + Hkv) * D * bpe + 2 * B * T * (D // 2) * 4
+
+
+def norm_bytes(rows, hid, bpe=2) -> int:
+    """x and the residual read, h and the norm written, the weight read
+    once."""
+    return 4 * rows * hid * bpe + hid * bpe
+
+
+def head_bytes(B, hid, vocab) -> int:
+    """The bf16 head read once, f32 x read and the f32 logits written."""
+    return hid * vocab * 2 + B * (hid + vocab) * 4
 
 
 def prefill_flops(B, Hq, D, ctx, chunk) -> float:
@@ -118,14 +141,18 @@ def stage_kernels():
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_physical
     from quest_tpu_torch.ops.fused_decode import exact_topk_select
+    from quest_tpu_torch.ops.head_gemv import head_gemv
     from quest_tpu_torch.ops.prefill import prefill_attention
+    from quest_tpu_torch.ops.rms_norm import rms_norm
     from quest_tpu_torch.ops.rope import rotate_qk
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return {"estimate": page_scores_physical, "topk": exact_topk_select,
             "sparse": sparse_decode_attention,
             "dense": dense_decode_attention, "append": append_decode_at,
             "prefill": prefill_attention, "pipeline": sparse_decode_attention,
-            "rope": rotate_qk, "rope_prefill": rotate_qk}
+            "rope": rotate_qk, "rope_prefill": rotate_qk,
+            "rms_norm": rms_norm, "rms_norm_prefill": rms_norm,
+            "head_gemv": head_gemv}
 
 
 def run_bench_kernels(args, detail=None) -> dict:
@@ -137,7 +164,9 @@ def run_bench_kernels(args, detail=None) -> dict:
                                              append_prefill_at, init_cache)
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_physical
+    from quest_tpu_torch.ops.head_gemv import head_gemv
     from quest_tpu_torch.ops.prefill import prefill_attention
+    from quest_tpu_torch.ops.rms_norm import rms_norm
     from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
                                           rotate_qk)
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
@@ -206,6 +235,22 @@ def run_bench_kernels(args, detail=None) -> dict:
     nbytes.update(rope=rope_bytes(B, 1, Hq, Hkv, D),
                   rope_prefill=rope_bytes(B, RT, Hq, Hkv, D))
 
+    HID, V = Hq * D, args.vocab
+
+    def norm_args(T):
+        """bf16 x and residual [B, T, heads x head_dim], weight, eps."""
+        return (normal(B, T, HID).bfloat16(), 1 + normal(HID).bfloat16(),
+                1e-5, normal(B, T, HID).bfloat16())
+
+    norm_in = {n: norm_args(t) for n, t in (("rms_norm", 1),
+                                            ("rms_norm_prefill", RT))
+               if n in want}
+    head_in = ((normal(B, HID), (normal(HID, V) / math.sqrt(HID)).bfloat16())
+               if "head_gemv" in want else None)
+    nbytes.update(rms_norm=norm_bytes(B, HID),
+                  rms_norm_prefill=norm_bytes(B * RT, HID),
+                  head_gemv=head_bytes(B, HID, V))
+
     fns = {
         "estimate": estimate,
         "topk": lambda: select_pages(scores0, seq, page, S),
@@ -220,6 +265,9 @@ def run_bench_kernels(args, detail=None) -> dict:
         "pipeline": pipeline,
         "rope": lambda: rotate_qk(*rope_in["rope"]),
         "rope_prefill": lambda: rotate_qk(*rope_in["rope_prefill"]),
+        "rms_norm": lambda: rms_norm(*norm_in["rms_norm"]),
+        "rms_norm_prefill": lambda: rms_norm(*norm_in["rms_norm_prefill"]),
+        "head_gemv": lambda: head_gemv(*head_in),
     }
     if dev.type == "cuda":
         from quest_tpu_torch.utils.benchmarking import Timer
