@@ -40,8 +40,11 @@ Phases, each fatal on failure:
      at the main path's B=2 shape, over every (pool, metadata) dtype pair
      with scratch, shared-block, first-token and clamped rows, and an fp8
      pool on all 65536 bf16 codes; rope of q and k (``csrc/rope.cu``) at
-     decode and prefill shapes in bf16 and f32; both timed under the
-     memset and the read flush beside their plain versions;
+     decode and prefill shapes in bf16 and f32; the decode step's rope
+     and append in one launch (``csrc/append.cu``'s rotate flag) on the
+     same append cases with G = 4, 1 and 8, q_rot, pool and metadata bit
+     for bit; each timed under the memset and the read flush beside its
+     plain version, the merged op also beside rope then append;
      then the two kernels in place of the JAX model's norm and head
      fusions: RMSNorm with its residual add (``csrc/rms_norm.cu``) at
      decode and prefill shapes, bf16 and f32, h bit for bit and the norm
@@ -72,8 +75,9 @@ Phases, each fatal on failure:
      each run checked against its path (the decode steps captured as CUDA
      graphs and replayed, as every later phase runs them); prefill timed
      in turns; the decode steps timed and profiled in phase 16, the
-     device ops of an eager step checked against the path's (the sparse
-     and dense kernels merge their splits in the same launch);
+     device ops launched by an eager step checked against the path's
+     (the sparse and dense kernels merge their splits in the same
+     launch);
   7. the continuous-batching scheduler on the 4-layer model in f32 on
      the card against the same scheduler on the CPU's plain path,
      unfused and fused, over six requests on three slots (chunked
@@ -116,8 +120,9 @@ Phases, each fatal on failure:
      qgemv and no dequant a decode step; 224 dequant and one qgemv a
      prefill chunk), finite logits, weight and pool bytes, prefill
      tokens/s and decode ms a step in turns with the bf16 engine, a
-     profile, and the last prefill logits' correlation with the bf16
-     engine's;
+     profile, the device ops launched by phase 16's eager step held to
+     QUANT_OPS_PER_STEP, and the last prefill logits' correlation with
+     the bf16 engine's;
  12. the checkpoint loader: phase 6's weights as an HF-named state dict
      and Llama-3.1-8B's published config fields, loaded back on the card
      bit for bit;
@@ -132,7 +137,8 @@ Phases, each fatal on failure:
      control, fused, fp8 KV and metadata at page 32, bursts of 8) and at
      131040 tokens against the control (16 tokens; launches equal to the
      path's, seconds logged), bench_kernels at its defaults, at
-     32/8 heads, (append, rope, rope_prefill) at 32/8 heads and B=2 and
+     32/8 heads, (append, rope, rope_prefill, rope_append) at 32/8 heads
+     and B=2 and
      (rms_norm, rms_norm_prefill, head_gemv) at B=2
      (no reading above 3.35 TB/s or 989 TFLOP/s; each stage's kernel
      launched once a call), bench_serving (tokens generated and
@@ -1342,21 +1348,32 @@ def layer_op_cases(timer, gen):
     block, an inactive row on scratch block 0, non-finite and large
     inputs; and the fp8 pool on all 65536 bf16 codes with each metadata
     dtype. Rope (``csrc/rope.cu``, q and k in one launch, against
-    ``rotate_plain`` of each): decode at B=2 (32 and 8 heads, bf16 and
-    f32) and prefill chunks of 8192 tokens (B=1) and of the serving
-    phase's 5120 (B=2), timed the same way. No single PyTorch call
-    computes either function, so ``library_ms`` is null."""
+    ``rotate_plain`` of each): prefill chunks of the serving phase's 5120
+    tokens (B=2) and of 8192 (B=1), and decode at B=2 (32 and 8 heads,
+    bf16 and f32), timed the same way. The decode step's rope and
+    append in one launch (``rope_append``: ``csrc/append.cu`` with its
+    rotate flag, against ``rope_append_decode_at_plain``), q_rot, pool and
+    metadata bit for bit: at the main path's shape, timed in turns with
+    its plain version and with the two launches it replaces (``pair_ms``:
+    ``rotate_qk`` then ``append_decode_at``) under both flushes; then on
+    every append case above, on a cache of its own, with groups G = 4, 1
+    and 8 in turn. No single PyTorch call computes any of the three
+    functions, so ``library_ms`` is null."""
+    from quest_tpu_torch.config import llama31_8b
     from quest_tpu_torch.kv.paged_kv import (append_decode_at,
-                                             append_decode_at_plain)
+                                             append_decode_at_plain,
+                                             rope_append_decode_at,
+                                             rope_append_decode_at_plain)
     from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
                                           rotate_plain, rotate_qk)
     from quest_tpu_torch.ops.utils import fp8_cast_codes
     from quest_tpu_torch.utils.benchmarking import Timer
-    out = {"append_decode": [], "rope": []}
+    out = {"append_decode": [], "rope": [], "rope_append": []}
     read_timer = Timer(flush="read")
     dev = torch.device("cuda")
     log("layer ops: no single PyTorch call computes the append (scatter, "
-        "cast and metadata fold) or rope of q and k: library_ms is null")
+        "cast and metadata fold), the rope of q and k or both: library_ms "
+        "is null")
     log("layer ops: the card's torch casts to e4m3 (code of 1000, of 470): "
         f"from bf16 {fp8_cast_codes(dev, torch.bfloat16)}, from f32 "
         f"{fp8_cast_codes(dev, torch.float32)}")
@@ -1394,6 +1411,52 @@ def layer_op_cases(timer, gen):
                 f"equal{msg}")
         return row
 
+    inv, ps, att = compute_rope_params(llama31_8b().rope, 128)
+    inv = inv.to(dev)
+
+    def rope_append(label, cache, lens, q, k, v, active, time_it=False,
+                    record=True):
+        """The merged op on ``cache`` against its plain version on a
+        clone, bit for bit; with ``time_it`` timed in turns with the
+        plain version and with the rope and append it replaces."""
+        cache.seq_lens = lens
+        ref = clone_cache(cache)
+        lay = cache.kv_pages.shape[0] - 1
+        cos, sin = rope_cos_sin(lens[:, None], inv, ps, att)
+        got = rope_append_decode_at(cache, lay, q, k, v, cos, sin, active)
+        want = rope_append_decode_at_plain(ref, lay, q, k, v, cos, sin,
+                                           active)
+        torch.cuda.synchronize()
+        assert same_bits(got, want), f"rope_append's q differs ({label})"
+        for name in ("kv_pages", "k_max", "k_min"):
+            assert same_bits(getattr(cache, name), getattr(ref, name)), \
+                f"rope_append's {name} differs from the plain version " \
+                f"({label})"
+        nbytes = (append_bytes(cache, k, active)
+                  + 2 * q.numel() * q.element_size() + 2 * cos.numel() * 4)
+        row = dict(case=label, max_abs_err=0.0, max_rel_err=0.0,
+                   bitwise_equal=True, ms=None, plain_ms=None,
+                   library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        msg = ""
+        if time_it:
+            cs, sn = cos[:, 0], sin[:, 0]                 # [B, 1, 64]
+
+            def pair():
+                _, ko = rotate_qk(q, k, cs, sn)
+                append_decode_at(cache, lay, ko, v, active)
+            msg = timed(row, {
+                "ms": lambda: rope_append_decode_at(cache, lay, q, k, v, cos,
+                                                    sin, active),
+                "plain_ms": lambda: rope_append_decode_at_plain(
+                    cache, lay, q, k, v, cos, sin, active),
+                "pair_ms": pair}, nbytes)
+        if record:
+            out["rope_append"].append(row)
+            log(f"rope_append[{label}]: q_rot, pool and metadata bitwise "
+                f"equal{msg}")
+        return row
+
     # The main path's shape: phase 6's B=2 rows in its 16384-token pool.
     cfg, _, cache = make_pool(16384, 2, gen)
     H, D = cfg.num_kv_heads, cfg.head_dim
@@ -1403,38 +1466,66 @@ def layer_op_cases(timer, gen):
     act = torch.ones(2, dtype=torch.bool, device="cuda")
     append("main path: bf16, page 16, B=2 at 5000 and 2500 tokens", cache,
            lens, k, v, act, time_it=True)
+    q = torch.randn((2, cfg.num_heads, D), generator=gen,
+                    device="cuda").bfloat16()
+    rope_append("main path: bf16, page 16, B=2, 32/8 heads at 5000 and 2500 "
+                "tokens", cache, lens, q, k, v, act, time_it=True)
     del cache
     # Every dtype pair: one row a pair, over all its geometries and steps.
     geoms = ((16, 64, 4), (32, 64, 4), (16, 1, 4), (16, 64, 1))
+    # The merged op takes the same cases on a clone of each cache, with
+    # G = 4, 1, 8 query heads a KV head in turn.
     for pool in LAYER_DTYPES:
         for meta in LAYER_DTYPES:
-            n, first = 0, None
+            n, first, first_m, groups = 0, None, None, set()
             for page, bpp, B in geoms:
                 for inp in ("bf16", "f32"):
                     if inp == "f32" and (page, bpp, B) != geoms[0]:
                         continue
                     c, steps = append_case(pool, meta, page, bpp, B, H=H,
                                            D=D, seed=page + bpp, device=dev)
+                    cm = clone_cache(c)
                     for i, (lens, act) in enumerate(steps):
                         k, v = append_inputs(B, H, D, inp, seed=i,
                                              device=dev, large=True)
-                        row = append(f"{pool} pool, {meta} metadata, {inp} "
-                                     f"k/v, page {page}, {bpp}-page blocks, "
-                                     f"B={B}, step {i}", c, lens, k, v, act,
-                                     record=False)
-                        first, n = first or row, n + 1
+                        label = (f"{pool} pool, {meta} metadata, {inp} k/v, "
+                                 f"page {page}, {bpp}-page blocks, B={B}, "
+                                 f"step {i}")
+                        row = append(label, c, lens, k, v, act, record=False)
+                        G = (4, 1, 8)[n % 3]
+                        q = torch.randn((B, H * G, D), generator=gen,
+                                        device=dev).to(LAYER_DTYPES[inp])
+                        row_m = rope_append(f"{label}, G={G}", cm, lens, q,
+                                            k, v, act, record=False)
+                        first, first_m = first or row, first_m or row_m
+                        n += 1
+                        groups.add(G)
+                    del c, cm
+            cases = ("(pages 16 and 32, 64- and 1-page blocks, B=4 and 1, "
+                     "bf16 and f32 k/v; first tokens, a clamped block, a "
+                     "shared block, scratch)")
             first["case"] = (f"{pool} pool, {meta} metadata: {n} appends "
-                             f"(pages 16 and 32, 64- and 1-page blocks, B=4 "
-                             f"and 1, bf16 and f32 k/v; first tokens, a "
-                             f"clamped block, a shared block, scratch)")
+                             + cases)
+            first_m["case"] = (f"{pool} pool, {meta} metadata: {n} rope "
+                               f"appends, G in {sorted(groups)} " + cases)
             out["append_decode"].append(first)
+            out["rope_append"].append(first_m)
             log(f"append_decode[{first['case']}]: pool and metadata bitwise "
                 f"equal in every one")
+            log(f"rope_append[{first_m['case']}]: q_rot, pool and metadata "
+                f"bitwise equal in every one")
     for meta, inp in (("f32", "bf16"), ("bf16", "bf16"), ("fp8", "bf16"),
                       ("fp8", "f32")):
         c, k, v = fp8_code_case(meta, inp)
+        cm = clone_cache(c)
         append(f"fp8 pool on all 65536 bf16 codes, {meta} metadata, {inp} "
                f"k/v", c, c.seq_lens, k, v, None)
+        q = torch.randn((k.shape[0], 4 * k.shape[1], D), generator=gen,
+                        device=dev).to(LAYER_DTYPES[inp])
+        rope_append(f"fp8 pool, k on all 65536 bf16 codes before the rope, "
+                    f"{meta} metadata, {inp} q/k/v, G=4", cm, cm.seq_lens, q,
+                    k, v, None)
+        del c, cm
 
     def rope(label, B, T, Hq, Hkv, dtype, pos0, time_it=False):
         q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(dtype)
@@ -1464,15 +1555,17 @@ def layer_op_cases(timer, gen):
         out["rope"].append(row)
         log(f"rope[{label}]: q and k bitwise equal{msg}")
 
+    # The main path's first (the kernel list's row): since the decode rope
+    # moved into rope_append, rope runs at prefill chunks only.
     bf16 = torch.bfloat16
+    rope("serving prefill, bf16, B=2, T=5120, 32/8 heads", 2, 5120, 32, 8,
+         bf16, [0, 0], time_it=True)
+    rope("prefill chunk, bf16, B=1, T=8192, 32/8 heads", 1, 8192, 32, 8,
+         bf16, [0], time_it=True)
     rope("decode, bf16, B=2, 32/8 heads at 5000 and 2500", 2, 1, 32, 8, bf16,
          [5000, 2500], time_it=True)
     rope("decode, f32, B=2, 32/8 heads", 2, 1, 32, 8, torch.float32,
          [5000, 2500])
-    rope("prefill chunk, bf16, B=1, T=8192, 32/8 heads", 1, 8192, 32, 8,
-         bf16, [0], time_it=True)
-    rope("serving prefill, bf16, B=2, T=5120, 32/8 heads", 2, 5120, 32, 8,
-         bf16, [0, 0], time_it=True)
     rope("prefill, f32, B=2, T=2048 at 30000, 32/8 heads", 2, 2048, 32, 8,
          torch.float32, [30000, 7])
     rope("decode, bf16, B=4, 8/8 heads", 4, 1, 8, 8, bf16, [0, 1, 16, 131071])
@@ -2180,30 +2273,35 @@ SERVING_PATHS = ("unfused", "fused", "serving", "serving_fp8")
 # launch a layer (30 sparse + 2 dense layers unfused, 2 dense fused); a
 # sparse layer's selection is two launches unfused (the estimate's
 # physical route and the select), none fused (inside its one kernel).
-# The append and rope are one launch each a layer: a layer's
-# append_kv_decode range held 44 ops (46 over an fp8 pool: its two casts
-# of k and v; the `new_lens > 0` mask one of them) and its rope range 18
-# (profile_textgen before the kernels), now 1 + 1, and the mask is made
-# once a step: 3190 - 32 x (44 + 18 - 2) + 1 = 1271 unfused and serving,
-# 3130 - 1920 + 1 = 1211 fused, 3254 - 32 x (46 + 18 - 2) + 1 = 1271
-# serving fp8. The 2L + 1 = 65 norms are one launch each where each was 9
-# plain ops, and the 64 residual adds are folded into them; the head's
-# f32 GEMV over an f32 copy (one cuBLAS kernel) is one head_gemv launch:
-# 1271 - 65 x 8 - 64 = 687, 1211 - 584 = 627.
-DEVICE_OPS_PER_STEP = {"unfused": 687, "fused": 627, "serving": 687,
-                       "serving_fp8": 687}
+# The rope and the append are one launch together a layer (rope_append:
+# the rope's 18 plain ops a layer and the append's 44, 46 over an fp8
+# pool, before their kernels, then one launch each), and the
+# `new_lens > 0` mask is made once a step. The 2L + 1 = 65 norms are one
+# launch each, the 64 residual adds folded into them, and the head one
+# head_gemv launch. So 687 - 32 = 655 unfused and serving (bf16 and fp8
+# KV), 627 - 32 = 595 fused. The int8 and int4 engines' step
+# (QUANT_OPS_PER_STEP) runs one qgemv a linear, 7 a layer and the head's,
+# where the bf16 step runs 7 cuBLAS products and 3 split-K reductions a
+# layer and one head_gemv: 655 - 321 + 225 = 559 (591 - 32 before the
+# rope went into the append's launch). Each count is of ops launched
+# (profile_steps): the profiler can lose a launched op's device record.
+DEVICE_OPS_PER_STEP = {"unfused": 655, "fused": 595, "serving": 655,
+                       "serving_fp8": 655}
+QUANT_OPS_PER_STEP = 559
 # The kernels a sparse layer launches on the unfused decode step, one
 # each.
 SPARSE_LAYER_KERNELS = ("estimate", "topk_select", "sparse_decode")
 
 
 def layer_launches(L, forwards, decode_steps, heads=None):
-    """The launches of the kernels every layer of every path runs: rope
-    and the 2L + 1 norms once a forward (a prefill chunk or a decode
-    step), the append once a decode step; and ``head_gemv``, once a
-    forward of a plain bf16 head over at most 16 rows (``heads``, default
-    ``forwards``; 0 for a quantized head)."""
-    return {"rope": L * forwards, "append_decode": L * decode_steps,
+    """The launches of the kernels every layer of every path runs: the
+    2L + 1 norms once a forward (a prefill chunk or a decode step), rope
+    once a prefill chunk, the rope and append together (rope_append) once
+    a decode step; and ``head_gemv``, once a forward of a plain bf16 head
+    over at most 16 rows (``heads``, default ``forwards``; 0 for a
+    quantized head). The standalone append launches on no path."""
+    return {"rope": L * (forwards - decode_steps),
+            "rope_append": L * decode_steps,
             "rms_norm": (2 * L + 1) * forwards,
             "head_gemv": forwards if heads is None else heads}
 # Idle seconds between a profiled window's edges and the steps inside it.
@@ -2327,11 +2425,12 @@ def serving_phase(kernels, smi):
         serving[path] = dict(pool_bytes=pools[path],
                              prefill_tokens_per_s=tps,
                              generate_ondevice_s=totals[path], graphs=g)
-        # Over the two profiled steps the fp8 engine runs one op more than
-        # twice its step (4513.5 a step): half an op of slack.
-        ops = g["eager_device_ops_per_step"]
+        # The ops the two profiled eager steps launched (a launch counts
+        # though the profiler lost its device op's record), with half an
+        # op a step of slack for one op more or less over the two.
+        ops = g["eager_launched_ops_per_step"]
         assert abs(ops - DEVICE_OPS_PER_STEP[path]) <= 0.5, (
-            f"{path}: {ops} device ops a decode step, expected "
+            f"{path}: {ops} device ops launched a decode step, expected "
             f"{DEVICE_OPS_PER_STEP[path]} (device op after its launch by "
             f"{g['profile_eager']['launch_lag_ms']:.3f} ms at least)")
     serving["token_agreement"] = same
@@ -2365,7 +2464,8 @@ def profile_steps(run, label):
     read some milliseconds off the host's: on one card it read 173 ops
     fewer over two eager steps. So the window opens PROFILE_MARGIN_S
     before the first step and closes as long after the last, and the
-    trace's device-vs-host lag is printed (:func:`launch_lag_ms`)."""
+    trace's device-vs-host lag and its host launches without a device op
+    are printed (:func:`trace_launches`)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     trace = OUT_DIR / f"decode_trace_{label}.json"
@@ -2393,10 +2493,13 @@ def profile_steps(run, label):
         [(e.key, e.count, e.self_device_time_total) for e in events]))
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     n_launch = sum(e.count for e in events)
-    lag = launch_lag_ms(trace)
+    lag, launched, unseen, issued = trace_launches(trace)
     log(f"profile[{label}]: {steps} decode steps, wall {wall_ms:.1f} ms, device busy "
         f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
-        f"{n_launch / steps:.0f} device ops a step; device op after its "
+        f"{n_launch / steps:.1f} device ops a step in the profile, "
+        f"{issued / steps:.1f} launched ({launched} host launches in the "
+        f"trace, {len(unseen)} with no device op: "
+        f"{sorted(set(unseen))[:6]}); device op after its "
         f"launch by {lag:.3f} ms at least; top device time:")
     top = []
     for e in events[:12]:
@@ -2407,28 +2510,43 @@ def profile_steps(run, label):
     return dict(profile_wall_ms_per_step=wall_ms / steps,
                 profile_device_ms_per_step=device_ms / steps,
                 device_ops_per_step=n_launch / steps, profile_top=top,
-                launch_lag_ms=lag)
+                launched_ops_per_step=issued / steps, launch_lag_ms=lag,
+                host_launches=launched, launches_without_device_op=unseen)
 
 
-def launch_lag_ms(trace):
-    """The least time, on the profiler's clock, from a host launch
-    (``cuda_runtime`` or ``cuda_driver`` event) to the start of the device
-    op it launched, over the Chrome trace at ``trace``. A device op
-    cannot start before its launch, so a negative lag is the device
-    clock reading behind the host's by at least that much."""
+# Host calls that put one op (or, for a graph, its ops) on the device.
+LAUNCH_CALLS = ("LaunchKernel", "Memcpy", "Memset", "GraphLaunch")
+
+
+def trace_launches(trace):
+    """Over the Chrome trace at ``trace``: the least time, on the
+    profiler's clock, from a host launch (``cuda_runtime`` or
+    ``cuda_driver`` event) to the start of the device op it launched (a
+    device op cannot start before its launch, so a negative lag is the
+    device clock reading behind the host's by at least that much); the
+    number of host calls that launch device work (LAUNCH_CALLS); the
+    names of those whose device op is not in the trace; and the ops
+    launched, each counted once whether its host call, its device op or
+    both are in the trace. Over eager steps, where each call launches one
+    op, that last is the ops the steps put on the device: the profiler
+    can drop a device op's record (a step's first op, on the quantized
+    engines, in 1-3 of 1118) though its launch is in the trace."""
     events = json.loads(Path(trace).read_text())["traceEvents"]
-    host, device = {}, []
+    host, device = {}, {}
     for e in events:
         corr = e.get("args", {}).get("correlation")
         if corr is None or "ts" not in e:
             continue
         cat = e.get("cat", "")
         if cat in ("cuda_runtime", "cuda_driver"):
-            host[corr] = float(e["ts"])
+            if any(c in e.get("name", "") for c in LAUNCH_CALLS):
+                host[corr] = (float(e["ts"]), e["name"])
         elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
-            device.append((corr, float(e["ts"])))
-    lags = [ts - host[c] for c, ts in device if c in host]
-    return min(lags) / 1e3 if lags else float("nan")
+            device.setdefault(corr, float(e["ts"]))
+    lags = [ts - host[c][0] for c, ts in device.items() if c in host]
+    lag = min(lags) / 1e3 if lags else float("nan")
+    unseen = [name for c, (_, name) in host.items() if c not in device]
+    return lag, len(host), unseen, len(host.keys() | device.keys())
 
 
 # ---------------------------------------------------------------------------
@@ -3159,10 +3277,12 @@ def quantized_serving_phase(params, kernels, smi):
     and each decode step's 225 products are qgemv); then prefill and 16
     decode steps timed in turns (bf16, int8, int4, then in reverse), the
     quantized steps' launches checked (225 qgemv and no dequant a step),
-    and two steps of each quantized engine profiled. Prints weight and
-    pool bytes, prefill tokens/s, decode ms a step, device busy and ops a
-    step, and the correlation of the last prefill logits with the bf16
-    engine's. Returns the numbers and the int8 run's launches."""
+    and two steps of each quantized engine profiled (the device ops
+    launched by phase 16's eager step held to QUANT_OPS_PER_STEP).
+    Prints weight and pool bytes, prefill tokens/s, decode ms a step,
+    device busy and ops a step, and the correlation of the last prefill
+    logits with the bf16 engine's. Returns the numbers and the int8
+    run's launches."""
     from quest_tpu_torch.config import QuestConfig, llama31_8b
     from quest_tpu_torch.engine.engine import QuestEngine
     from quest_tpu_torch.models.quantize import quantize_params, weight_bytes
@@ -3238,6 +3358,11 @@ def quantized_serving_phase(params, kernels, smi):
     # Phase 16 on the quantized engines.
     graphs = graph_engine_phase({n: engines[n] for n in order[1:]}, prompts,
                                 kernels, smi)
+    for name in order[1:]:
+        ops = graphs[name]["eager_launched_ops_per_step"]
+        assert abs(ops - QUANT_OPS_PER_STEP) <= 0.5, (
+            f"{name}: {ops} device ops launched a decode step, expected "
+            f"{QUANT_OPS_PER_STEP}")
     out = {}
     for name in order:
         res = dict(weight_bytes=wbytes[name],
@@ -3575,7 +3700,7 @@ def tools_phase(params, kernels, smi):
                                               ["--kv-heads", "8"]),
                          ("32/8 heads, B=2, the layer's append and rope",
                           ["--kv-heads", "8", "--batch", "2", "--stages",
-                           "append,rope,rope_prefill"]),
+                           "append,rope,rope_prefill,rope_append"]),
                          ("B=2, the norm and the head",
                           ["--kv-heads", "8", "--batch", "2", "--stages",
                            "rms_norm,rms_norm_prefill,head_gemv"])):
@@ -4103,7 +4228,8 @@ def graph_engine_phase(engines, prompts, kernels, smi, N=32, steps=16):
     GRAPH_TOL); then ``steps`` token steps timed eager, graph, graph,
     eager (wall ms a step, and host ms to enqueue one step: the host's
     time before the closing synchronize), and two steps of each
-    profiled (device busy ms and device ops a step). Prints the
+    profiled (device busy ms, and device ops a step recorded and
+    launched). Prints the
     captures' seconds (capture and instantiate) and pool bytes.
     Returns the numbers by engine."""
     from quest_tpu_torch.engine.graphs import eager
@@ -4160,6 +4286,8 @@ def graph_engine_phase(engines, prompts, kernels, smi, N=32, steps=16):
                    eager_device_ms_per_step=prof_e[busy],
                    graph_device_ms_per_step=prof_g[busy],
                    eager_device_ops_per_step=prof_e["device_ops_per_step"],
+                   eager_launched_ops_per_step=prof_e[
+                       "launched_ops_per_step"],
                    graph_device_ops_per_step=prof_g["device_ops_per_step"],
                    profile_eager=prof_e, profile_graph=prof_g, **summ)
         log(f"graphs[{name}]: wall ms/step eager "
@@ -4170,7 +4298,8 @@ def graph_engine_phase(engines, prompts, kernels, smi, N=32, steps=16):
             f"{' / '.join(f'{x:.3f}' for x in enq['graph'])}; device busy "
             f"ms/step eager {res['eager_device_ms_per_step']:.2f}, graph "
             f"{res['graph_device_ms_per_step']:.2f}; device ops a step "
-            f"eager {res['eager_device_ops_per_step']:.1f}, graph "
+            f"eager {res['eager_device_ops_per_step']:.1f} (launched "
+            f"{res['eager_launched_ops_per_step']:.1f}), graph "
             f"{res['graph_device_ops_per_step']:.1f}; {summ['graphs']} "
             f"graphs captured in {summ['capture_s']:.2f} s, pool "
             f"{summ['pool_bytes'] / 2**20:.1f} MiB; card {smi}")
@@ -4228,11 +4357,16 @@ KERNEL_META = {
     "dequant": ("quest_tpu_torch/csrc/qgemv.cu",
                 "quest_tpu/models/quantize.py:84", "quantized"),
     # No Pallas counterpart: they replace XLA's fusions of the JAX
-    # append_decode_at and the jitted apply_rope.
+    # append_decode_at and the jitted apply_rope. The decode step runs
+    # both in one launch (rope_append: the append's kernel with its rotate
+    # flag); the standalone append runs in bench_kernels' append stage
+    # (phase 14), rope at every prefill chunk.
     "append_decode": ("quest_tpu_torch/csrc/append.cu",
-                      "quest_tpu/kv/paged_kv.py:354", "unfused"),
+                      "quest_tpu/kv/paged_kv.py:354", "tools"),
     "rope": ("quest_tpu_torch/csrc/rope.cu", "quest_tpu/ops/rope.py:85",
              "unfused"),
+    "rope_append": ("quest_tpu_torch/csrc/append.cu",
+                    "quest_tpu/kv/paged_kv.py:354", "unfused"),
     # No Pallas counterpart: they replace XLA's fusions of the JAX
     # rms_norm (with the residual add before it) and of the lm_head's f32
     # dot over the bf16 head.
@@ -4242,12 +4376,21 @@ KERNEL_META = {
                   "quest_tpu/models/llama.py:329", "unfused"),
 }
 # A second TPU kernel that the same CUDA kernel replaces.
-ALSO_REPLACES = {"copy_probe": "exp/dma_probe.py:111"}
+ALSO_REPLACES = {"copy_probe": "exp/dma_probe.py:111",
+                 "rope_append": "quest_tpu/ops/rope.py:85"}
+
+
+def tool_launches(tools, kname):
+    """A kernel's launches in phase 14's bench_kernels runs (``tools``:
+    tools_phase's results), by the stage's key."""
+    return sum(r["detail"][kname]["launches"] for n, r in tools.items()
+               if n.startswith("bench_kernels_") and kname in r["detail"])
 
 
 def kernel_wrappers():
     """Each kernel's wrapper, which counts its launches."""
-    from quest_tpu_torch.kv.paged_kv import append_decode_at
+    from quest_tpu_torch.kv.paged_kv import (append_decode_at,
+                                             rope_append_decode_at)
     from quest_tpu_torch.ops.copy_probe import copy_probe
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_physical
@@ -4268,7 +4411,8 @@ def kernel_wrappers():
             "copy_probe": copy_probe, "select_pieces": select_pieces,
             "qgemv": qgemv, "dequant": dequant,
             "append_decode": append_decode_at, "rope": rotate_qk,
-            "rms_norm": rms_norm, "head_gemv": head_gemv}
+            "rope_append": rope_append_decode_at, "rms_norm": rms_norm,
+            "head_gemv": head_gemv}
 
 
 def main():
@@ -4366,6 +4510,8 @@ def main():
         head = cases[0]
         launches = (probe_launches[kname] if path == "probe"
                     else quant_counts[kname] if path == "quantized"
+                    else tool_launches(serving["tools"], kname)
+                    if path == "tools"
                     else counts[(path or "fused", "generate")][kname])
         by_path = {p: counts[(p, "generate")][kname] for p in SERVING_PATHS}
         kernels.append(dict(
@@ -4375,7 +4521,10 @@ def main():
             launches=launches, launches_by_serving_path=by_path,
             launches_scheduler=serving["scheduler"]["launches"][kname],
             main_path=("quantized int8 engine (generate_ondevice)"
-                       if path == "quantized" else path
+                       if path == "quantized" else
+                       "bench_kernels' append stage (phase 14); the decode "
+                       "step runs its device code as rope_append"
+                       if path == "tools" else path
                        or "none: its device code runs inside fused_decode"),
             max_abs_err=head["max_abs_err"],
             max_rel_err=max(c["max_rel_err"] for c in cases),

@@ -25,13 +25,33 @@
 // rounds past 448, comes from the wrapper (ops/utils.py:fp8_cast_codes
 // asks the card's torch once).
 //
+// With the rotate flag (rope_append_launch, the decode step's path) the
+// same launch also does the decode rope, which the port ran before as a
+// second launch (csrc/rope.cu): it writes q_out = rotate_plain(q) and
+// appends rotate_plain(k) in place of k, bit for bit the plain chain
+// append_decode_at_plain(rotate_plain(k), v): the rotation of rope.cu
+// (each product and sum rounded to f32 on its own, __fmul_rn / __fsub_rn /
+// __fadd_rn), rounded to the input dtype FIRST and only then cast into the
+// pool, as the plain chain rounds twice (an f32 rotation cast straight to
+// e4m3 would give other codes). It replaces XLA's fusions of
+// quest_tpu/kv/paged_kv.py:354 and of the jitted quest_tpu/ops/rope.py:85
+// apply_rope at decode.
+//
 // Bound on the H100: bytes, and far below a launch: 2 x B x Hkv x 128
 // elements in, as many into the pool, 2 x B x Hkv x 128 metadata elements
-// read and written (16 KB at B=1, 8 KV heads, bf16). So the design is the
-// least latency: one warp a (KV head, row), 4 dims a lane, the row's
-// index math in registers, no shared memory and no second pass. Rows never
-// share a written slot outside scratch (a shared prefix block is only
-// read by the rows that share it), so CTAs need no ordering.
+// read and written (16 KB at B=1, 8 KV heads, bf16); with the rope also
+// q read and written and a row's cos / sin. So the design is the least
+// latency, in dependent memory round trips: a CTA a (KV head, row), no
+// shared memory, no barrier and no second pass. Warp 0 appends the head's
+// k and v, each lane owning the two rotation pairs (2l + j, 64 + 2l + j),
+// so k rotates in registers. Its loads of seq_lens, the mask, k, v, cos
+// and sin go out together; the chain seq_lens -> table entry -> old
+// metadata is all it waits on in turn, and every store comes after it.
+// Under the flag, warps 1.. (at most 31) rotate the group's G query heads,
+// one head row a warp, at the cost of one round trip that overlaps the
+// append's chain. Rows never share a written slot outside scratch (a
+// shared prefix block is only read by the rows that share it), so CTAs
+// need no ordering.
 #include "common.cuh"
 
 namespace {
@@ -124,111 +144,188 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return a != a ? a : b != b ? b : fminf(a, b);
 }
 
-template <int IN, int POOL, int META>
-__global__ void __launch_bounds__(32)
-append_decode_kernel(typename Store<POOL>::T* __restrict__ kv,
-                     typename Store<META>::T* __restrict__ kmax,
-                     typename Store<META>::T* __restrict__ kmin,
-                     const int* __restrict__ tab,
-                     const int* __restrict__ seq_lens,
-                     const unsigned char* __restrict__ active,
-                     const typename Store<IN>::T* __restrict__ k,
-                     const typename Store<IN>::T* __restrict__ v, int NP,
-                     int page, int NPB, int bpp, int NB, Fp8Codes pool_c,
-                     Fp8Codes meta_c) {
+// One layer's operands (see the C entry points at the end).
+struct Args {
+  void* kv;
+  void* kmax;
+  void* kmin;
+  const int* tab;
+  const int* seq_lens;
+  const unsigned char* active;
+  const void* k;
+  const void* v;
+  const void* q;        // the rotate flag's: q [B, Hkv * G, 128] -> q_out,
+  void* q_out;          // cos / sin [B, 64] f32
+  const float* cosv;
+  const float* sinv;
+  int G, NP, page, NPB, bpp, NB;
+  Fp8Codes pool_c, meta_c;
+};
+
+// Lane l of a warp owns dims 2l, 2l + 1 (i = 0, 1) and 64 + 2l, 65 + 2l
+// (i = 2, 3): the two rotation pairs (2l + j, 64 + 2l + j).
+__device__ __forceinline__ int lane_dim(int lane, int i) {
+  return (i >> 1) * (kD / 2) + 2 * lane + (i & 1);
+}
+
+// rotate_plain of one lane's four dims of a head row x, rounded to the
+// input dtype: out[j] = x1*c - x2*s, out[2 + j] = x2*c + x1*s, each
+// product and sum rounded to f32 on its own (no FMA), as rope.cu.
+template <int IN>
+__device__ __forceinline__ void rotate4(float* x, const float* c,
+                                        const float* s) {
+  using In = Store<IN>;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float x1 = x[j], x2 = x[2 + j];
+    x[j] = In::widen(In::narrow(
+        __fsub_rn(__fmul_rn(x1, c[j]), __fmul_rn(x2, s[j])), {}));
+    x[2 + j] = In::widen(In::narrow(
+        __fadd_rn(__fmul_rn(x2, c[j]), __fmul_rn(x1, s[j])), {}));
+  }
+}
+
+// A CTA a (KV head h, row b). Warp 0 appends head h's k and v of row b
+// (rotating k first under ROTATE); under ROTATE warps 1.. rotate the
+// group's q heads h * G .. h * G + G - 1 of row b, one head row a warp
+// at a time.
+template <int IN, int POOL, int META, bool ROTATE>
+__global__ void __launch_bounds__(ROTATE ? 1024 : 32)
+append_decode_kernel(Args a) {
   using In = Store<IN>;
   using Pool = Store<POOL>;
   using Meta = Store<META>;
+  using InT = typename In::T;
   const int h = blockIdx.x, b = blockIdx.y, Hkv = gridDim.x;
-  const int pos = seq_lens[b];
-  const bool act = active == nullptr || active[b] != 0;
-  const int p_log = pos / page, e = pos % page;
-  const int blk = act ? tab[b * NB + min(p_log / bpp, NB - 1)] : 0;
-  const int off = p_log % bpp;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float c[2] = {0.f, 0.f}, s[2] = {0.f, 0.f};
+  if constexpr (ROTATE) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      c[j] = a.cosv[b * (kD / 2) + 2 * lane + j];
+      s[j] = a.sinv[b * (kD / 2) + 2 * lane + j];
+    }
+    if (warp > 0) {
+      const InT* __restrict__ q = static_cast<const InT*>(a.q);
+      InT* __restrict__ qo = static_cast<InT*>(a.q_out);
+      const int warps = blockDim.x / 32 - 1;
+      for (int g = warp - 1; g < a.G; g += warps) {
+        const int64_t row = ((static_cast<int64_t>(b) * Hkv + h) * a.G + g)
+                            * kD;
+        float x[kPerLane];
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i)
+          x[i] = In::widen(q[row + lane_dim(lane, i)]);
+        rotate4<IN>(x, c, s);
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i)
+          qo[row + lane_dim(lane, i)] = In::narrow(x[i], {});
+      }
+      return;
+    }
+  }
+  // Warp 0: every load that does not wait on seq_lens first (the rope's
+  // inputs above, k and v), then the chain seq_lens -> table -> metadata.
+  typename Pool::T* __restrict__ kv = static_cast<typename Pool::T*>(a.kv);
+  typename Meta::T* __restrict__ kmax =
+      static_cast<typename Meta::T*>(a.kmax);
+  typename Meta::T* __restrict__ kmin =
+      static_cast<typename Meta::T*>(a.kmin);
+  const InT* __restrict__ k = static_cast<const InT*>(a.k);
+  const InT* __restrict__ v = static_cast<const InT*>(a.v);
+  const int pos = a.seq_lens[b];
+  const bool act = a.active == nullptr || a.active[b] != 0;
   const int64_t src = (static_cast<int64_t>(b) * Hkv + h) * kD;
-  const int64_t dst = kv_row(h, blk * bpp + off, e, NP, page, kD);
-  const int64_t meta = ((static_cast<int64_t>(h) * NPB + blk) * bpp + off) *
-                       kD;
-  const int d0 = threadIdx.x * kPerLane;
-  typename Pool::T kq[kPerLane], vq[kPerLane];
+  float kf[kPerLane], vf[kPerLane];
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) {
-    const float kf = In::widen(k[src + d0 + i]);   // exact
-    const float vf = In::widen(v[src + d0 + i]);
-    kq[i] = Pool::narrow(isfinite(kf) ? kf : 0.f, pool_c);
-    vq[i] = Pool::narrow(isfinite(vf) ? vf : 0.f, pool_c);
-    kv[dst + d0 + i] = kq[i];
-    kv[dst + static_cast<int64_t>(page) * kD + d0 + i] = vq[i];
+    kf[i] = In::widen(k[src + lane_dim(lane, i)]);   // exact
+    vf[i] = In::widen(v[src + lane_dim(lane, i)]);
+  }
+  const int p_log = pos / a.page, e = pos % a.page;
+  const int blk = act ? a.tab[b * a.NB + min(p_log / a.bpp, a.NB - 1)] : 0;
+  const int off = p_log % a.bpp;
+  if constexpr (ROTATE) rotate4<IN>(kf, c, s);
+  const int64_t dst = kv_row(h, blk * a.bpp + off, e, a.NP, a.page, kD);
+  const int64_t meta = ((static_cast<int64_t>(h) * a.NPB + blk) * a.bpp +
+                        off) * kD;
+  // The old metadata (a page past its first token) before any store.
+  const bool fold = act && e != 0;
+  typename Meta::T old_hi[kPerLane], old_lo[kPerLane];
+  if (fold) {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      old_hi[i] = kmax[meta + lane_dim(lane, i)];
+      old_lo[i] = kmin[meta + lane_dim(lane, i)];
+    }
+  }
+  typename Pool::T kq[kPerLane];
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    const int d = lane_dim(lane, i);
+    kq[i] = Pool::narrow(isfinite(kf[i]) ? kf[i] : 0.f, a.pool_c);
+    kv[dst + d] = kq[i];
+    kv[dst + static_cast<int64_t>(a.page) * kD + d] =
+        Pool::narrow(isfinite(vf[i]) ? vf[i] : 0.f, a.pool_c);
   }
   if (!act) return;
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) {
-    const float kf = Pool::widen(kq[i]);
-    float hi = kf, lo = kf;
-    if (e != 0) {
-      hi = nan_max(Meta::widen(kmax[meta + d0 + i]), kf);
-      lo = nan_min(Meta::widen(kmin[meta + d0 + i]), kf);
+    const int d = lane_dim(lane, i);
+    const float x = Pool::widen(kq[i]);
+    float hi = x, lo = x;
+    if (fold) {
+      hi = nan_max(Meta::widen(old_hi[i]), x);
+      lo = nan_min(Meta::widen(old_lo[i]), x);
     }
-    kmax[meta + d0 + i] = Meta::narrow(hi, meta_c);
-    kmin[meta + d0 + i] = Meta::narrow(lo, meta_c);
+    kmax[meta + d] = Meta::narrow(hi, a.meta_c);
+    kmin[meta + d] = Meta::narrow(lo, a.meta_c);
   }
 }
 
-template <int IN, int POOL, int META>
-cudaError_t launch(void* kv, void* kmax, void* kmin, const int* tab,
-                   const int* seq_lens, const unsigned char* active,
-                   const void* k, const void* v, int B, int Hkv, int NP,
-                   int page, int NPB, int bpp, int NB, Fp8Codes pool_c,
-                   Fp8Codes meta_c, cudaStream_t stream) {
-  append_decode_kernel<IN, POOL, META><<<dim3(Hkv, B), 32, 0, stream>>>(
-      static_cast<typename Store<POOL>::T*>(kv),
-      static_cast<typename Store<META>::T*>(kmax),
-      static_cast<typename Store<META>::T*>(kmin), tab, seq_lens, active,
-      static_cast<const typename Store<IN>::T*>(k),
-      static_cast<const typename Store<IN>::T*>(v), NP, page, NPB, bpp, NB,
-      pool_c, meta_c);
+template <int IN, int POOL, int META, bool ROTATE>
+cudaError_t launch(const Args& a, int B, int Hkv, cudaStream_t stream) {
+  const int warps = ROTATE ? 1 + (a.G < 31 ? a.G : 31) : 1;
+  append_decode_kernel<IN, POOL, META, ROTATE>
+      <<<dim3(Hkv, B), 32 * warps, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int IN, int POOL>
-cudaError_t with_meta(int meta_code, void* kv, void* kmax, void* kmin,
-                      const int* tab, const int* seq_lens,
-                      const unsigned char* active, const void* k,
-                      const void* v, int B, int Hkv, int NP, int page,
-                      int NPB, int bpp, int NB, Fp8Codes pool_c,
-                      Fp8Codes meta_c, cudaStream_t s) {
+template <bool ROTATE, int IN, int POOL>
+cudaError_t with_meta(int meta_code, const Args& a, int B, int Hkv,
+                      cudaStream_t s) {
   switch (meta_code) {
-    case 0: return launch<IN, POOL, 0>(kv, kmax, kmin, tab, seq_lens, active,
-                                       k, v, B, Hkv, NP, page, NPB, bpp, NB,
-                                       pool_c, meta_c, s);
-    case 1: return launch<IN, POOL, 1>(kv, kmax, kmin, tab, seq_lens, active,
-                                       k, v, B, Hkv, NP, page, NPB, bpp, NB,
-                                       pool_c, meta_c, s);
-    case 2: return launch<IN, POOL, 2>(kv, kmax, kmin, tab, seq_lens, active,
-                                       k, v, B, Hkv, NP, page, NPB, bpp, NB,
-                                       pool_c, meta_c, s);
+    case 0: return launch<IN, POOL, 0, ROTATE>(a, B, Hkv, s);
+    case 1: return launch<IN, POOL, 1, ROTATE>(a, B, Hkv, s);
+    case 2: return launch<IN, POOL, 2, ROTATE>(a, B, Hkv, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int IN>
-cudaError_t with_pool(int kv_code, int meta_code, void* kv, void* kmax,
-                      void* kmin, const int* tab, const int* seq_lens,
-                      const unsigned char* active, const void* k,
-                      const void* v, int B, int Hkv, int NP, int page,
-                      int NPB, int bpp, int NB, Fp8Codes pool_c,
-                      Fp8Codes meta_c, cudaStream_t s) {
+template <bool ROTATE, int IN>
+cudaError_t with_pool(int kv_code, int meta_code, const Args& a, int B,
+                      int Hkv, cudaStream_t s) {
   switch (kv_code) {
-    case 0: return with_meta<IN, 0>(meta_code, kv, kmax, kmin, tab, seq_lens,
-                                    active, k, v, B, Hkv, NP, page, NPB, bpp,
-                                    NB, pool_c, meta_c, s);
-    case 1: return with_meta<IN, 1>(meta_code, kv, kmax, kmin, tab, seq_lens,
-                                    active, k, v, B, Hkv, NP, page, NPB, bpp,
-                                    NB, pool_c, meta_c, s);
-    case 2: return with_meta<IN, 2>(meta_code, kv, kmax, kmin, tab, seq_lens,
-                                    active, k, v, B, Hkv, NP, page, NPB, bpp,
-                                    NB, pool_c, meta_c, s);
+    case 0: return with_meta<ROTATE, IN, 0>(meta_code, a, B, Hkv, s);
+    case 1: return with_meta<ROTATE, IN, 1>(meta_code, a, B, Hkv, s);
+    case 2: return with_meta<ROTATE, IN, 2>(meta_code, a, B, Hkv, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool ROTATE>
+int dispatch(int in_code, int kv_code, int meta_code, const Args& a, int B,
+             int Hkv, void* stream) {
+  if (B < 1 || B > 65535 || Hkv < 1 || a.page < 1 || a.bpp < 1 ||
+      a.NB < 1 || a.NPB < 1 || a.NP != a.NPB * a.bpp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (in_code) {
+    case 0: return static_cast<int>(
+        with_pool<ROTATE, 0>(kv_code, meta_code, a, B, Hkv, s));
+    case 1: return static_cast<int>(
+        with_pool<ROTATE, 1>(kv_code, meta_code, a, B, Hkv, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -249,21 +346,37 @@ extern "C" int append_decode_launch(void* kv, void* kmax, void* kmin,
                                     int meta_code, int pool_ovf,
                                     int pool_carry, int meta_ovf,
                                     int meta_carry, void* stream) {
-  if (B < 1 || B > 65535 || Hkv < 1 || page < 1 || bpp < 1 || NB < 1 ||
-      NPB < 1 || NP != NPB * bpp)
+  const Args a{kv, kmax, kmin, tab, seq_lens, active, k, v, nullptr,
+               nullptr, nullptr, nullptr, 1, NP, page, NPB, bpp, NB,
+               {static_cast<unsigned>(pool_ovf),
+                static_cast<unsigned>(pool_carry)},
+               {static_cast<unsigned>(meta_ovf),
+                static_cast<unsigned>(meta_carry)}};
+  return dispatch<false>(in_code, kv_code, meta_code, a, B, Hkv, stream);
+}
+
+// The same append with the decode rope in its launch: q [B, Hkv * G, 128]
+// rotated into q_out, k rotated (and rounded to the input dtype) before
+// it is appended; cos / sin [B, 64] f32, one pair a row. q, q_out, k and
+// v of dtype in_code.
+extern "C" int rope_append_launch(void* kv, void* kmax, void* kmin,
+                                  const int* tab, const int* seq_lens,
+                                  const unsigned char* active, const void* q,
+                                  const void* k, const void* v, void* q_out,
+                                  const float* cosv, const float* sinv,
+                                  int B, int Hkv, int G, int NP, int page,
+                                  int NPB, int bpp, int NB, int in_code,
+                                  int kv_code, int meta_code, int pool_ovf,
+                                  int pool_carry, int meta_ovf,
+                                  int meta_carry, void* stream) {
+  if (G < 1 || q == nullptr || q_out == nullptr || cosv == nullptr ||
+      sinv == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Fp8Codes pool_c{static_cast<unsigned>(pool_ovf),
-                        static_cast<unsigned>(pool_carry)};
-  const Fp8Codes meta_c{static_cast<unsigned>(meta_ovf),
-                        static_cast<unsigned>(meta_carry)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (in_code) {
-    case 0: return static_cast<int>(with_pool<0>(
-        kv_code, meta_code, kv, kmax, kmin, tab, seq_lens, active, k, v, B,
-        Hkv, NP, page, NPB, bpp, NB, pool_c, meta_c, s));
-    case 1: return static_cast<int>(with_pool<1>(
-        kv_code, meta_code, kv, kmax, kmin, tab, seq_lens, active, k, v, B,
-        Hkv, NP, page, NPB, bpp, NB, pool_c, meta_c, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Args a{kv, kmax, kmin, tab, seq_lens, active, k, v, q, q_out, cosv,
+               sinv, G, NP, page, NPB, bpp, NB,
+               {static_cast<unsigned>(pool_ovf),
+                static_cast<unsigned>(pool_carry)},
+               {static_cast<unsigned>(meta_ovf),
+                static_cast<unsigned>(meta_carry)}};
+  return dispatch<true>(in_code, kv_code, meta_code, a, B, Hkv, stream);
 }

@@ -18,27 +18,42 @@
 // h * r lands that close to a rounding boundary of T (ROADMAP note d).
 // h is bit for bit the plain version's.
 //
-// x, res, out, h [rows, H] and w [H], of one dtype T (bf16 or f32). A CTA
-// of 256 threads takes one row at a time (a grid-stride loop over rows):
-// pass 1 reads x (and res) once in 16-byte pieces, writes h, keeps the
-// first kCache pieces a thread owns in registers and sums their squares
-// (a thread's pieces in order, then a butterfly in the warp, then the 8
-// warps' sums in order, so every call sums in the same order); pass 2
-// scales, re-reading from h (or x) only the pieces past kCache. Rows whose
-// width or pointers are not 16-byte aligned take the same loops an element
-// at a time.
+// x, res, out, h [rows, H] and w [H], of one dtype T (bf16 or f32).
 //
 // Bound on the H100: bytes. x (and res) read once, out (and h) written
 // once, w read once: a decode step's 2 rows of 4096 bf16 move 34 KB, far
-// below a launch; a prefill chunk of 8192 rows 201 MB (~60 us at 3.35
-// TB/s). Up to 8 CTAs an SM, each thread with its row's pieces in flight.
+// below a launch; a prefill chunk of 8192 rows 268 MB (~80 us at 3.35
+// TB/s). At decode the time is latency: what counts is how many memory
+// round trips a row waits on in turn, and whether they reach DRAM. So a
+// CTA of 256 threads, one row at a time (a grid-stride loop over rows, up
+// to 8 CTAs an SM):
+//   * its first P pieces of w (16 bytes each, P = 1, 2 or 4, the least
+//     that holds a row's pieces a thread at H = 4096) are loaded once,
+//     before the row loop, and kept as raw bits until the scale needs
+//     them, so nothing waits on them before the row's own loads;
+//   * a row's P pieces of x and res are all loaded before any store and
+//     before the reduction (every pointer __restrict__), so the row waits
+//     on one round trip, not one a piece; h stays in registers as T's
+//     bits (8 registers a bf16 piece), which keeps the prefill's
+//     occupancy;
+//   * the sum of squares takes one barrier a row: a butterfly in each
+//     warp, the warps' sums into one half of a double buffer in shared
+//     memory, __syncthreads, every thread adding the 8 sums in order (the
+//     next row writes the other half, and that row's barrier orders the
+//     row after it). A thread's pieces in order, then the butterfly, then
+//     the warps in order: every call sums in the same order;
+//   * the scale reads h and w from registers. Wider rows keep a loop past
+//     the P pieces (h re-read from this thread's own stores, or x). Rows
+//     whose width or pointers are not 16-byte aligned take the same code
+//     an element at a time.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCache = 4;  // pieces a thread keeps in registers
 
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
@@ -48,23 +63,30 @@ __device__ __forceinline__ float round_to(float v) {
     return v;
 }
 
-// V elements of T at p <-> V floats. V = 16 / sizeof(T) (one 16-byte
-// piece) or 1.
+// V elements of T at p: raw bits <-> V floats. V = 16 / sizeof(T) (one
+// 16-byte piece) or 1.
 template <typename T, int V>
 struct Piece {
-  __device__ __forceinline__ static void load(const T* p, float* f) {
-    if constexpr (V == 1) {
-      f[0] = static_cast<float>(*p);
-    } else {
-      Elem<T>::unpack(*reinterpret_cast<const uint4*>(p), f);
-    }
+  using Raw = std::conditional_t<V == 1, T, uint4>;
+  __device__ __forceinline__ static Raw load(const T* p) {
+    if constexpr (V == 1)
+      return *p;
+    else
+      return *reinterpret_cast<const uint4*>(p);
   }
-  __device__ __forceinline__ static void store(T* p, const float* f) {
+  __device__ __forceinline__ static void unpack(const Raw& raw, float* f) {
+    if constexpr (V == 1)
+      f[0] = static_cast<float>(raw);
+    else
+      Elem<T>::unpack(raw, f);
+  }
+  // f, whose values T holds exactly or which T rounds to nearest even.
+  __device__ __forceinline__ static Raw pack(const float* f) {
     if constexpr (V == 1) {
       if constexpr (sizeof(T) == 2)
-        *p = __float2bfloat16_rn(f[0]);
+        return __float2bfloat16_rn(f[0]);
       else
-        *p = f[0];
+        return f[0];
     } else if constexpr (sizeof(T) == 2) {
       uint4 raw;
       unsigned* w = reinterpret_cast<unsigned*>(&raw);
@@ -75,25 +97,36 @@ struct Piece {
                (static_cast<unsigned>(__bfloat16_as_ushort(
                     __float2bfloat16_rn(f[2 * i + 1])))
                 << 16);
-      *reinterpret_cast<uint4*>(p) = raw;
+      return raw;
     } else {
-      *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+      return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                        __float_as_uint(f[2]), __float_as_uint(f[3]));
     }
+  }
+  __device__ __forceinline__ static void store(T* p, const Raw& raw) {
+    if constexpr (V == 1)
+      *p = raw;
+    else
+      *reinterpret_cast<uint4*>(p) = raw;
   }
 };
 
-// h of piece c of the row (x + res rounded to T, or x), stored to hrow
-// when res is given; returns the sum of its squares, added in order.
-template <typename T, int V>
-__device__ __forceinline__ float make_piece(const T* xrow, const T* rrow,
-                                            T* hrow, int c, float* h) {
-  Piece<T, V>::load(xrow + static_cast<int64_t>(c) * V, h);
-  if (rrow != nullptr) {
+// The piece's h from its raw x (and, with RES, res) bits, left in xr as
+// T's bits (T holds h exactly) and stored to hp with RES; returns the sum
+// of its squares, added in order.
+template <typename T, int V, bool RES>
+__device__ __forceinline__ float make_h(typename Piece<T, V>::Raw& xr,
+                                        const typename Piece<T, V>::Raw& rr,
+                                        T* hp) {
+  float h[V];
+  Piece<T, V>::unpack(xr, h);
+  if constexpr (RES) {
     float r[V];
-    Piece<T, V>::load(rrow + static_cast<int64_t>(c) * V, r);
+    Piece<T, V>::unpack(rr, r);
 #pragma unroll
     for (int e = 0; e < V; ++e) h[e] = round_to<T>(__fadd_rn(h[e], r[e]));
-    Piece<T, V>::store(hrow + static_cast<int64_t>(c) * V, h);
+    xr = Piece<T, V>::pack(h);
+    Piece<T, V>::store(hp, xr);
   }
   float ss = 0.f;
 #pragma unroll
@@ -102,73 +135,116 @@ __device__ __forceinline__ float make_piece(const T* xrow, const T* rrow,
 }
 
 template <typename T, int V>
-__device__ __forceinline__ void scale_piece(const T* w, T* orow, int c,
-                                            const float* h, float r) {
-  float wv[V], y[V];
-  Piece<T, V>::load(w + static_cast<int64_t>(c) * V, wv);
+__device__ __forceinline__ void scale_piece(
+    const typename Piece<T, V>::Raw& hr, const typename Piece<T, V>::Raw& wr,
+    T* op, float r) {
+  float h[V], wv[V], y[V];
+  Piece<T, V>::unpack(hr, h);
+  Piece<T, V>::unpack(wr, wv);
 #pragma unroll
   for (int e = 0; e < V; ++e)
     y[e] = __fmul_rn(round_to<T>(__fmul_rn(h[e], r)), wv[e]);
-  Piece<T, V>::store(orow + static_cast<int64_t>(c) * V, y);
+  Piece<T, V>::store(op, Piece<T, V>::pack(y));
 }
 
-template <typename T, int V>
+template <typename T, int V, int P, bool RES>
 __global__ void __launch_bounds__(kThreads)
 rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                const T* __restrict__ w, T* __restrict__ out, T* h_out,
-                float* __restrict__ var_out, int rows, int H, float eps) {
-  __shared__ float warp_ss[kWarps];
+                const T* __restrict__ w, T* __restrict__ out,
+                T* __restrict__ h_out, float* __restrict__ var_out, int rows,
+                int H, float eps) {
+  using Raw = typename Piece<T, V>::Raw;
+  __shared__ float warp_ss[2][kWarps];
   const int tid = threadIdx.x;
   const int pieces = H / V;
   const float inv_h = __fdiv_rn(1.0f, static_cast<float>(H));
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+  Raw wr[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int c = tid + i * kThreads;
+    if (c < pieces) wr[i] = Piece<T, V>::load(w + c * V);
+  }
+  int buf = 0;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x, buf ^= 1) {
     const int64_t off = static_cast<int64_t>(row) * H;
     const T* xrow = x + off;
-    const T* rrow = res != nullptr ? res + off : nullptr;
-    T* hrow = res != nullptr ? h_out + off : nullptr;
-    float cache[kCache][V];
+    const T* rrow = RES ? res + off : nullptr;
+    T* hrow = RES ? h_out + off : nullptr;
+    T* orow = out + off;
+    // Every load of the row's first P pieces before any store; x's bits
+    // become h's.
+    Raw hr[P], rr[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int c = tid + i * kThreads;
+      if (c < pieces) {
+        hr[i] = Piece<T, V>::load(xrow + c * V);
+        if constexpr (RES) rr[i] = Piece<T, V>::load(rrow + c * V);
+      }
+    }
     float ss = 0.f;
 #pragma unroll
-    for (int i = 0; i < kCache; ++i) {
+    for (int i = 0; i < P; ++i) {
       const int c = tid + i * kThreads;
       if (c < pieces)
-        ss = __fadd_rn(ss, make_piece<T, V>(xrow, rrow, hrow, c, cache[i]));
+        ss = __fadd_rn(ss, make_h<T, V, RES>(hr[i], rr[i], hrow + c * V));
     }
-    for (int c = tid + kCache * kThreads; c < pieces; c += kThreads) {
-      float h[V];
-      ss = __fadd_rn(ss, make_piece<T, V>(xrow, rrow, hrow, c, h));
+    for (int c = tid + P * kThreads; c < pieces; c += kThreads) {
+      Raw a = Piece<T, V>::load(xrow + c * V), b = a;
+      if constexpr (RES) b = Piece<T, V>::load(rrow + c * V);
+      ss = __fadd_rn(ss, make_h<T, V, RES>(a, b, hrow + c * V));
     }
 #pragma unroll
     for (int m = 16; m >= 1; m >>= 1)
       ss = __fadd_rn(ss, __shfl_xor_sync(0xFFFFFFFFu, ss, m));
-    if (tid % 32 == 0) warp_ss[tid / 32] = ss;
+    if (tid % 32 == 0) warp_ss[buf][tid / 32] = ss;
     __syncthreads();
     float total = 0.f;
 #pragma unroll
-    for (int i = 0; i < kWarps; ++i) total = __fadd_rn(total, warp_ss[i]);
-    __syncthreads();  // warp_ss is free for the next row
+    for (int i = 0; i < kWarps; ++i) total = __fadd_rn(total, warp_ss[buf][i]);
     const float var = __fmul_rn(total, inv_h);
     const float r = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
     if (var_out != nullptr && tid == 0) var_out[row] = var;
-    T* orow = out + off;
 #pragma unroll
-    for (int i = 0; i < kCache; ++i) {
+    for (int i = 0; i < P; ++i) {
       const int c = tid + i * kThreads;
-      if (c < pieces) scale_piece<T, V>(w, orow, c, cache[i], r);
+      if (c < pieces) scale_piece<T, V>(hr[i], wr[i], orow + c * V, r);
     }
-    // Pieces past the cache: h again, from this thread's own stores (plain
-    // loads: h_out is written in this launch) or from x.
-    const T* src = res != nullptr ? hrow : xrow;
-    for (int c = tid + kCache * kThreads; c < pieces; c += kThreads) {
-      float h[V];
-      Piece<T, V>::load(src + static_cast<int64_t>(c) * V, h);
-      scale_piece<T, V>(w, orow, c, h, r);
-    }
+    // Pieces past the P in registers: h again, from this thread's own
+    // stores (h_out is written in this launch) or from x.
+    const T* src = RES ? hrow : xrow;
+    for (int c = tid + P * kThreads; c < pieces; c += kThreads)
+      scale_piece<T, V>(Piece<T, V>::load(src + c * V),
+                        Piece<T, V>::load(w + c * V), orow + c * V, r);
   }
 }
 
 bool aligned16(const void* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, int V, int P, bool RES>
+cudaError_t launch_k(int grid, const T* x, const T* res, const T* w, T* out,
+                     T* h, float* var_out, int rows, int H, float eps,
+                     cudaStream_t stream) {
+  rms_norm_kernel<T, V, P, RES><<<grid, kThreads, 0, stream>>>(
+      x, res, w, out, h, var_out, rows, H, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, int V, bool RES>
+cudaError_t launch_v(int grid, const T* x, const T* res, const T* w, T* out,
+                     T* h, float* var_out, int rows, int H, float eps,
+                     cudaStream_t stream) {
+  const int per_thread = (H / V + kThreads - 1) / kThreads;
+  if (per_thread <= 1)
+    return launch_k<T, V, 1, RES>(grid, x, res, w, out, h, var_out, rows, H,
+                                  eps, stream);
+  if (per_thread <= 2)
+    return launch_k<T, V, 2, RES>(grid, x, res, w, out, h, var_out, rows, H,
+                                  eps, stream);
+  return launch_k<T, V, 4, RES>(grid, x, res, w, out, h, var_out, rows, H,
+                                eps, stream);
 }
 
 template <typename T>
@@ -187,14 +263,17 @@ cudaError_t launch(const void* x, const void* res, const void* w, void* out,
   const T* wt = static_cast<const T*>(w);
   T* ot = static_cast<T*>(out);
   T* ht = static_cast<T*>(h);
-  if (H % kV == 0 && aligned16(x) && aligned16(res) && aligned16(w) &&
-      aligned16(out) && aligned16(h))
-    rms_norm_kernel<T, kV><<<grid, kThreads, 0, stream>>>(
-        xt, rt, wt, ot, ht, var_out, rows, H, eps);
-  else
-    rms_norm_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
-        xt, rt, wt, ot, ht, var_out, rows, H, eps);
-  return cudaGetLastError();
+  const bool vec = H % kV == 0 && aligned16(x) && aligned16(res) &&
+                   aligned16(w) && aligned16(out) && aligned16(h);
+  if (res != nullptr)
+    return vec ? launch_v<T, kV, true>(grid, xt, rt, wt, ot, ht, var_out,
+                                       rows, H, eps, stream)
+               : launch_v<T, 1, true>(grid, xt, rt, wt, ot, ht, var_out,
+                                      rows, H, eps, stream);
+  return vec ? launch_v<T, kV, false>(grid, xt, rt, wt, ot, ht, var_out,
+                                      rows, H, eps, stream)
+             : launch_v<T, 1, false>(grid, xt, rt, wt, ot, ht, var_out, rows,
+                                     H, eps, stream);
 }
 
 }  // namespace
@@ -202,7 +281,8 @@ cudaError_t launch(const void* x, const void* res, const void* w, void* out,
 // x [rows, H] -> out [rows, H], of dtype code ``dtype`` (0 f32, 1 bf16);
 // w [H] of that dtype. With res (h and res NULL together, or neither):
 // h = x + res is written too and normed. var_out [rows] f32, or NULL: each
-// row's mean square, for the checks on the card.
+// row's mean square, for the checks on the card. No output may overlap an
+// input.
 extern "C" int rms_norm_launch(const void* x, const void* res,
                                const void* w, void* out, void* h,
                                float* var_out, int rows, int H, float eps,

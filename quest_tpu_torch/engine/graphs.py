@@ -81,7 +81,8 @@ def is_eager() -> bool:
 
 def launch_counters() -> tuple:
     """Every kernel wrapper that counts its launches."""
-    from quest_tpu_torch.kv.paged_kv import append_decode_at
+    from quest_tpu_torch.kv.paged_kv import (append_decode_at,
+                                             rope_append_decode_at)
     from quest_tpu_torch.ops.copy_probe import copy_probe
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import (page_scores_kernel,
@@ -99,7 +100,7 @@ def launch_counters() -> tuple:
             fused_sparse_decode, prefill_attention, page_scores_kernel,
             page_scores_physical, exact_topk_select, qgemv, dequant,
             copy_probe, select_pieces, append_decode_at, rotate_qk,
-            rms_norm, head_gemv)
+            rope_append_decode_at, rms_norm, head_gemv)
 
 
 class CudaGraph:

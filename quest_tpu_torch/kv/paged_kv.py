@@ -26,12 +26,14 @@ starts zeroed.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from quest_tpu_torch.config import ModelConfig, QuestConfig
 from quest_tpu_torch.ops import _build
+from quest_tpu_torch.ops.rope import rotate_plain
 from quest_tpu_torch.ops.utils import (check_pool_dtype, fp8_cast_codes,
                                        resolve_device)
 
@@ -220,26 +222,12 @@ def append_prefill(layer: LayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
     return LayerKV(kv, kmax, kmin, layer.seq_lens)
 
 
-def append_decode_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
-                     v_new: torch.Tensor,
-                     active: torch.Tensor | None = None) -> None:
-    """Write one token per sequence into layer ``layer``, in place.
-
-    ``k_new, v_new``: [B, Hkv, D]; written at ``seq_lens[b]``. Slots with
-    ``active=False`` are routed to the scratch block and their metadata
-    fold is a no-op. Does not advance ``seq_lens``.
-
-    On a CUDA tensor one launch of ``csrc/append.cu`` (the counterpart of
-    the XLA fusion of the JAX ``append_decode_at``), bit for bit
-    :func:`append_decode_at_plain`: it reads ``seq_lens``, the block
-    table and ``active`` on the device, so a replayed graph sees each
-    step's. It takes head dim 128, bf16 or f32 ``k_new`` / ``v_new`` of
-    one dtype, contiguous, an int32 table and lengths, a bool ``active``
-    and f32 / bf16 / fp8 e4m3 pools and metadata; anything else raises.
-    On a CPU tensor :func:`append_decode_at_plain`.
-    """
-    if not k_new.is_cuda:
-        return append_decode_at_plain(cache, layer, k_new, v_new, active)
+def _append_launch_args(cache: PagedKVCache, layer: int, k_new, v_new,
+                        active) -> tuple:
+    """The checks both decode appends make on a CUDA tensor, and the
+    arguments their C entry points share after the operands: (kv, k_max,
+    k_min, block_tab, seq_lens, active) pointers, then the geometry and
+    the dtype and e4m3 codes (see ``csrc/append.cu``)."""
     kv, kmax, kmin = cache.kv_pages[layer], cache.k_max[layer], cache.k_min[layer]
     B, Hkv, D = k_new.shape
     if D != 128:
@@ -271,19 +259,120 @@ def append_decode_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
                   if kv.dtype == fp8 else (0, 0))
     meta_codes = (fp8_cast_codes(kv.device, torch.float32)
                   if kmax.dtype == fp8 else (0, 0))
+    ptrs = [_build.ptr(t) for t in (kv, kmax, kmin, tab, lens, active)]
+    geometry = [kv.shape[1], kv.shape[-2], kmax.shape[1], kmax.shape[2],
+                tab.shape[1], int(k_new.dtype == torch.bfloat16), kv_code,
+                meta_code, *pool_codes, *meta_codes]
+    return ptrs, geometry
+
+
+def append_decode_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
+                     v_new: torch.Tensor,
+                     active: torch.Tensor | None = None) -> None:
+    """Write one token per sequence into layer ``layer``, in place.
+
+    ``k_new, v_new``: [B, Hkv, D]; written at ``seq_lens[b]``. Slots with
+    ``active=False`` are routed to the scratch block and their metadata
+    fold is a no-op. Does not advance ``seq_lens``.
+
+    On a CUDA tensor one launch of ``csrc/append.cu`` (the counterpart of
+    the XLA fusion of the JAX ``append_decode_at``), bit for bit
+    :func:`append_decode_at_plain`: it reads ``seq_lens``, the block
+    table and ``active`` on the device, so a replayed graph sees each
+    step's. It takes head dim 128, bf16 or f32 ``k_new`` / ``v_new`` of
+    one dtype, contiguous, an int32 table and lengths, a bool ``active``
+    and f32 / bf16 / fp8 e4m3 pools and metadata; anything else raises.
+    On a CPU tensor :func:`append_decode_at_plain`. The decode step itself
+    takes :func:`rope_append_decode_at`, the same launch with the rope.
+    """
+    if not k_new.is_cuda:
+        return append_decode_at_plain(cache, layer, k_new, v_new, active)
+    ptrs, geometry = _append_launch_args(cache, layer, k_new, v_new, active)
+    B, Hkv, _ = k_new.shape
     lib = _build.load("append")
     code = lib.append_decode_launch(
-        _build.ptr(kv), _build.ptr(kmax), _build.ptr(kmin), _build.ptr(tab),
-        _build.ptr(lens), _build.ptr(active), _build.ptr(k_new),
-        _build.ptr(v_new), B, Hkv, kv.shape[1], kv.shape[-2], kmax.shape[1],
-        kmax.shape[2], tab.shape[1], int(k_new.dtype == torch.bfloat16),
-        kv_code, meta_code, *pool_codes, *meta_codes,
+        *ptrs, _build.ptr(k_new), _build.ptr(v_new), B, Hkv, *geometry,
         _build.stream_of(k_new))
     _build.check(lib, code, "append_decode")
     append_decode_at.launches += 1
 
 
 append_decode_at.launches = 0
+
+
+def _rope_append_entry(lib):
+    fn = lib.rope_append_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 15 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rope_append_decode_at(cache: PagedKVCache, layer: int, q: torch.Tensor,
+                          k_new: torch.Tensor, v_new: torch.Tensor,
+                          cos: torch.Tensor, sin: torch.Tensor,
+                          active: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """The decode step's rope and KV append of layer ``layer``, in place:
+    returns ``q`` [B, Hq, D] rotated by ``(cos, sin)`` (one pair a row,
+    ``rope_cos_sin`` of the step's positions: [B, ..., D/2] f32), and
+    appends ``k_new`` [B, Hkv, D], rotated the same way, with ``v_new`` as
+    :func:`append_decode_at` does.
+
+    On a CUDA tensor one launch of ``csrc/append.cu`` with its rotate flag
+    (the counterpart of the XLA fusions of the JAX ``apply_rope`` of q and
+    k and its ``append_decode_at``), bit for bit
+    :func:`rope_append_decode_at_plain`. q of k's dtype, Hq a multiple of
+    Hkv, every operand contiguous; what :func:`append_decode_at` refuses
+    it refuses. On a CPU tensor :func:`rope_append_decode_at_plain`.
+    """
+    if not q.is_cuda:
+        return rope_append_decode_at_plain(cache, layer, q, k_new, v_new,
+                                           cos, sin, active)
+    B, Hkv, D = k_new.shape
+    if q.dtype != k_new.dtype or q.dim() != 3 or q.shape[0] != B or (
+            q.shape[2] != D or q.shape[1] % Hkv != 0):
+        raise ValueError(f"q {tuple(q.shape)} {q.dtype} does not match k "
+                         f"{tuple(k_new.shape)} {k_new.dtype}")
+    for t in (cos, sin):
+        if t.dtype != torch.float32 or t.numel() != B * D // 2 or (
+                t.shape[0] != B or t.shape[-1] != D // 2):
+            raise ValueError(f"cos / sin must be f32 [{B}, ..., {D // 2}], "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    for t in (q, cos, sin):
+        if t.device != k_new.device or not t.is_contiguous():
+            raise ValueError("the rope and append take contiguous operands "
+                             "on k_new's device")
+    ptrs, geometry = _append_launch_args(cache, layer, k_new, v_new, active)
+    q_out = torch.empty_like(q)
+    lib = _build.load("append")
+    code = _rope_append_entry(lib)(
+        *ptrs, _build.ptr(q), _build.ptr(k_new), _build.ptr(v_new),
+        _build.ptr(q_out), _build.ptr(cos), _build.ptr(sin), B, Hkv,
+        q.shape[1] // Hkv, *geometry, _build.stream_of(q))
+    _build.check(lib, code, "rope_append")
+    rope_append_decode_at.launches += 1
+    return q_out
+
+
+rope_append_decode_at.launches = 0
+
+
+def rope_append_decode_at_plain(cache: PagedKVCache, layer: int,
+                                q: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, cos: torch.Tensor,
+                                sin: torch.Tensor,
+                                active: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """:func:`rope_append_decode_at` in plain PyTorch ops: ``rotate_plain``
+    of q and of k, then :func:`append_decode_at_plain` of the rotated k
+    (the CPU's path, and what the kernel is held to on the card)."""
+    B = q.shape[0]
+    cs, sn = (t.reshape(B, 1, t.shape[-1]) for t in (cos, sin))
+    append_decode_at_plain(cache, layer, rotate_plain(k_new, cs, sn), v_new,
+                           active)
+    return rotate_plain(q, cs, sn)
 
 
 def append_decode_at_plain(cache: PagedKVCache, layer: int,

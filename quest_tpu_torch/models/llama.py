@@ -5,11 +5,12 @@
 weights as buffers, plain or int8/int4 quantized (every linear is a
 ``models.quantize.qdot``). Each layer runs RMSNorm (the residual add
 before it folded in: one launch of ``ops/rms_norm.py`` on the card), the
-q/k/v projections, rope, then either the prefill path (append the chunk,
-causal prefill attention) or the decode path (append one token; the first
-``skip_layers`` layers attend densely, the others run estimate ->
-top-k -> sparse attention, or the fused kernel where :func:`fused_gate`
-allows it), then the o-projection and the SwiGLU MLP. The cache is
+q/k/v projections, then either the prefill path (rope, append the chunk,
+causal prefill attention) or the decode path (rope and append of one
+token, one launch of ``kv/paged_kv.py:rope_append_decode_at`` on the
+card; the first ``skip_layers`` layers attend densely, the others run
+estimate -> top-k -> sparse attention, or the fused kernel where
+:func:`fused_gate` allows it), then the o-projection and the SwiGLU MLP. The cache is
 updated in place. Each stage runs inside a trace range named as the JAX
 model's ``jax.named_scope`` (:data:`TRACE_RANGES`), opened only while a
 profiler is active (:func:`trace_range`).
@@ -25,8 +26,8 @@ import torch
 from torch import nn
 
 from quest_tpu_torch.config import ModelConfig, QuestConfig
-from quest_tpu_torch.kv.paged_kv import (PagedKVCache, append_decode_at,
-                                         append_prefill_at)
+from quest_tpu_torch.kv.paged_kv import (PagedKVCache, append_prefill_at,
+                                         rope_append_decode_at)
 from quest_tpu_torch.models.quantize import (QuantizedLinear, qdot,
                                              stack_linears)
 from quest_tpu_torch.ops.dense_decode import dense_decode_attention
@@ -293,10 +294,10 @@ class QuestModel(nn.Module):
             q = self._linear(h, "wq", l).reshape(B, T, H, D)
             k = self._linear(h, "wk", l).reshape(B, T, Hkv, D)
             v = self._linear(h, "wv", l).reshape(B, T, Hkv, D)
-        with trace_range("rope"):
-            q, k = rotate_qk(q, k, *rope)
 
         if is_prefill:
+            with trace_range("rope"):
+                q, k = rotate_qk(q, k, *rope)
             with trace_range("append_kv_prefill"):
                 append_prefill_at(cache, l, k, v, new_lens=new_lens)
             with trace_range("prefill_attn"):
@@ -306,10 +307,12 @@ class QuestModel(nn.Module):
                     block_tab=cache.block_tab, block_pages=cache.block_pages)
         else:
             with trace_range("append_kv_decode"):
+                # The rope of q and k and the append in one launch.
                 # Inactive slots (new_lens == 0) must not fold their
                 # garbage key into the page metadata.
-                append_decode_at(cache, l, k[:, 0], v[:, 0], active=active)
-            attn = self._attn_decode(q[:, 0], cache, l, use_sparse,
+                q = rope_append_decode_at(cache, l, q[:, 0], k[:, 0],
+                                          v[:, 0], *rope, active=active)
+            attn = self._attn_decode(q, cache, l, use_sparse,
                                      cache.seq_lens + 1)[:, None]
 
         with trace_range("o_proj"):

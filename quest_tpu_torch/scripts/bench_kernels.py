@@ -22,6 +22,9 @@ the JAX script's names. The port's own stages, which the JAX script does
 not have, run when named: ``rope`` (``rotate_qk`` of a decode step's bf16
 q and k, one token a row: ``csrc/rope.cu`` on the card),
 ``rope_prefill`` (the same over a chunk of up to 8192 tokens),
+``rope_append`` (the decode step's rope and append in one op,
+``rope_append_decode_at`` on bf16 q, k and v: ``csrc/append.cu`` with its
+rotate flag on the card),
 ``rms_norm`` (a decode step's norm with its residual add, bf16 rows of
 the model width heads x head_dim: ``csrc/rms_norm.cu`` on the card),
 ``rms_norm_prefill`` (the same over a chunk of up to 8192 tokens) and
@@ -31,7 +34,7 @@ the model width heads x head_dim: ``csrc/rms_norm.cu`` on the card),
     python -m quest_tpu_torch.scripts.bench_kernels [--ctx 32768]
         [--budget 2048] [--heads 32] [--kv-heads 32] [--stages all|...]
     python -m quest_tpu_torch.scripts.bench_kernels --stages \\
-        append,rope,rope_prefill --kv-heads 8      # the layer's plain-op region
+        append,rope,rope_prefill,rope_append --kv-heads 8   # rope and append
     python -m quest_tpu_torch.scripts.bench_kernels --stages \\
         rms_norm,rms_norm_prefill,head_gemv --batch 2    # norm and head
     python -m quest_tpu_torch.scripts.bench_kernels --device cpu \\
@@ -59,6 +62,7 @@ RESULT_KEYS = {"estimate": "estimate", "topk": "topk",
                "pipeline": "sparse_pipeline"}
 # The port's own stages (not in "all": the JAX script has none), by key.
 PORT_STAGES = {"rope": "rope_decode", "rope_prefill": "rope_prefill",
+               "rope_append": "rope_append_decode",
                "rms_norm": "rms_norm_decode",
                "rms_norm_prefill": "rms_norm_prefill",
                "head_gemv": "head_gemv"}
@@ -104,6 +108,14 @@ def rope_bytes(B, T, Hq, Hkv, D, bpe=2) -> int:
     return 2 * B * T * (Hq + Hkv) * D * bpe + 2 * B * T * (D // 2) * 4
 
 
+def rope_append_bytes(B, Hq, Hkv, D, bpe=2) -> int:
+    """q read and written, k and v read and written into a pool of their
+    dtype, the metadata rows read and written, cos and sin (f32), the
+    lengths and table entries read."""
+    return (2 * B * Hq * D * bpe + 4 * B * Hkv * D * bpe
+            + 4 * B * Hkv * D * bpe + 2 * B * (D // 2) * 4 + 8 * B)
+
+
 def norm_bytes(rows, hid, bpe=2) -> int:
     """x and the residual read, h and the norm written, the weight read
     once."""
@@ -137,7 +149,8 @@ class HostTimer:
 
 def stage_kernels():
     """Stage -> the kernel wrapper it launches (None: plain PyTorch ops)."""
-    from quest_tpu_torch.kv.paged_kv import append_decode_at
+    from quest_tpu_torch.kv.paged_kv import (append_decode_at,
+                                             rope_append_decode_at)
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_physical
     from quest_tpu_torch.ops.fused_decode import exact_topk_select
@@ -151,8 +164,8 @@ def stage_kernels():
             "dense": dense_decode_attention, "append": append_decode_at,
             "prefill": prefill_attention, "pipeline": sparse_decode_attention,
             "rope": rotate_qk, "rope_prefill": rotate_qk,
-            "rms_norm": rms_norm, "rms_norm_prefill": rms_norm,
-            "head_gemv": head_gemv}
+            "rope_append": rope_append_decode_at, "rms_norm": rms_norm,
+            "rms_norm_prefill": rms_norm, "head_gemv": head_gemv}
 
 
 def run_bench_kernels(args, detail=None) -> dict:
@@ -161,7 +174,8 @@ def run_bench_kernels(args, detail=None) -> dict:
     bytes or FLOPs, rate, kernel launches and timed calls."""
     from quest_tpu_torch.config import ModelConfig, QuestConfig, RopeConfig
     from quest_tpu_torch.kv.paged_kv import (append_decode_at,
-                                             append_prefill_at, init_cache)
+                                             append_prefill_at, init_cache,
+                                             rope_append_decode_at)
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_physical
     from quest_tpu_torch.ops.head_gemv import head_gemv
@@ -233,7 +247,12 @@ def run_bench_kernels(args, detail=None) -> dict:
     rope_in = {n: rope_args(t) for n, t in (("rope", 1), ("rope_prefill", RT))
                if n in want}
     nbytes.update(rope=rope_bytes(B, 1, Hq, Hkv, D),
-                  rope_prefill=rope_bytes(B, RT, Hq, Hkv, D))
+                  rope_prefill=rope_bytes(B, RT, Hq, Hkv, D),
+                  rope_append=rope_append_bytes(B, Hq, Hkv, D))
+    if "rope_append" in want:
+        q1, k1, c1, s1 = rope_args(1)
+        ra_in = (q1[:, 0].contiguous(), k1[:, 0].contiguous(),
+                 k1[:, 0].clone(), c1, s1)
 
     HID, V = Hq * D, args.vocab
 
@@ -265,6 +284,8 @@ def run_bench_kernels(args, detail=None) -> dict:
         "pipeline": pipeline,
         "rope": lambda: rotate_qk(*rope_in["rope"]),
         "rope_prefill": lambda: rotate_qk(*rope_in["rope_prefill"]),
+        # seq_lens is not advanced: every call writes the same position.
+        "rope_append": lambda: rope_append_decode_at(cache, 0, *ra_in),
         "rms_norm": lambda: rms_norm(*norm_in["rms_norm"]),
         "rms_norm_prefill": lambda: rms_norm(*norm_in["rms_norm_prefill"]),
         "head_gemv": lambda: head_gemv(*head_in),

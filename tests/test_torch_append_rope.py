@@ -354,22 +354,32 @@ def test_every_counted_kernel_counts_through_graph_replays():
     from quest_tpu_torch.engine.graphs import launch_counters
     known = set(launch_counters())
     assert tkv.append_decode_at in known and rotate_qk in known
+    assert tkv.rope_append_decode_at in known
     assert all(w in known for w in kernel_wrappers().values())
 
 
 def test_bench_kernels_times_the_layer_stages_when_named():
-    """``rope`` and ``rope_prefill`` run when named (not in "all", which
-    stays the JAX script's stages), with their byte counts."""
+    """``rope``, ``rope_prefill`` and ``rope_append`` run when named (not
+    in "all", which stays the JAX script's stages), with their byte
+    counts."""
     from quest_tpu_torch.scripts import bench_kernels
     argv = ["--ctx", "512", "--budget", "64", "--heads", "4", "--kv-heads",
             "2", "--iters", "1", "--device", "cpu", "--stages",
-            "append,rope,rope_prefill"]
+            "append,rope,rope_prefill,rope_append"]
     detail = {}
     out = bench_kernels.run_bench_kernels(bench_kernels.parse_args(argv),
                                           detail)
-    assert set(out) == {"append_decode", "rope_decode", "rope_prefill"}
+    assert set(out) == {"append_decode", "rope_decode", "rope_prefill",
+                        "rope_append_decode"}
     assert detail["rope_decode"]["bytes"] == bench_kernels.rope_bytes(
         1, 1, 4, 2, 128)
     assert detail["rope_prefill"]["bytes"] == bench_kernels.rope_bytes(
         1, 512, 4, 2, 128)
+    # q read and written (4 x 128 bf16 each), k and v read and written
+    # (2 x 128 x 4), metadata read and written (2 x 128 x 4), cos and sin
+    # (64 f32 each), the length and the table entry.
+    assert detail["rope_append_decode"]["bytes"] == \
+        bench_kernels.rope_append_bytes(1, 4, 2, 128) == \
+        2 * 512 * 2 + 4 * 256 * 2 + 4 * 256 * 2 + 2 * 64 * 4 + 8
+    assert detail["rope_append_decode"]["kernel"] == "rope_append_decode_at"
     assert all(r["launches"] == 0 for r in detail.values())   # plain, CPU

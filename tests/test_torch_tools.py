@@ -376,8 +376,11 @@ def recorded_ranges(fused):
 
 @pytest.mark.parametrize("fused", [False, True])
 def test_trace_ranges_recorded(fused):
+    """Each layer's ranges over a prefill and a decode step; the decode
+    step's rope runs inside its append (one op), so rope is the
+    prefill's alone."""
     calls = recorded_ranges(fused)
-    per_layer = {"qkv_proj": 2, "rope": 2, "o_proj": 2, "mlp": 2,
+    per_layer = {"qkv_proj": 2, "rope": 1, "o_proj": 2, "mlp": 2,
                  "append_kv_prefill": 1, "prefill_attn": 1,
                  "append_kv_decode": 1}
     want = {k: 3 * n for k, n in per_layer.items()}
