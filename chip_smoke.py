@@ -53,6 +53,17 @@ Phases, each fatal on failure:
      over 4096 x 128256, the tp = 2 shard and an odd vocabulary, within
      1e-5 of the f32 product, each timed under both flushes beside its
      plain version and the library call;
+     then the prefill's KV append (``csrc/append.cu``'s prefill route)
+     bit for bit against its plain version outside scratch block 0 at
+     the T=8192 chunk of one row and the serving phase's B=2 chunk, then
+     over every (pool, metadata) dtype pair on chunks with empty, short
+     and full rows, W = P, a window clamped at the pool's end, e4m3
+     codes past 448 and a page whose only valid key is below -3.0e38;
+     and the MLP's SiLU product
+     (``csrc/silu_mul.cu``) at the decode and T=8192 shapes in bf16 and
+     f32, an odd length with inf and NaN and an unaligned view, bit for
+     bit or within 1 ulp; each timed under both flushes beside its plain
+     version;
      then the fp8 e4m3 branches of the sparse, dense, prefill and
      estimate kernels (fp8 pool and metadata) at page 16 and at page 32,
      each also timed beside its bf16 branch on the same values;
@@ -138,8 +149,10 @@ Phases, each fatal on failure:
      131040 tokens against the control (16 tokens; launches equal to the
      path's, seconds logged), bench_kernels at its defaults, at
      32/8 heads, (append, rope, rope_prefill, rope_append) at 32/8 heads
-     and B=2 and
-     (rms_norm, rms_norm_prefill, head_gemv) at B=2
+     and B=2,
+     (rms_norm, rms_norm_prefill, head_gemv) at B=2, (append_prefill,
+     silu_mul, silu_mul_prefill) at a T=8192 chunk and append_prefill
+     at B=2 over rows of 5000 and 2500
      (no reading above 3.35 TB/s or 989 TFLOP/s; each stage's kernel
      launched once a call), bench_serving (tokens generated and
      prefix hits), profile_textgen (every range of the unfused path with
@@ -1736,6 +1749,268 @@ def norm_head_cases(timer, gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3, the prefill append and the MLP's SiLU product.
+# ---------------------------------------------------------------------------
+
+def append_prefill_case(pool, meta, page, bpp, B=4, H=2, D=16, seed=0,
+                        device="cpu"):
+    """A two-layer cache of P = max(8, 2 bpp) pages a row whose pool and
+    metadata start random, a shuffled block table (each row its own
+    blocks), and three chunks as (seq_lens, new_lens, T): T = 2 page + 4
+    with a row of new_lens T from 0, one inside a page with fewer, an
+    empty row and a row at the pool's end (p0 = P - W, the write start
+    clamped before its offset); T = (P - 1) page + 3, so W = P, the
+    start clamped in three rows; T = 5 across a page edge, one token at
+    a page's start (its page's only valid slot), clamped at the pool's
+    end, and an empty row. ``B`` rows (at most 4) take the first B of
+    each. Returns (cache, steps)."""
+    from quest_tpu_torch.config import ModelConfig, QuestConfig
+    from quest_tpu_torch.kv.paged_kv import init_cache
+    P = max(8, 2 * bpp)
+    quest = QuestConfig(page_size=page, max_seq_len=P * page,
+                        block_pages=bpp, kv_dtype=LAYER_DTYPES[pool],
+                        meta_dtype=LAYER_DTYPES[meta])
+    cache = init_cache(ModelConfig(num_kv_heads=H, num_heads=H, head_dim=D),
+                       quest, batch_size=B, num_layers=2, device=device)
+    rng = np.random.default_rng(seed)
+
+    def rand(t):
+        x = torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32))
+        return (2 * x).to(t.dtype).to(device)
+
+    cache.kv_pages = rand(cache.kv_pages)
+    hi, lo = rand(cache.k_max).float(), rand(cache.k_min).float()
+    cache.k_max = torch.maximum(hi, lo).to(LAYER_DTYPES[meta])
+    cache.k_min = torch.minimum(hi, lo).to(LAYER_DTYPES[meta])
+    NPB, NB = cache.k_max.shape[2], cache.block_tab.shape[1]
+    tab = rng.permutation(np.arange(1, NPB))[:B * NB].reshape(B, NB)
+    cache.block_tab = torch.from_numpy(tab.astype(np.int32)).to(device)
+    end = P * page
+    T0, T1 = 2 * page + 4, (P - 1) * page + 3
+    steps = [([0, page + 5, 2 * page + 3, end - page + 4],
+              [T0, T0 - 3, 0, page - 4], T0),
+             ([5, 0, page - 1, 2 * page], [T1, T1 // 2, T1, 7], T1),
+             ([page - 2, 2 * page, end - 2, 3], [5, 1, 2, 0], 5)]
+    return cache, [(torch.tensor(o[:B], dtype=torch.int32, device=device),
+                    torch.tensor(n[:B], dtype=torch.int32, device=device), T)
+                   for o, n, T in steps]
+
+
+def prefill_inputs(B, T, H, D, inp, seed, device="cpu", large=False,
+                   low=False):
+    """k, v [B, T, H, D] of dtype ``inp`` with inf and NaN lanes; with
+    ``large`` also, in one token, values an fp8 cast saturates or not by
+    torch version (470, -1000, 465, 3e38); with ``low`` a key of
+    -3.3e38 (a bf16 value) at row 1's first token: where it is its
+    page's only valid slot (the T = 5 chunk of
+    :func:`append_prefill_case`), the max folds it with the invalid
+    slots' -3.0e38 and -3.0e38 wins."""
+    rng = np.random.default_rng(seed)
+    k = 2 * rng.standard_normal((B, T, H, D)).astype(np.float32)
+    v = 2 * rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k[0, min(1, T - 1), 0, 3], v[0, min(2, T - 1), -1, 5] = np.inf, np.nan
+    k[-1, -1, -1, 1] = np.nan
+    if large:
+        k[0, 0, -1, :4] = [470.0, -1000.0, 465.0, 3e38]
+    if low:
+        k[min(1, B - 1), 0, 0, 6] = -3.3e38
+    return (torch.from_numpy(k).to(LAYER_DTYPES[inp]).to(device),
+            torch.from_numpy(v).to(LAYER_DTYPES[inp]).to(device))
+
+
+def same_outside_scratch(a, b):
+    """Pool and metadata bit for bit outside physical block 0 (scratch)."""
+    bpp = a.block_pages
+    return (same_bits(a.kv_pages[:, :, bpp:], b.kv_pages[:, :, bpp:])
+            and same_bits(a.k_max[:, :, 1:], b.k_max[:, :, 1:])
+            and same_bits(a.k_min[:, :, 1:], b.k_min[:, :, 1:]))
+
+
+def prefill_append_bytes(cache, k, new_lens):
+    """What one prefill append of ``k`` [B, T, Hkv, D] into ``cache`` at
+    its lengths must move for this run's rows
+    (``scripts/bench_kernels.py:append_prefill_bytes``)."""
+    from quest_tpu_torch.scripts.bench_kernels import append_prefill_bytes
+    B, T, H, D = k.shape
+    return append_prefill_bytes(
+        cache.seq_lens.tolist(), new_lens.tolist(), T, H, D, cache.page_size,
+        cache.max_pages, k.element_size(), cache.kv_pages.element_size(),
+        cache.k_max.element_size())
+
+
+SILU_ULPS = 1                     # silu_mul vs plain: expf may differ
+
+
+def prefill_mlp_cases(timer, gen):
+    """The prefill append (``csrc/append.cu``'s prefill route against
+    ``append_prefill_at_plain``) and the MLP's SiLU product
+    (``csrc/silu_mul.cu`` against ``silu_mul_plain``). The append at full
+    width (8 KV heads, head dim 128, bf16 k/v, pool and metadata, page
+    16, 64-page blocks, a shuffled table): the T=8192 chunk of one row
+    (profile_textgen's ctx 8192) and the serving phase's B=2, T=5120
+    chunk of rows of 5000 and 2500, each timed in turns with its plain
+    version under the memset and the read flush; then every (pool,
+    metadata) dtype pair on the chunks of :func:`append_prefill_case` at
+    pages 16 and 32 with 64-page blocks and page 16 with 1-page blocks,
+    bf16 and f32 k/v, non-finite and large inputs (e4m3 codes past 448,
+    a page whose only valid key is below -3.0e38): pool (padding tokens
+    included) and metadata (of untouched pages too) bit for bit outside
+    scratch block 0. The SiLU
+    product at the decode step's [2, 14336] and the T=8192 chunk's
+    [8192, 14336], bf16 and f32, timed the same way, then an odd length
+    with special values and an unaligned view (the scalar path): bit for
+    bit or within SILU_ULPS, the differing share printed. No single
+    PyTorch call computes either function: ``library_ms`` is null."""
+    from quest_tpu_torch.kv.paged_kv import (append_prefill_at,
+                                             append_prefill_at_plain)
+    from quest_tpu_torch.ops.silu_mul import silu_mul, silu_mul_plain
+    from quest_tpu_torch.utils.benchmarking import Timer
+    out = {"append_prefill": [], "silu_mul": []}
+    read_timer = Timer(flush="read")
+    dev = torch.device("cuda")
+    log("prefill append and silu_mul: no single PyTorch call computes "
+        "either function: library_ms is null")
+
+    def append(label, cache, lens, new_lens, k, v, time_it=False,
+               record=True):
+        cache.seq_lens = lens
+        ref = clone_cache(cache)
+        lay = cache.kv_pages.shape[0] - 1           # the last layer
+        before = append_prefill_at.launches
+        append_prefill_at(cache, lay, k, v, new_lens=new_lens)
+        assert append_prefill_at.launches == before + 1
+        append_prefill_at_plain(ref, lay, k, v, new_lens=new_lens)
+        torch.cuda.synchronize()
+        assert same_outside_scratch(cache, ref), \
+            f"prefill append differs from the plain version ({label})"
+        nbytes = prefill_append_bytes(cache, k, new_lens)
+        row = dict(case=label, max_abs_err=0.0, max_rel_err=0.0,
+                   bitwise_equal=True, ms=None, plain_ms=None,
+                   library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        msg = ""
+        if time_it:
+            msg = timed_both(timer, read_timer, row, {
+                "ms": lambda: append_prefill_at(cache, lay, k, v, new_lens),
+                "plain_ms": lambda: append_prefill_at_plain(
+                    cache, lay, k, v, new_lens)}) + (
+                f", {nbytes / 1e6:.3f} MB")
+        if record:
+            out["append_prefill"].append(row)
+            log(f"append_prefill[{label}]: pool and metadata bitwise equal "
+                f"outside scratch{msg}")
+        return row
+
+    # The main path's shapes: a T=8192 chunk (B=1), the serving chunk.
+    for B, T, n in ((1, 8192, [8192]), (2, 5120, [5000, 2500])):
+        _, _, cache = make_pool(16384, B, gen)
+        H, D = cache.kv_pages.shape[1], cache.kv_pages.shape[-1]
+        k = torch.randn((B, T, H, D), generator=gen, device=dev).bfloat16()
+        v = torch.randn((B, T, H, D), generator=gen, device=dev).bfloat16()
+        zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+        append(f"prefill chunk: bf16, page 16, B={B}, T={T}, rows of {n} "
+               f"tokens from 0", cache, zeros,
+               torch.tensor(n, dtype=torch.int32, device=dev), k, v,
+               time_it=True)
+        del cache, k, v
+    torch.cuda.empty_cache()
+    H, D = 8, 128
+    geoms = ((16, 64), (32, 64), (16, 1))
+    for pool in LAYER_DTYPES:
+        for meta in LAYER_DTYPES:
+            n, first = 0, None
+            for page, bpp in geoms:
+                for inp in ("bf16", "f32"):
+                    if inp == "f32" and (page, bpp) != geoms[0]:
+                        continue
+                    c, steps = append_prefill_case(pool, meta, page, bpp,
+                                                   H=H, D=D, seed=page + bpp,
+                                                   device=dev)
+                    for i, (lens, nl, T) in enumerate(steps):
+                        k, v = prefill_inputs(4, T, H, D, inp, seed=i,
+                                              device=dev, large=True,
+                                              low=True)
+                        row = append(f"{pool} pool, {meta} metadata, {inp} "
+                                     f"k/v, page {page}, {bpp}-page blocks, "
+                                     f"T={T}", c, lens, nl, k, v,
+                                     record=False)
+                        first = first or row
+                        n += 1
+                    del c
+            first["case"] = (f"{pool} pool, {meta} metadata: {n} chunks "
+                             "(pages 16 and 32, 64- and 1-page blocks, bf16 "
+                             "and f32 k/v; empty, short and full rows, W = "
+                             "P, clamped at the pool's end, large and "
+                             "non-finite inputs)")
+            out["append_prefill"].append(first)
+            log(f"append_prefill[{first['case']}]: pool and metadata "
+                f"bitwise equal outside scratch in every one")
+
+    def silu(label, shape, dtype, time_it=False, special=False, shift=0):
+        n = math.prod(shape)
+        flat = torch.randn(2 * n, generator=gen, device=dev) * 4
+        if special:
+            flat[:6] = torch.tensor([float("inf"), -float("inf"),
+                                     float("nan"), -100.0, 100.0, -0.0])
+        # With ``shift`` the operands start ``shift`` elements past an
+        # allocation (not 16-byte aligned: the kernel's scalar path).
+        gs = torch.empty(n + shift, dtype=dtype, device=dev)
+        us = torch.empty(n + shift, dtype=dtype, device=dev)
+        gs[shift:], us[shift:] = flat[:n], flat[n:]
+        g, u = gs[shift:].view(shape), us[shift:].view(shape)
+        before = silu_mul.launches
+        got = silu_mul(g, u)
+        assert silu_mul.launches == before + 1
+        want = silu_mul_plain(g, u)
+        torch.cuda.synchronize()
+        fin, inf = torch.isfinite(want), torch.isinf(want)
+        assert torch.equal(torch.isnan(got), torch.isnan(want)) and (
+            torch.equal(got[inf], want[inf])), \
+            f"silu_mul's NaN and inf differ from the plain version ({label})"
+        ulps = ulp_distance(got[fin], want[fin])
+        differ, worst = int((ulps > 0).sum()), int(ulps.max())
+        assert worst <= SILU_ULPS, \
+            f"silu_mul {worst} ulps from the plain version ({label})"
+        nbytes = 3 * n * g.element_size()
+        row = dict(case=label,
+                   max_abs_err=float((got[fin].float()
+                                      - want[fin].float()).abs().max()),
+                   max_rel_err=rel_err(got[fin], want[fin]),
+                   bitwise_equal=differ == 0, ulps_max=worst,
+                   differing_share=differ / n, ms=None, plain_ms=None,
+                   library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        msg = ""
+        if time_it:
+            msg = timed_both(timer, read_timer, row, {
+                "ms": lambda: silu_mul(g, u),
+                "plain_ms": lambda: silu_mul_plain(g, u)}) + (
+                f", {nbytes / 1e6:.3f} MB")
+        out["silu_mul"].append(row)
+        log(f"silu_mul[{label}]: {differ} of {n} elements differ from the "
+            f"plain version ({100 * differ / n:.4f}%), at most {worst} "
+            f"ulp{msg}")
+
+    bf16 = torch.bfloat16
+    silu("decode step, bf16 [2, 14336]", (2, 1, 14336), bf16, time_it=True)
+    silu("prefill chunk, bf16 [8192, 14336]", (1, 8192, 14336), bf16,
+         time_it=True)
+    silu("decode step, f32 [2, 14336]", (2, 1, 14336), torch.float32,
+         time_it=True)
+    silu("prefill chunk, f32 [8192, 14336]", (1, 8192, 14336),
+         torch.float32, time_it=True)
+    for dtype in (bf16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        silu(f"odd length with inf, NaN, +-100 and -0, {name} [3, 1000003]",
+             (3, 1000003), dtype, special=True)
+        silu(f"unaligned view (scalar path), {name} [5, 14336]", (5, 14336),
+             dtype, shift=1)
+    del read_timer
+    torch.cuda.empty_cache()
+    return out
+
+
 def fp8_cases(timer, gen):
     """The fp8 e4m3 branches of the four attention kernels at the
     serving configuration's shapes (Llama-3.1-8B attention, B=2, 32768 +
@@ -2194,7 +2469,9 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
     from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
     from quest_tpu_torch.ops.head_gemv import head_gemv
     from quest_tpu_torch.ops.qdot import dequant, qgemv
+    from quest_tpu_torch.kv.paged_kv import append_prefill_at
     from quest_tpu_torch.ops.rms_norm import rms_norm
+    from quest_tpu_torch.ops.silu_mul import silu_mul
     cfg = dataclasses.replace(small_tpu_model(), num_layers=4, num_heads=8,
                               num_kv_heads=2, dtype=dtype)
     if serving_kv is not None:
@@ -2215,6 +2492,7 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
     cpu = QuestEngine(cfg, quest, params, batch_size=2, device="cpu")
     fused_sparse_decode.launches = qgemv.launches = dequant.launches = 0
     rms_norm.launches = head_gemv.launches = 0
+    silu_mul.launches = append_prefill_at.launches = 0
     g, c = gpu.prefill(prompts), cpu.prefill(prompts)
     errs, same = [], []
     assert all(-(-len(p) // quest.page_size) > quest.page_budget
@@ -2229,7 +2507,9 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
     torch.cuda.synchronize()
     launches = fused_sparse_decode.launches
     weight_launches = dict(qgemv=qgemv.launches, dequant=dequant.launches)
-    norm_head = dict(rms_norm=rms_norm.launches, head_gemv=head_gemv.launches)
+    norm_head = dict(rms_norm=rms_norm.launches, head_gemv=head_gemv.launches,
+                     silu_mul=silu_mul.launches,
+                     append_prefill=append_prefill_at.launches)
     name = str(dtype).split(".")[-1] + ("/fused" if fused else "") + (
         f"/serving {str(serving_kv).split('.')[-1]} KV" if serving_kv
         else "") + (f"/int{bits} weights" if bits else "")
@@ -2246,11 +2526,15 @@ def small_reference_phase(dtype, tol=None, steps=8, fused=False,
     assert weight_launches == want, (
         f"weight kernel launches {weight_launches} != path {want}")
     # A forward (the one-chunk prefill, each decode step) runs 2L + 1
-    # norms, and one head_gemv where the head is plain bf16.
+    # norms, L SiLU products, and one head_gemv where the head is plain
+    # bf16; the prefill one append a layer.
     want = dict(rms_norm=(2 * cfg.num_layers + 1) * (steps + 1),
                 head_gemv=(steps + 1) if dtype == torch.bfloat16
-                and not bits else 0)
-    assert norm_head == want, f"norm / head launches {norm_head} != {want}"
+                and not bits else 0,
+                silu_mul=cfg.num_layers * (steps + 1),
+                append_prefill=cfg.num_layers)
+    assert norm_head == want, (f"norm / head / SiLU / prefill append "
+                               f"launches {norm_head} != {want}")
     assert all(same), f"greedy tokens differ from the CPU path ({name})"
     assert tol is None or max(errs) <= tol, (
         f"card path disagrees with the CPU path: {max(errs)}")
@@ -2279,15 +2563,17 @@ SERVING_PATHS = ("unfused", "fused", "serving", "serving_fp8")
 # `new_lens > 0` mask is made once a step. The 2L + 1 = 65 norms are one
 # launch each, the 64 residual adds folded into them, and the head one
 # head_gemv launch. So 687 - 32 = 655 unfused and serving (bf16 and fp8
-# KV), 627 - 32 = 595 fused. The int8 and int4 engines' step
-# (QUANT_OPS_PER_STEP) runs one qgemv a linear, 7 a layer and the head's,
-# where the bf16 step runs 7 cuBLAS products and 3 split-K reductions a
-# layer and one head_gemv: 655 - 321 + 225 = 559 (591 - 32 before the
-# rope went into the append's launch). Each count is of ops launched
+# KV), 627 - 32 = 595 fused; the MLP's SiLU and its product one launch
+# a layer (silu_mul) where they were two: 623 and 563. The int8 and int4
+# engines' step (QUANT_OPS_PER_STEP) runs one qgemv a linear, 7 a layer
+# and the head's, where the bf16 step runs 7 cuBLAS products and 3
+# split-K reductions a layer and one head_gemv: 623 - 321 + 225 = 527
+# (559 before silu_mul, 591 before the rope went into the append's
+# launch). Each count is of ops launched
 # (profile_steps): the profiler can lose a launched op's device record.
-DEVICE_OPS_PER_STEP = {"unfused": 655, "fused": 595, "serving": 655,
-                       "serving_fp8": 655}
-QUANT_OPS_PER_STEP = 559
+DEVICE_OPS_PER_STEP = {"unfused": 623, "fused": 563, "serving": 623,
+                       "serving_fp8": 623}
+QUANT_OPS_PER_STEP = 527
 # The kernels a sparse layer launches on the unfused decode step, one
 # each.
 SPARSE_LAYER_KERNELS = ("estimate", "topk_select", "sparse_decode")
@@ -2295,14 +2581,17 @@ SPARSE_LAYER_KERNELS = ("estimate", "topk_select", "sparse_decode")
 
 def layer_launches(L, forwards, decode_steps, heads=None):
     """The launches of the kernels every layer of every path runs: the
-    2L + 1 norms once a forward (a prefill chunk or a decode step), rope
-    once a prefill chunk, the rope and append together (rope_append) once
-    a decode step; and ``head_gemv``, once a forward of a plain bf16 head
-    over at most 16 rows (``heads``, default ``forwards``; 0 for a
-    quantized head). The standalone append launches on no path."""
+    2L + 1 norms and L SiLU products once a forward (a prefill chunk or a
+    decode step), rope and the prefill append once a prefill chunk, the
+    rope and append together (rope_append) once a decode step; and
+    ``head_gemv``, once a forward of a plain bf16 head over at most 16
+    rows (``heads``, default ``forwards``; 0 for a quantized head). The
+    standalone decode append launches on no path."""
     return {"rope": L * (forwards - decode_steps),
+            "append_prefill": L * (forwards - decode_steps),
             "rope_append": L * decode_steps,
             "rms_norm": (2 * L + 1) * forwards,
+            "silu_mul": L * forwards,
             "head_gemv": forwards if heads is None else heads}
 # Idle seconds between a profiled window's edges and the steps inside it.
 PROFILE_MARGIN_S = 0.25
@@ -3703,7 +3992,14 @@ def tools_phase(params, kernels, smi):
                            "append,rope,rope_prefill,rope_append"]),
                          ("B=2, the norm and the head",
                           ["--kv-heads", "8", "--batch", "2", "--stages",
-                           "rms_norm,rms_norm_prefill,head_gemv"])):
+                           "rms_norm,rms_norm_prefill,head_gemv"]),
+                         ("a T=8192 chunk's prefill append and SiLU product",
+                          ["--kv-heads", "8", "--ctx", "8192", "--stages",
+                           "append_prefill,silu_mul,silu_mul_prefill"]),
+                         ("B=2, the serving chunk's prefill append",
+                          ["--kv-heads", "8", "--ctx", "5120", "--batch",
+                           "2", "--prefill-lens", "5000,2500", "--stages",
+                           "append_prefill"])):
         t = time.time()
         detail = {}
         args = bench_kernels.parse_args(extra)
@@ -4374,6 +4670,12 @@ KERNEL_META = {
                  "quest_tpu/ops/rms_norm.py:16", "unfused"),
     "head_gemv": ("quest_tpu_torch/csrc/head_gemv.cu",
                   "quest_tpu/models/llama.py:329", "unfused"),
+    # No Pallas counterpart: they replace XLA's fusions of the JAX
+    # append_prefill_at and of the MLP's jax.nn.silu(g) * u.
+    "append_prefill": ("quest_tpu_torch/csrc/append.cu",
+                       "quest_tpu/kv/paged_kv.py:446", "unfused"),
+    "silu_mul": ("quest_tpu_torch/csrc/silu_mul.cu",
+                 "quest_tpu/models/llama.py:281", "unfused"),
 }
 # A second TPU kernel that the same CUDA kernel replaces.
 ALSO_REPLACES = {"copy_probe": "exp/dma_probe.py:111",
@@ -4390,6 +4692,7 @@ def tool_launches(tools, kname):
 def kernel_wrappers():
     """Each kernel's wrapper, which counts its launches."""
     from quest_tpu_torch.kv.paged_kv import (append_decode_at,
+                                             append_prefill_at,
                                              rope_append_decode_at)
     from quest_tpu_torch.ops.copy_probe import copy_probe
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
@@ -4402,6 +4705,7 @@ def kernel_wrappers():
     from quest_tpu_torch.ops.rms_norm import rms_norm
     from quest_tpu_torch.ops.rope import rotate_qk
     from quest_tpu_torch.ops.select_pieces import select_pieces
+    from quest_tpu_torch.ops.silu_mul import silu_mul
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return {"sparse_decode": sparse_decode_attention,
             "dense_decode": dense_decode_attention,
@@ -4412,7 +4716,8 @@ def kernel_wrappers():
             "qgemv": qgemv, "dequant": dequant,
             "append_decode": append_decode_at, "rope": rotate_qk,
             "rope_append": rope_append_decode_at, "rms_norm": rms_norm,
-            "head_gemv": head_gemv}
+            "head_gemv": head_gemv, "append_prefill": append_prefill_at,
+            "silu_mul": silu_mul}
 
 
 def main():
@@ -4437,7 +4742,8 @@ def main():
                "prefill": prefill_cases(timer, gen),
                **fused_slice_cases(timer, gen),
                **layer_op_cases(timer, gen),
-               **norm_head_cases(timer, gen)}
+               **norm_head_cases(timer, gen),
+               **prefill_mlp_cases(timer, gen)}
     for kname, cases in selection.items():      # the main path's first
         results[kname] = cases + results[kname]
     for kname, cases in fp8_cases(timer, gen).items():

@@ -52,6 +52,46 @@
 // append's chain. Rows never share a written slot outside scratch (a
 // shared prefix block is only read by the rows that share it), so CTAs
 // need no ordering.
+//
+// The prefill route (append_prefill_launch) writes a chunk of T tokens a
+// row and recomputes the min/max metadata of the window it touches, one
+// launch a layer's chunk. No Pallas counterpart either: it replaces the
+// XLA fusion of quest_tpu/kv/paged_kv.py:446 append_prefill_at (Quest's
+// own reference runs it as one CUDA kernel, AppendPagedKVCachePrefill),
+// which the port ran as ~70 plain PyTorch ops a layer
+// (kv/paged_kv.py:append_prefill_at_plain). Bit for bit that plain
+// version outside scratch block 0:
+//   * per row b, read on the device: offset = seq_lens[b], n = new_lens[b]
+//     (T without new_lens); W = min(P, T / page + 2) pages from p0 =
+//     min(offset / page, P - W); the write starts at p0 * page + local,
+//     local = clamp(offset - p0 * page, 0, W * page - T) (the clamp of
+//     JAX's dynamic_update_slice, which bites at the pool's end);
+//   * token t goes to logical position start + t as cast(finite(k|v)),
+//     every KV head, padding tokens t >= n included;
+//   * each window page's metadata is the fold over its slots of the
+//     POOL-ROUNDED key in f32 (the new token's where the slot was written,
+//     else the pool's old key), a slot valid when its position is below
+//     offset + n; invalid slots fold as -3.0e38 into the max and +3.0e38
+//     into the min, as the plain version's where() does (so a valid key
+//     below -3.0e38 loses to an invalid slot's -3.0e38 there too); NaN
+//     propagates as in torch.amax / amin (an fp8 pool holds NaN codes;
+//     which of two NaNs of different signs wins is the reduction order's,
+//     in the plain version too); written, cast to the metadata dtype,
+//     only for pages with a valid slot. An fp8 pool key widens by c10's
+//     cast (denormals kept), not upcast_fp8.
+//   * A row with n == 0 writes nothing at all (the plain version sends it
+//     to scratch block 0, which no row reads as its own; with several
+//     such rows its scratch bits are not determined there either).
+// Bound on the H100: bytes. At the B=1, T=8192 chunk of 8 KV heads k and
+// v in bf16 are 33.5 MB read, the pool rows 33.5 MB written, and about 2
+// MB of metadata: ~21 us at 3.35 TB/s. So one pass: a warp a (window
+// page, KV head, row), eight warps a CTA; a half-warp takes a token row
+// (16 lanes x 8 dims, 16-byte loads of bf16), so a warp covers two slots
+// an instruction; the old pool key is read only for a valid slot the
+// chunk did not write; the fold stays in registers and the two
+// half-warps meet in one shuffle. No shared memory, no second pass.
+// Rows never write the same slot outside scratch, and a page belongs to
+// one warp, so CTAs need no ordering.
 #include "common.cuh"
 
 namespace {
@@ -283,6 +323,173 @@ append_decode_kernel(Args a) {
   }
 }
 
+// Eight consecutive elements of a Store<C> array at element i (a
+// multiple of 8, so the access is 8-, 16- or 32-byte aligned), raw.
+template <int C>
+__device__ __forceinline__ void load8(const void* base, int64_t i,
+                                      typename Store<C>::T* raw) {
+  using T = typename Store<C>::T;
+  const T* p = static_cast<const T*>(base) + i;
+  if constexpr (sizeof(T) == 4) {
+    const float4 x = reinterpret_cast<const float4*>(p)[0];
+    const float4 y = reinterpret_cast<const float4*>(p)[1];
+    raw[0] = x.x; raw[1] = x.y; raw[2] = x.z; raw[3] = x.w;
+    raw[4] = y.x; raw[5] = y.y; raw[6] = y.z; raw[7] = y.w;
+  } else if constexpr (sizeof(T) == 2) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      raw[2 * j] = static_cast<T>(w[j] & 0xFFFFu);
+      raw[2 * j + 1] = static_cast<T>(w[j] >> 16);
+    }
+  } else {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      raw[j] = static_cast<T>((x.x >> (8 * j)) & 0xFFu);
+      raw[4 + j] = static_cast<T>((x.y >> (8 * j)) & 0xFFu);
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store8(void* base, int64_t i,
+                                       const typename Store<C>::T* raw) {
+  using T = typename Store<C>::T;
+  T* p = static_cast<T*>(base) + i;
+  if constexpr (sizeof(T) == 4) {
+    reinterpret_cast<float4*>(p)[0] =
+        make_float4(raw[0], raw[1], raw[2], raw[3]);
+    reinterpret_cast<float4*>(p)[1] =
+        make_float4(raw[4], raw[5], raw[6], raw[7]);
+  } else if constexpr (sizeof(T) == 2) {
+    unsigned w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = static_cast<unsigned>(raw[2 * j]) |
+             (static_cast<unsigned>(raw[2 * j + 1]) << 16);
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    unsigned lo = 0, hi = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lo |= static_cast<unsigned>(raw[j]) << (8 * j);
+      hi |= static_cast<unsigned>(raw[4 + j]) << (8 * j);
+    }
+    *reinterpret_cast<uint2*>(p) = make_uint2(lo, hi);
+  }
+}
+
+// The prefill route's operands (see append_prefill_launch).
+struct PrefillArgs {
+  void* kv;
+  void* kmax;
+  void* kmin;
+  const int* tab;
+  const int* seq_lens;
+  const int* new_lens;  // NULL: T a row
+  const void* k;
+  const void* v;
+  int T, Hkv, NP, page, NPB, bpp, NB, P, W;
+  Fp8Codes pool_c, meta_c;
+};
+
+constexpr int kPrefillWarps = 8;
+constexpr float kInvalid = 3.0e38f;   // the plain version's `big`
+
+// A warp a (window page w, KV head h) of row b = blockIdx.y; lane l takes
+// dims 8 (l % 16) .. 8 (l % 16) + 7 of slots l / 16, l / 16 + 2, ...
+template <int IN, int POOL, int META>
+__global__ void __launch_bounds__(32 * kPrefillWarps)
+append_prefill_kernel(PrefillArgs a) {
+  using In = Store<IN>;
+  using Pool = Store<POOL>;
+  using Meta = Store<META>;
+  const int unit = blockIdx.x * kPrefillWarps + threadIdx.x / 32;
+  if (unit >= a.W * a.Hkv) return;
+  const int h = unit % a.Hkv, w = unit / a.Hkv, b = blockIdx.y;
+  const int lane = threadIdx.x % 32, half = lane >> 4, d0 = (lane & 15) * 8;
+  const int offset = a.seq_lens[b];
+  const int n = a.new_lens == nullptr ? a.T : a.new_lens[b];
+  if (n <= 0) return;                              // inactive: no writes
+  const int p0 = min(offset / a.page, a.P - a.W);
+  const int local = min(max(offset - p0 * a.page, 0), a.W * a.page - a.T);
+  const int start = p0 * a.page + local;
+  const int lp = p0 + w, pos0 = lp * a.page;
+  const int w_lo = max(start, pos0), w_hi = min(start + a.T, pos0 + a.page);
+  const int end_valid = offset + n;
+  const bool any_valid = pos0 < end_valid;
+  if (w_lo >= w_hi && !any_valid) return;          // nothing to do here
+  const int blk = a.tab[b * a.NB + lp / a.bpp], off = lp % a.bpp;
+  const int64_t krow = kv_row(h, blk * a.bpp + off, 0, a.NP, a.page, kD);
+  const int64_t vrow = krow + static_cast<int64_t>(a.page) * kD;
+  float hi[8], lo[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    hi[i] = __uint_as_float(0xFF800000u);        // -inf
+    lo[i] = __uint_as_float(0x7F800000u);        // +inf
+  }
+#pragma unroll 4
+  for (int e = half; e < a.page; e += 2) {
+    const int pos = pos0 + e;
+    const bool valid = pos < end_valid;
+    typename Pool::T kq[8];
+    if (pos >= w_lo && pos < w_hi) {
+      const int64_t src =
+          ((static_cast<int64_t>(b) * a.T + (pos - start)) * a.Hkv + h) * kD
+          + d0;
+      typename In::T kr[8], vr[8];
+      load8<IN>(a.k, src, kr);
+      load8<IN>(a.v, src, vr);
+      typename Pool::T vq[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float kf = In::widen(kr[i]), vf = In::widen(vr[i]);
+        kq[i] = Pool::narrow(isfinite(kf) ? kf : 0.f, a.pool_c);
+        vq[i] = Pool::narrow(isfinite(vf) ? vf : 0.f, a.pool_c);
+      }
+      store8<POOL>(a.kv, krow + static_cast<int64_t>(e) * kD + d0, kq);
+      store8<POOL>(a.kv, vrow + static_cast<int64_t>(e) * kD + d0, vq);
+    } else if (valid) {
+      load8<POOL>(a.kv, krow + static_cast<int64_t>(e) * kD + d0, kq);
+    }
+    if (valid) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = Pool::widen(kq[i]);
+        hi[i] = nan_max(hi[i], x);
+        lo[i] = nan_min(lo[i], x);
+      }
+    }
+  }
+  if (!any_valid) return;                          // warp-uniform
+  const bool some_invalid = pos0 + a.page > end_valid;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    // Half-warp 0's slots first in either lane, so both halves agree.
+    const float oh = __shfl_xor_sync(0xFFFFFFFFu, hi[i], 16);
+    const float ol = __shfl_xor_sync(0xFFFFFFFFu, lo[i], 16);
+    hi[i] = half == 0 ? nan_max(hi[i], oh) : nan_max(oh, hi[i]);
+    lo[i] = half == 0 ? nan_min(lo[i], ol) : nan_min(ol, lo[i]);
+    if (some_invalid) {
+      hi[i] = nan_max(hi[i], -kInvalid);
+      lo[i] = nan_min(lo[i], kInvalid);
+    }
+  }
+  if (half != 0) return;
+  const int64_t meta = ((static_cast<int64_t>(h) * a.NPB + blk) * a.bpp +
+                        off) * kD + d0;
+  typename Meta::T mh[8], ml[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mh[i] = Meta::narrow(hi[i], a.meta_c);
+    ml[i] = Meta::narrow(lo[i], a.meta_c);
+  }
+  store8<META>(a.kmax, meta, mh);
+  store8<META>(a.kmin, meta, ml);
+}
+
 template <int IN, int POOL, int META, bool ROTATE>
 cudaError_t launch(const Args& a, int B, int Hkv, cudaStream_t stream) {
   const int warps = ROTATE ? 1 + (a.G < 31 ? a.G : 31) : 1;
@@ -291,25 +498,39 @@ cudaError_t launch(const Args& a, int B, int Hkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool ROTATE, int IN, int POOL>
-cudaError_t with_meta(int meta_code, const Args& a, int B, int Hkv,
-                      cudaStream_t s) {
+// The dtype codes as template arguments: by_codes(in, kv, meta, f) calls
+// f(Codes<IN, POOL, META>{}) for the codes given (0 f32, 1 bf16, 2 fp8).
+template <int I, int P, int M>
+struct Codes {
+  static constexpr int in = I, pool = P, meta = M;
+};
+
+template <int IN, int POOL, typename F>
+cudaError_t with_meta(int meta_code, const F& f) {
   switch (meta_code) {
-    case 0: return launch<IN, POOL, 0, ROTATE>(a, B, Hkv, s);
-    case 1: return launch<IN, POOL, 1, ROTATE>(a, B, Hkv, s);
-    case 2: return launch<IN, POOL, 2, ROTATE>(a, B, Hkv, s);
+    case 0: return f(Codes<IN, POOL, 0>{});
+    case 1: return f(Codes<IN, POOL, 1>{});
+    case 2: return f(Codes<IN, POOL, 2>{});
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool ROTATE, int IN>
-cudaError_t with_pool(int kv_code, int meta_code, const Args& a, int B,
-                      int Hkv, cudaStream_t s) {
+template <int IN, typename F>
+cudaError_t with_pool(int kv_code, int meta_code, const F& f) {
   switch (kv_code) {
-    case 0: return with_meta<ROTATE, IN, 0>(meta_code, a, B, Hkv, s);
-    case 1: return with_meta<ROTATE, IN, 1>(meta_code, a, B, Hkv, s);
-    case 2: return with_meta<ROTATE, IN, 2>(meta_code, a, B, Hkv, s);
+    case 0: return with_meta<IN, 0>(meta_code, f);
+    case 1: return with_meta<IN, 1>(meta_code, f);
+    case 2: return with_meta<IN, 2>(meta_code, f);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename F>
+int by_codes(int in_code, int kv_code, int meta_code, const F& f) {
+  switch (in_code) {   // the input: f32 or bf16
+    case 0: return static_cast<int>(with_pool<0>(kv_code, meta_code, f));
+    case 1: return static_cast<int>(with_pool<1>(kv_code, meta_code, f));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -320,13 +541,10 @@ int dispatch(int in_code, int kv_code, int meta_code, const Args& a, int B,
       a.NB < 1 || a.NPB < 1 || a.NP != a.NPB * a.bpp)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (in_code) {
-    case 0: return static_cast<int>(
-        with_pool<ROTATE, 0>(kv_code, meta_code, a, B, Hkv, s));
-    case 1: return static_cast<int>(
-        with_pool<ROTATE, 1>(kv_code, meta_code, a, B, Hkv, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_codes(in_code, kv_code, meta_code, [&](auto c) {
+    using C = decltype(c);
+    return launch<C::in, C::pool, C::meta, ROTATE>(a, B, Hkv, s);
+  });
 }
 
 }  // namespace
@@ -379,4 +597,39 @@ extern "C" int rope_append_launch(void* kv, void* kmax, void* kmin,
                {static_cast<unsigned>(meta_ovf),
                 static_cast<unsigned>(meta_carry)}};
   return dispatch<true>(in_code, kv_code, meta_code, a, B, Hkv, stream);
+}
+
+// The prefill route: k / v [B, T, Hkv, 128] (in_code), new_lens [B] int32
+// or NULL (T a row), P logical pages a row (NB * bpp at most), W =
+// min(P, T / page + 2) window pages; T must fit the window (T <= W *
+// page). The other arguments as append_decode_launch's.
+extern "C" int append_prefill_launch(void* kv, void* kmax, void* kmin,
+                                     const int* tab, const int* seq_lens,
+                                     const int* new_lens, const void* k,
+                                     const void* v, int B, int T, int Hkv,
+                                     int NP, int page, int NPB, int bpp,
+                                     int NB, int P, int W, int in_code,
+                                     int kv_code, int meta_code,
+                                     int pool_ovf, int pool_carry,
+                                     int meta_ovf, int meta_carry,
+                                     void* stream) {
+  if (B < 1 || B > 65535 || T < 1 || Hkv < 1 || page < 1 || bpp < 1 ||
+      NB < 1 || NPB < 1 || NP != NPB * bpp || P < 1 || P > NB * bpp ||
+      W < 1 || W > P || static_cast<int64_t>(W) * page < T ||
+      static_cast<int64_t>(P) * page > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PrefillArgs a{kv, kmax, kmin, tab, seq_lens, new_lens, k, v, T, Hkv,
+                      NP, page, NPB, bpp, NB, P, W,
+                      {static_cast<unsigned>(pool_ovf),
+                       static_cast<unsigned>(pool_carry)},
+                      {static_cast<unsigned>(meta_ovf),
+                       static_cast<unsigned>(meta_carry)}};
+  const dim3 grid((W * Hkv + kPrefillWarps - 1) / kPrefillWarps, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_codes(in_code, kv_code, meta_code, [&](auto c) {
+    using C = decltype(c);
+    append_prefill_kernel<C::in, C::pool, C::meta>
+        <<<grid, 32 * kPrefillWarps, 0, s>>>(a);
+    return cudaGetLastError();
+  });
 }

@@ -82,6 +82,7 @@ def is_eager() -> bool:
 def launch_counters() -> tuple:
     """Every kernel wrapper that counts its launches."""
     from quest_tpu_torch.kv.paged_kv import (append_decode_at,
+                                             append_prefill_at,
                                              rope_append_decode_at)
     from quest_tpu_torch.ops.copy_probe import copy_probe
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
@@ -95,12 +96,14 @@ def launch_counters() -> tuple:
     from quest_tpu_torch.ops.rms_norm import rms_norm
     from quest_tpu_torch.ops.rope import rotate_qk
     from quest_tpu_torch.ops.select_pieces import select_pieces
+    from quest_tpu_torch.ops.silu_mul import silu_mul
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return (sparse_decode_attention, dense_decode_attention,
             fused_sparse_decode, prefill_attention, page_scores_kernel,
             page_scores_physical, exact_topk_select, qgemv, dequant,
             copy_probe, select_pieces, append_decode_at, rotate_qk,
-            rope_append_decode_at, rms_norm, head_gemv)
+            rope_append_decode_at, rms_norm, head_gemv, append_prefill_at,
+            silu_mul)
 
 
 class CudaGraph:

@@ -17,8 +17,8 @@ in the step, or from L2: what w's round trip costs). Then it serves
 full-width Llama-3.1-8B (random bf16 weights, the
 unfused ``QuestConfig``, B=2, prompts of 5000 and 2500 tokens) and reads
 its captured decode step: wall ms a step over ``--steps`` replays, and
-a profile of 4 replays (each kernel's device us a launch, device busy ms
-and device ops a step).
+a profile of 4 replays (each kernel's device us a launch, ``silu_mul``'s
+where the package has it, device busy ms and device ops a step).
 
 It calls only what both the tree before the decode step's rope moved
 into the append and the trees after it hold, so one call can run it on
@@ -45,7 +45,8 @@ import torch
 
 from quest_tpu_torch.config import QuestConfig, llama31_8b, tiny_test_model
 
-KERNELS = ("rms_norm_kernel", "append_decode_kernel", "rope_kernel")
+KERNELS = ("rms_norm_kernel", "append_decode_kernel", "rope_kernel",
+           "silu_mul_kernel")
 PROFILE_STEPS = 4
 MARGIN_S = 0.25          # idle inside the profiled window's edges
 

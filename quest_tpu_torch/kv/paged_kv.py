@@ -223,13 +223,15 @@ def append_prefill(layer: LayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def _append_launch_args(cache: PagedKVCache, layer: int, k_new, v_new,
-                        active) -> tuple:
-    """The checks both decode appends make on a CUDA tensor, and the
-    arguments their C entry points share after the operands: (kv, k_max,
-    k_min, block_tab, seq_lens, active) pointers, then the geometry and
-    the dtype and e4m3 codes (see ``csrc/append.cu``)."""
+                        active=None, new_lens=None) -> tuple:
+    """The checks the appends make on a CUDA tensor (``k_new`` [B, Hkv, D]
+    at decode, [B, T, Hkv, D] at prefill), and the arguments their C
+    entry points share: the (kv, k_max, k_min, block_tab, seq_lens, mask)
+    pointers, the mask ``active`` (decode) or ``new_lens`` (prefill); the
+    pool's geometry (NP, page, NPB, bpp, NB); the dtype and e4m3 codes
+    (see ``csrc/append.cu``)."""
     kv, kmax, kmin = cache.kv_pages[layer], cache.k_max[layer], cache.k_min[layer]
-    B, Hkv, D = k_new.shape
+    B, Hkv, D = k_new.shape[0], k_new.shape[-2], k_new.shape[-1]
     if D != 128:
         raise NotImplementedError("the CUDA kernels take head_dim 128")
     if k_new.dtype not in (torch.bfloat16, torch.float32) or (
@@ -247,7 +249,10 @@ def _append_launch_args(cache: PagedKVCache, layer: int, k_new, v_new,
     if active is not None and (active.dtype != torch.bool
                                or active.shape != (B,)):
         raise TypeError("active must be a bool [B] tensor")
-    for t in (k_new, v_new, kv, kmax, kmin, tab, lens, active):
+    if new_lens is not None and (new_lens.dtype != torch.int32
+                                 or new_lens.shape != (B,)):
+        raise TypeError("new_lens must be an int32 [B] tensor")
+    for t in (k_new, v_new, kv, kmax, kmin, tab, lens, active, new_lens):
         if t is not None and (t.device != k_new.device
                               or not t.is_contiguous()):
             raise ValueError("the append takes contiguous operands on "
@@ -259,11 +264,13 @@ def _append_launch_args(cache: PagedKVCache, layer: int, k_new, v_new,
                   if kv.dtype == fp8 else (0, 0))
     meta_codes = (fp8_cast_codes(kv.device, torch.float32)
                   if kmax.dtype == fp8 else (0, 0))
-    ptrs = [_build.ptr(t) for t in (kv, kmax, kmin, tab, lens, active)]
-    geometry = [kv.shape[1], kv.shape[-2], kmax.shape[1], kmax.shape[2],
-                tab.shape[1], int(k_new.dtype == torch.bfloat16), kv_code,
-                meta_code, *pool_codes, *meta_codes]
-    return ptrs, geometry
+    mask = active if new_lens is None else new_lens
+    ptrs = [_build.ptr(t) for t in (kv, kmax, kmin, tab, lens, mask)]
+    dims = [kv.shape[1], kv.shape[-2], kmax.shape[1], kmax.shape[2],
+            tab.shape[1]]
+    codes = [int(k_new.dtype == torch.bfloat16), kv_code, meta_code,
+             *pool_codes, *meta_codes]
+    return ptrs, dims, codes
 
 
 def append_decode_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
@@ -287,11 +294,12 @@ def append_decode_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
     """
     if not k_new.is_cuda:
         return append_decode_at_plain(cache, layer, k_new, v_new, active)
-    ptrs, geometry = _append_launch_args(cache, layer, k_new, v_new, active)
+    ptrs, dims, codes = _append_launch_args(cache, layer, k_new, v_new,
+                                            active)
     B, Hkv, _ = k_new.shape
     lib = _build.load("append")
     code = lib.append_decode_launch(
-        *ptrs, _build.ptr(k_new), _build.ptr(v_new), B, Hkv, *geometry,
+        *ptrs, _build.ptr(k_new), _build.ptr(v_new), B, Hkv, *dims, *codes,
         _build.stream_of(k_new))
     _build.check(lib, code, "append_decode")
     append_decode_at.launches += 1
@@ -344,13 +352,14 @@ def rope_append_decode_at(cache: PagedKVCache, layer: int, q: torch.Tensor,
         if t.device != k_new.device or not t.is_contiguous():
             raise ValueError("the rope and append take contiguous operands "
                              "on k_new's device")
-    ptrs, geometry = _append_launch_args(cache, layer, k_new, v_new, active)
+    ptrs, dims, codes = _append_launch_args(cache, layer, k_new, v_new,
+                                            active)
     q_out = torch.empty_like(q)
     lib = _build.load("append")
     code = _rope_append_entry(lib)(
         *ptrs, _build.ptr(q), _build.ptr(k_new), _build.ptr(v_new),
         _build.ptr(q_out), _build.ptr(cos), _build.ptr(sin), B, Hkv,
-        q.shape[1] // Hkv, *geometry, _build.stream_of(q))
+        q.shape[1] // Hkv, *dims, *codes, _build.stream_of(q))
     _build.check(lib, code, "rope_append")
     rope_append_decode_at.launches += 1
     return q_out
@@ -415,6 +424,36 @@ def append_decode_at_plain(cache: PagedKVCache, layer: int,
     kmin[:, blk, off] = new_min.to(kmin.dtype)
 
 
+def _prefill_entry(lib):
+    fn = lib.append_prefill_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 17 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _prefill_launch_args(cache: PagedKVCache, layer: int, k_new, v_new,
+                         new_lens) -> tuple:
+    """The checks the prefill append makes on a CUDA tensor: those of
+    :func:`_append_launch_args`, a chunk that fits its window and 16-byte
+    aligned operands. Returns its arguments and the window's pages W =
+    min(P, T // page + 2)."""
+    T = k_new.shape[1]
+    W = min(cache.max_pages, T // cache.page_size + 2)
+    if T > W * cache.page_size:
+        raise ValueError(f"a chunk of {T} tokens does not fit the "
+                         f"{W}-page window of {cache.page_size}-token pages")
+    ptrs, dims, codes = _append_launch_args(cache, layer, k_new, v_new,
+                                            new_lens=new_lens)
+    for t in (k_new, v_new, cache.kv_pages[layer], cache.k_max[layer],
+              cache.k_min[layer]):
+        if t.data_ptr() % 16:
+            raise ValueError("the prefill append takes 16-byte aligned k, "
+                             "v, pool and metadata")
+    return ptrs, dims, codes, W
+
+
 def append_prefill_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
                       v_new: torch.Tensor,
                       new_lens: torch.Tensor | None = None) -> None:
@@ -428,7 +467,38 @@ def append_prefill_at(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
     starts at ``p0 = min(offset // page, P - W)``, and the write start
     inside it is clamped so the T tokens fit, as JAX's
     ``dynamic_update_slice`` clamps.
+
+    On a CUDA tensor one launch of ``csrc/append.cu``'s prefill route (the
+    counterpart of the XLA fusion of the JAX ``append_prefill_at``), bit
+    for bit :func:`append_prefill_at_plain` outside scratch block 0 (a row
+    with ``new_lens == 0`` writes nothing there): it reads ``seq_lens``,
+    the block table and ``new_lens`` on the device. It takes what
+    :func:`append_decode_at` takes (head dim 128, bf16 or f32 ``k_new`` /
+    ``v_new`` of one dtype, contiguous and 16-byte aligned, f32 / bf16 /
+    fp8 e4m3 pools and metadata), an int32 ``new_lens`` and T <= W x page;
+    anything else raises. On a CPU tensor :func:`append_prefill_at_plain`.
     """
+    if not k_new.is_cuda:
+        return append_prefill_at_plain(cache, layer, k_new, v_new, new_lens)
+    ptrs, dims, codes, W = _prefill_launch_args(cache, layer, k_new, v_new,
+                                                new_lens)
+    B, T, Hkv, _ = k_new.shape
+    lib = _build.load("append")
+    code = _prefill_entry(lib)(
+        *ptrs, _build.ptr(k_new), _build.ptr(v_new), B, T, Hkv, *dims,
+        cache.max_pages, W, *codes, _build.stream_of(k_new))
+    _build.check(lib, code, "append_prefill")
+    append_prefill_at.launches += 1
+
+
+append_prefill_at.launches = 0
+
+
+def append_prefill_at_plain(cache: PagedKVCache, layer: int,
+                            k_new: torch.Tensor, v_new: torch.Tensor,
+                            new_lens: torch.Tensor | None = None) -> None:
+    """:func:`append_prefill_at` in plain PyTorch ops (the CPU's path, and
+    what the kernel is held to on the card)."""
     kv, kmax, kmin = cache.kv_pages[layer], cache.k_max[layer], cache.k_min[layer]
     B, T, H, D = k_new.shape
     page = kv.shape[-2]

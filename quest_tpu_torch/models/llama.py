@@ -5,12 +5,14 @@
 weights as buffers, plain or int8/int4 quantized (every linear is a
 ``models.quantize.qdot``). Each layer runs RMSNorm (the residual add
 before it folded in: one launch of ``ops/rms_norm.py`` on the card), the
-q/k/v projections, then either the prefill path (rope, append the chunk,
-causal prefill attention) or the decode path (rope and append of one
+q/k/v projections, then either the prefill path (rope, append the chunk:
+one launch of ``kv/paged_kv.py:append_prefill_at`` on the card, causal
+prefill attention) or the decode path (rope and append of one
 token, one launch of ``kv/paged_kv.py:rope_append_decode_at`` on the
 card; the first ``skip_layers`` layers attend densely, the others run
 estimate -> top-k -> sparse attention, or the fused kernel where
-:func:`fused_gate` allows it), then the o-projection and the SwiGLU MLP. The cache is
+:func:`fused_gate` allows it), then the o-projection and the SwiGLU MLP
+(its SiLU product one launch of ``ops/silu_mul.py`` on the card). The cache is
 updated in place. Each stage runs inside a trace range named as the JAX
 model's ``jax.named_scope`` (:data:`TRACE_RANGES`), opened only while a
 profiler is active (:func:`trace_range`).
@@ -37,6 +39,7 @@ from quest_tpu_torch.ops.prefill import prefill_attention
 from quest_tpu_torch.ops.rms_norm import rms_norm
 from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
                                       rotate_qk)
+from quest_tpu_torch.ops.silu_mul import silu_mul
 from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
 from quest_tpu_torch.ops.topk import select_pages
 from quest_tpu_torch.ops.utils import resolve_device
@@ -320,8 +323,9 @@ class QuestModel(nn.Module):
             o = self._maybe_all_reduce(self._linear(attn, "wo", l))
         with trace_range("mlp"):
             x, h2 = self._norm(x, o, self.ln_mlp[l])
-            gate = torch.nn.functional.silu(self._linear(h2, "w_gate", l))
-            mlp = self._linear(gate * self._linear(h2, "w_up", l), "w_down", l)
+            mlp = self._linear(silu_mul(self._linear(h2, "w_gate", l),
+                                        self._linear(h2, "w_up", l)),
+                               "w_down", l)
         return x, self._maybe_all_reduce(mlp)
 
     @torch.no_grad()

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry point and its argument types, per kernel source.
 SIGNATURES = {
     "sparse_decode": ("sparse_decode_launch",
@@ -49,10 +50,13 @@ SIGNATURES = {
     # The library's second entry point, dequant_launch, is bound by
     # ops/qdot.py.
     "qgemv": ("qgemv_launch", [_P] * 7 + [_I] * 9 + [_P, _P]),
+    # The library's other entry points, rope_append_launch and
+    # append_prefill_launch, are bound by kv/paged_kv.py.
     "append": ("append_decode_launch", [_P] * 8 + [_I] * 14 + [_P]),
     "rope": ("rope_launch", [_P] * 6 + [_I] * 4 + [_P]),
     "rms_norm": ("rms_norm_launch", [_P] * 6 + [_I] * 2 + [_F, _I, _P]),
     "head_gemv": ("head_gemv_launch", [_P] * 5 + [_I] * 5 + [_P]),
+    "silu_mul": ("silu_mul_launch", [_P] * 3 + [_L, _I, _P]),
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -27,9 +27,15 @@ q and k, one token a row: ``csrc/rope.cu`` on the card),
 rotate flag on the card),
 ``rms_norm`` (a decode step's norm with its residual add, bf16 rows of
 the model width heads x head_dim: ``csrc/rms_norm.cu`` on the card),
-``rms_norm_prefill`` (the same over a chunk of up to 8192 tokens) and
+``rms_norm_prefill`` (the same over a chunk of up to 8192 tokens),
 ``head_gemv`` (the decode step's f32 product with a bf16 head of
-``--vocab`` columns: ``csrc/head_gemv.cu`` on the card).
+``--vocab`` columns: ``csrc/head_gemv.cu`` on the card),
+``append_prefill`` (``append_prefill_at`` of a bf16 chunk of up to 8192
+tokens a row into a pool of its own, from position 0, the rows'
+lengths ``--prefill-lens``: ``csrc/append.cu``'s prefill route on the
+card), ``silu_mul`` (the MLP's SiLU product of a decode step's bf16 rows
+of ``--inter`` columns: ``csrc/silu_mul.cu`` on the card) and
+``silu_mul_prefill`` (the same over a chunk of up to 8192 tokens).
 
     python -m quest_tpu_torch.scripts.bench_kernels [--ctx 32768]
         [--budget 2048] [--heads 32] [--kv-heads 32] [--stages all|...]
@@ -37,6 +43,10 @@ the model width heads x head_dim: ``csrc/rms_norm.cu`` on the card),
         append,rope,rope_prefill,rope_append --kv-heads 8   # rope and append
     python -m quest_tpu_torch.scripts.bench_kernels --stages \\
         rms_norm,rms_norm_prefill,head_gemv --batch 2    # norm and head
+    python -m quest_tpu_torch.scripts.bench_kernels --stages \\
+        append_prefill,silu_mul,silu_mul_prefill --kv-heads 8 --ctx 8192
+    python -m quest_tpu_torch.scripts.bench_kernels --stages append_prefill \\
+        --kv-heads 8 --ctx 5120 --batch 2 --prefill-lens 5000,2500
     python -m quest_tpu_torch.scripts.bench_kernels --device cpu \\
         --ctx 2048 --budget 256 --heads 4 --kv-heads 2          # smoke
 """
@@ -65,7 +75,9 @@ PORT_STAGES = {"rope": "rope_decode", "rope_prefill": "rope_prefill",
                "rope_append": "rope_append_decode",
                "rms_norm": "rms_norm_decode",
                "rms_norm_prefill": "rms_norm_prefill",
-               "head_gemv": "head_gemv"}
+               "head_gemv": "head_gemv", "append_prefill": "append_prefill",
+               "silu_mul": "silu_mul_decode",
+               "silu_mul_prefill": "silu_mul_prefill"}
 ROPE_CHUNK = 8192                # rope_prefill's tokens (at most ctx)
 
 
@@ -84,6 +96,11 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--vocab", type=int, default=128256,
                     help="the head_gemv stage's columns")
+    ap.add_argument("--inter", type=int, default=14336,
+                    help="the silu_mul stages' columns (the MLP's width)")
+    ap.add_argument("--prefill-lens", type=str, default=None,
+                    help="the append_prefill stage's new tokens a row, "
+                         "comma-separated (default: the chunk each)")
     ap.add_argument("--stages", type=str, default="all")
     ap.add_argument("--iters", type=int, default=20,
                     help="timed launches a stage (the median is reported), "
@@ -127,6 +144,36 @@ def head_bytes(B, hid, vocab) -> int:
     return hid * vocab * 2 + B * (hid + vocab) * 4
 
 
+def append_prefill_bytes(offsets, lens, T, Hkv, D, page, P, in_bpe=2,
+                         kv_bpe=2, meta_bpe=2) -> int:
+    """What one prefill append of ``T`` tokens a row must move, rows at
+    ``offsets`` with ``lens`` new tokens, into a pool of ``P`` pages a
+    row: for each non-empty row k and v read and their T rows written,
+    the old pool keys of its window's valid slots that the chunk does not
+    write read, the metadata rows of window pages with a valid slot
+    written, and the W = min(P, T // page + 2) table entries read; every
+    row's length and new length read."""
+    W = min(P, T // page + 2)
+    total = 0
+    for off, n in zip(offsets, lens):
+        total += 8
+        if n <= 0:
+            continue
+        p0 = min(off // page, P - W)
+        start = p0 * page + min(max(off - p0 * page, 0), W * page - T)
+        end = min(off + n, (p0 + W) * page)   # the window's valid slots
+        old = max(0, min(start, end) - p0 * page) + max(0, end - start - T)
+        pages = max(0, -(-(end - p0 * page) // page))
+        total += (2 * T * Hkv * D * (in_bpe + kv_bpe) + old * Hkv * D * kv_bpe
+                  + 2 * pages * Hkv * D * meta_bpe + 4 * W)
+    return total
+
+
+def silu_mul_bytes(rows, inter, bpe=2) -> int:
+    """gate and up read, the product written."""
+    return 3 * rows * inter * bpe
+
+
 def prefill_flops(B, Hq, D, ctx, chunk) -> float:
     """Two matmuls x 2 FLOPs a MAC x chunk x the mean causal span x D, a
     head: a chunk at the end of the context attends to all of it."""
@@ -150,6 +197,7 @@ class HostTimer:
 def stage_kernels():
     """Stage -> the kernel wrapper it launches (None: plain PyTorch ops)."""
     from quest_tpu_torch.kv.paged_kv import (append_decode_at,
+                                             append_prefill_at,
                                              rope_append_decode_at)
     from quest_tpu_torch.ops.dense_decode import dense_decode_attention
     from quest_tpu_torch.ops.estimate import page_scores_physical
@@ -158,6 +206,7 @@ def stage_kernels():
     from quest_tpu_torch.ops.prefill import prefill_attention
     from quest_tpu_torch.ops.rms_norm import rms_norm
     from quest_tpu_torch.ops.rope import rotate_qk
+    from quest_tpu_torch.ops.silu_mul import silu_mul
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     return {"estimate": page_scores_physical, "topk": exact_topk_select,
             "sparse": sparse_decode_attention,
@@ -165,7 +214,9 @@ def stage_kernels():
             "prefill": prefill_attention, "pipeline": sparse_decode_attention,
             "rope": rotate_qk, "rope_prefill": rotate_qk,
             "rope_append": rope_append_decode_at, "rms_norm": rms_norm,
-            "rms_norm_prefill": rms_norm, "head_gemv": head_gemv}
+            "rms_norm_prefill": rms_norm, "head_gemv": head_gemv,
+            "append_prefill": append_prefill_at, "silu_mul": silu_mul,
+            "silu_mul_prefill": silu_mul}
 
 
 def run_bench_kernels(args, detail=None) -> dict:
@@ -183,6 +234,7 @@ def run_bench_kernels(args, detail=None) -> dict:
     from quest_tpu_torch.ops.rms_norm import rms_norm
     from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
                                           rotate_qk)
+    from quest_tpu_torch.ops.silu_mul import silu_mul
     from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
     from quest_tpu_torch.ops.topk import select_pages
     from quest_tpu_torch.ops.utils import resolve_device
@@ -270,6 +322,28 @@ def run_bench_kernels(args, detail=None) -> dict:
                   rms_norm_prefill=norm_bytes(B * RT, HID),
                   head_gemv=head_bytes(B, HID, V))
 
+    # The prefill append: a chunk of RT tokens a row from position 0 of a
+    # pool of its own (the other stages' pool keeps its context).
+    lens = ([int(x) for x in args.prefill_lens.split(",")]
+            if args.prefill_lens else [RT] * B)
+    if len(lens) != B:
+        raise SystemExit(f"--prefill-lens gives {len(lens)} rows, --batch "
+                         f"{B}")
+    if "append_prefill" in want:
+        pcache = init_cache(model, quest, batch_size=B, num_layers=1,
+                            device=dev)
+        p_in = (normal(B, RT, Hkv, D).bfloat16(),
+                normal(B, RT, Hkv, D).bfloat16(),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+    silu_in = {n: (normal(B, t, args.inter).bfloat16(),
+                   normal(B, t, args.inter).bfloat16())
+               for n, t in (("silu_mul", 1), ("silu_mul_prefill", RT))
+               if n in want}
+    nbytes.update(append_prefill=append_prefill_bytes([0] * B, lens, RT, Hkv,
+                                                        D, page, P),
+                  silu_mul=silu_mul_bytes(B, args.inter),
+                  silu_mul_prefill=silu_mul_bytes(B * RT, args.inter))
+
     fns = {
         "estimate": estimate,
         "topk": lambda: select_pages(scores0, seq, page, S),
@@ -289,6 +363,10 @@ def run_bench_kernels(args, detail=None) -> dict:
         "rms_norm": lambda: rms_norm(*norm_in["rms_norm"]),
         "rms_norm_prefill": lambda: rms_norm(*norm_in["rms_norm_prefill"]),
         "head_gemv": lambda: head_gemv(*head_in),
+        # seq_lens stays 0: every call writes the same chunk.
+        "append_prefill": lambda: append_prefill_at(pcache, 0, *p_in),
+        "silu_mul": lambda: silu_mul(*silu_in["silu_mul"]),
+        "silu_mul_prefill": lambda: silu_mul(*silu_in["silu_mul_prefill"]),
     }
     if dev.type == "cuda":
         from quest_tpu_torch.utils.benchmarking import Timer

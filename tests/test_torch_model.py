@@ -181,6 +181,8 @@ def test_port_imports_no_jax():
             "quest_tpu_torch.ops.estimate, quest_tpu_torch.ops.fused_decode, "
             "quest_tpu_torch.utils.benchmarking, "
             "quest_tpu_torch.ops.copy_probe, quest_tpu_torch.ops.select_pieces, "
+            "quest_tpu_torch.ops.silu_mul, quest_tpu_torch.ops.rms_norm, "
+            "quest_tpu_torch.kv.paged_kv, "
             "quest_tpu_torch.exp.dma_probe, quest_tpu_torch.exp.gather_ab, "
             "quest_tpu_torch.exp.select_compile2, "
             "quest_tpu_torch.exp.fused_stages, "
