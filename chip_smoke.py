@@ -174,8 +174,7 @@ Phases, each fatal on failure:
      scheduler with its steps captured: tokens (the sampled request's
      too), ticks and launches equal to phase 8's eager run; phase 14's
      bench_textgen runs (32K, the control, fused, fp8 at page 32) each
-     also under ``eager()``; ``exp/scheduler_load 16`` under ``eager()``
-     and captured.
+     also under ``eager()``.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this script, it exits non-zero and prints
@@ -4603,30 +4602,6 @@ def graph_engine_phase(engines, prompts, kernels, smi, N=32, steps=16):
     return out
 
 
-def scheduler_load_phase(params, smi, n=16):
-    """``python -m quest_tpu_torch.exp.scheduler_load 16`` over phase 6's
-    weights, under ``eager()`` and then captured: the busy window's
-    generated tokens/s and ms a decode step of each."""
-    from quest_tpu_torch.engine.graphs import eager
-    from quest_tpu_torch.exp import scheduler_load
-    res = {}
-    for mode in ("eager", "graph"):
-        t = time.time()
-        with eager() if mode == "eager" else contextlib.nullcontext():
-            res[mode] = scheduler_load.run_load(params, n, device="cuda")
-        torch.cuda.empty_cache()
-        r = res[mode]
-        thirds = " / ".join(f"{x:.1f}" for x in
-                            r["generated_tokens_per_s_by_third"] if x)
-        log(f"scheduler_load[{mode}, {n} requests]: "
-            f"{r['generated_tokens_per_s']:.1f} generated tokens/s over the "
-            f"window (thirds {thirds}), "
-            f"{r['decode_ms_per_step']:.2f} ms a decode step, prefill "
-            f"{r['prefill_tokens_per_s']:.0f} tokens/s, live rows "
-            f"{r['live_row_share']:.2f}; {time.time() - t:.1f} s; card {smi}")
-    return res
-
-
 # name: (source, the TPU kernel it replaces, the path whose run gives its
 # launch count: a serving engine, "probe" for the probe path, None where
 # no path launches it)
@@ -4800,8 +4775,6 @@ def main():
     serving["evals"] = eval_phase(llama31_8b(), params, kernel_wrappers())
     torch.cuda.empty_cache()
     serving["tools"] = tools_phase(params, kernel_wrappers(), smi)
-    torch.cuda.empty_cache()
-    serving["scheduler_load"] = scheduler_load_phase(params, smi)
     torch.cuda.empty_cache()
     t15 = time.time()
     serving["multi_gpu"] = {"15a": world1_phase(params, kernel_wrappers())}

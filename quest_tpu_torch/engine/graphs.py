@@ -40,6 +40,9 @@ Buffers the ops cache and replace when they grow (the decode and
 captured them (:func:`quest_tpu_torch.ops.utils.holding`), so a later
 growth never frees memory a replay writes.
 
+Each warm-up and capture is a ``capture`` span of the trace recorder
+(``utils/trace.py``), so a graph built again while serving shows.
+
 Without capture (a CPU device, or ``capture=False``: a gloo process
 group, which cannot be captured) the same static-buffer body runs on
 every call with no graph. Under :func:`eager` every step runs as the
@@ -60,6 +63,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from quest_tpu_torch.ops.utils import holding
+from quest_tpu_torch.utils.trace import RECORDER
 
 _eager_depth = 0
 
@@ -199,7 +203,9 @@ class Compiled:
                            {k: _static_copy(v, dev)
                             for k, v in kwargs.items()})
             if self.graphs.new_graph is not None:
-                out = self._warm_up_and_capture(entry)
+                with RECORDER.span("capture",
+                                   fn=getattr(self.fn, "__name__", "")):
+                    out = self._warm_up_and_capture(entry)
                 self.entries[key] = entry
                 return out
             self.entries[key] = entry

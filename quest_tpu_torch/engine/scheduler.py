@@ -39,6 +39,16 @@ JAX.
 The cache is mutated in place: admission and recycling write the slot's
 ``block_tab`` row and ``seq_lens`` entry directly.
 
+Each tick is traced (``utils/trace.py``): a ``tick`` span holding
+``admit`` and ``prefill_tick`` or ``decode_burst``, each of those four
+children (``prepare``: host arrays and their copies to the device;
+``enqueue``: the model call or the K replays; ``fetch``: the blocking copy
+to the host; ``emit``: first tokens, prefix publication, events); request
+events ``submit``, ``admit``, ``first_token`` and ``finish``; and on the
+card device marks before the tick's first launch, after each decode step
+and after its last launch, read into the tick's attributes after its
+fetch (the steps' while the next tick's work runs).
+
 Under a ``(dp, tp)`` mesh (``parallel/mesh.py``; one process a rank)
 the slots split into ``dp`` groups of ``max_batch / dp``, each with its
 own ``PagePool``, prefix registry and slice of the physical pool (its
@@ -69,6 +79,7 @@ from quest_tpu_torch.models.llama import Params, QuestModel
 from quest_tpu_torch.ops.utils import resolve_device, round_up
 from quest_tpu_torch.parallel.mesh import DP_AXIS, rank_device, shard_params
 from quest_tpu_torch.parallel.tp import Shard, init_sharded_cache
+from quest_tpu_torch.utils.trace import RECORDER, DeviceMarks
 
 
 @dataclasses.dataclass
@@ -192,6 +203,11 @@ class ContinuousBatchingEngine:
         self._chains: Dict[int, List[bytes]] = {}
         self.prefix_hits = 0            # introspection for tests
         self.prefix_hit_tokens = 0
+        # Tracing (utils/trace.py): this engine's id in the recorder, its
+        # device marks, and the running tick span's attributes.
+        self._trace_id = RECORDER.new_engine()
+        self._marks = DeviceMarks(self.device)
+        self._tick_attrs: dict = {}
 
     # ------------------------------------------------------------------
     def _blocks_needed(self, req: Request) -> int:
@@ -215,11 +231,16 @@ class ContinuousBatchingEngine:
         return torch.from_numpy(
             x[self._row0:self._row0 + self._slots_per_group]).to(self.device)
 
+    def _span(self, name: str, **attrs):
+        return RECORDER.span(name, self._trace_id, **attrs)
+
     def _gather(self, t: torch.Tensor) -> np.ndarray:
-        """Every dp group's rows of a result, in slot order, on the host."""
-        if self._shard is not None:
-            t = self._shard.gather(t)
-        return t.cpu().numpy()
+        """Every dp group's rows of a result, in slot order, on the host
+        (the tick's one blocking fetch)."""
+        with self._span("fetch"):
+            if self._shard is not None:
+                t = self._shard.gather(t)
+            return t.cpu().numpy()
 
     def submit(self, req: Request) -> None:
         if len(req.prompt) + req.max_new_tokens > self.quest.max_seq_len:
@@ -229,6 +250,7 @@ class ContinuousBatchingEngine:
                 f"request {req.uid} needs {self._blocks_needed(req)} "
                 f"blocks; each pool group holds {self.pools[0].total_pages}")
         self.queue.append(req)
+        RECORDER.event("submit", req.uid, self._trace_id)
 
     @property
     def num_active(self) -> int:
@@ -277,69 +299,74 @@ class ContinuousBatchingEngine:
         A registered prompt prefix is borrowed instead of prefilled
         again: its physical blocks alias into the slot's table row and
         only the rest is reserved and written."""
-        free = [b for b, s in enumerate(self.slots) if s is None]
-        while free and self.queue:
-            req = self.queue[0]
-            keys = self._prefix_chain(req) if self._prefix_cap else []
+        with self._span("admit") as span:
+            admitted = span.attrs["admitted"] = []   # (uid, hit tokens)
+            free = [b for b, s in enumerate(self.slots) if s is None]
+            while free and self.queue:
+                req = self.queue[0]
+                keys = self._prefix_chain(req) if self._prefix_cap else []
 
-            def find_slot():
-                # The first free slot whose dp group's allocator has room
-                # for the unshared rest (FIFO over requests).
-                for i, b in enumerate(free):
-                    g = self._group(b)
-                    n_sh, blocks = self._prefix_lookup(g, keys)
-                    if (self.pools[g].free_pages()
-                            >= self._blocks_needed(req) - n_sh):
-                        return i, (n_sh, blocks)
-                return None, None
+                def find_slot():
+                    # The first free slot whose dp group's allocator has
+                    # room for the unshared rest (FIFO over requests).
+                    for i, b in enumerate(free):
+                        g = self._group(b)
+                        n_sh, blocks = self._prefix_lookup(g, keys)
+                        if (self.pools[g].free_pages()
+                                >= self._blocks_needed(req) - n_sh):
+                            return i, (n_sh, blocks)
+                    return None, None
 
-            pick, hit = find_slot()
-            # Registry holds must never starve admission (submit() checked
-            # the request fits a pool): evict LRU entries, one a free slot
-            # a round as JAX does, until the head fits or the registries
-            # are empty.
-            while pick is None:
-                evicted = False
-                for b in free:
-                    reg = self._prefixes[self._group(b)]
-                    if reg:
-                        _, old = reg.popitem(last=False)
-                        self.pools[self._group(b)].pages_release(old)
-                        evicted = True
-                if not evicted:
-                    break
                 pick, hit = find_slot()
-            if pick is None:
-                break
-            self.queue.popleft()
-            b = free.pop(pick)
-            pool = self.pools[self._group(b)]
-            n_sh, shared = hit
-            shared = list(shared)
-            sh_tokens = n_sh * self.block_tokens
-            if n_sh:
-                pool.pages_retain(shared)       # slot hold until finish
-                self.prefix_hits += 1
-                self.prefix_hit_tokens += sh_tokens
-            sid = pool.seq_create()
-            # Reserve the WHOLE remaining need now: an admitted request
-            # never waits for memory again.
-            pool.seq_extend(sid, len(req.prompt) + req.max_new_tokens
-                            - sh_tokens)
-            raw, _ = pool.fill_batch_tables([sid], self._table_width,
-                                            pad_page=-1)
-            row = np.where(raw[0] < 0, 0, raw[0] + 1).astype(np.int32)
-            row = np.concatenate([np.asarray(shared, np.int32) + 1,
-                                  row])[:self._table_width]
-            rng = np.random.default_rng(self._seed * 7919 + req.uid)
-            self.slots[b] = _Slot(req=req, generated=[], pending=-1,
-                                  rng=rng, sid=sid, prefill_pos=sh_tokens,
-                                  shared_blocks=shared)
-            self._hlens[b] = sh_tokens
-            # Borrowed blocks carry their min/max metadata (keyed by
-            # physical block): the table row IS the whole admission.
-            self._set_row(b, torch.from_numpy(row).to(self.device),
-                          sh_tokens)
+                # Registry holds must never starve admission (submit()
+                # checked the request fits a pool): evict LRU entries, one a
+                # free slot a round as JAX does, until the head fits or the
+                # registries are empty.
+                while pick is None:
+                    evicted = False
+                    for b in free:
+                        reg = self._prefixes[self._group(b)]
+                        if reg:
+                            _, old = reg.popitem(last=False)
+                            self.pools[self._group(b)].pages_release(old)
+                            evicted = True
+                    if not evicted:
+                        break
+                    pick, hit = find_slot()
+                if pick is None:
+                    break
+                self.queue.popleft()
+                b = free.pop(pick)
+                pool = self.pools[self._group(b)]
+                n_sh, shared = hit
+                shared = list(shared)
+                sh_tokens = n_sh * self.block_tokens
+                if n_sh:
+                    pool.pages_retain(shared)   # slot hold until finish
+                    self.prefix_hits += 1
+                    self.prefix_hit_tokens += sh_tokens
+                admitted.append((req.uid, sh_tokens))
+                RECORDER.event("admit", req.uid, self._trace_id)
+                sid = pool.seq_create()
+                # Reserve the WHOLE remaining need now: an admitted
+                # request never waits for memory again.
+                pool.seq_extend(sid, len(req.prompt) + req.max_new_tokens
+                                - sh_tokens)
+                raw, _ = pool.fill_batch_tables([sid], self._table_width,
+                                                pad_page=-1)
+                row = np.where(raw[0] < 0, 0, raw[0] + 1).astype(np.int32)
+                row = np.concatenate([np.asarray(shared, np.int32) + 1,
+                                      row])[:self._table_width]
+                rng = np.random.default_rng(self._seed * 7919 + req.uid)
+                self.slots[b] = _Slot(req=req, generated=[], pending=-1,
+                                      rng=rng, sid=sid,
+                                      prefill_pos=sh_tokens,
+                                      shared_blocks=shared)
+                self._hlens[b] = sh_tokens
+                # Borrowed blocks carry their min/max metadata (keyed by
+                # physical block): the table row IS the whole admission.
+                self._set_row(b, torch.from_numpy(row).to(self.device),
+                              sh_tokens)
 
     def _publish_prefix(self, b: int, s: _Slot) -> None:
         """Register the completed prompt's full blocks for reuse in slot
@@ -367,33 +394,48 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------------
     def _prefill_tick(self, pf: List[int]) -> List[StepEvent]:
         """Write one prompt chunk for every prefilling slot ``pf``."""
-        B = self.max_batch
-        left = {b: len(self.slots[b].req.prompt) - self.slots[b].prefill_pos
-                for b in pf}
-        chunk = self.prefill_chunk or max(left.values())
-        T = round_up(max(min(chunk, n) for n in left.values()),
-                     self.prefill_bucket)
-        toks = np.zeros((B, T), np.int32)
-        new_lens = np.zeros((B,), np.int32)
-        for b in pf:
-            s = self.slots[b]
-            n = min(T, left[b])
-            toks[b, :n] = s.req.prompt[s.prefill_pos:s.prefill_pos + n]
-            new_lens[b] = n
-        logits = self._gather(self.model.prefill_last(
-            self.cache, self._rows(toks), self._rows(new_lens))[:, 0])
+        with self._span("prefill_tick"):
+            with self._span("prepare"):
+                B = self.max_batch
+                left = {b: len(self.slots[b].req.prompt)
+                        - self.slots[b].prefill_pos for b in pf}
+                chunk = self.prefill_chunk or max(left.values())
+                T = round_up(max(min(chunk, n) for n in left.values()),
+                             self.prefill_bucket)
+                toks = np.zeros((B, T), np.int32)
+                new_lens = np.zeros((B,), np.int32)
+                for b in pf:
+                    s = self.slots[b]
+                    n = min(T, left[b])
+                    toks[b, :n] = s.req.prompt[s.prefill_pos:
+                                               s.prefill_pos + n]
+                    new_lens[b] = n
+                toks_dev, lens_dev = self._rows(toks), self._rows(new_lens)
+            self._tick_attrs.update(prompt_tokens=int(new_lens.sum()),
+                                    padded_tokens=B * T)
+            with self._span("enqueue"):
+                self._marks.mark()
+                out = self.model.prefill_last(self.cache, toks_dev,
+                                              lens_dev)[:, 0]
+                self._marks.mark()
+                self._marks.settle()
+            logits = self._gather(out)
 
-        events: List[StepEvent] = []
-        for b in pf:
-            s = self.slots[b]
-            s.prefill_pos += int(new_lens[b])
-            self._hlens[b] += int(new_lens[b])
-            if not s.prefilling:  # prompt complete -> first token
-                self._publish_prefix(b, s)
-                first = self._sample(logits[b], s.req.temperature, s.rng)
-                s.generated.append(first)
-                s.pending = first
-                events.append(self._maybe_finish(b, s, first))
+            with self._span("emit"):
+                events: List[StepEvent] = []
+                for b in pf:
+                    s = self.slots[b]
+                    s.prefill_pos += int(new_lens[b])
+                    self._hlens[b] += int(new_lens[b])
+                    if not s.prefilling:  # prompt complete -> first token
+                        self._publish_prefix(b, s)
+                        first = self._sample(logits[b], s.req.temperature,
+                                             s.rng)
+                        s.generated.append(first)
+                        s.pending = first
+                        RECORDER.event("first_token", s.req.uid,
+                                       self._trace_id)
+                        events.append(self._maybe_finish(b, s, first))
         return events
 
     def _decode_burst(self, decoding: List[int]) -> List[StepEvent]:
@@ -401,55 +443,88 @@ class ContinuousBatchingEngine:
         ONE host fetch at the end. K is bounded by the longest remaining
         request and by every decoding slot's room before max_seq_len
         (slots that finish mid-burst keep appending until it ends)."""
-        B = self.max_batch
-        toks = np.zeros((B,), np.int32)
-        active = np.zeros((B,), bool)
-        temps = np.zeros((B,), np.float32)
-        for b in decoding:
-            s = self.slots[b]
-            toks[b] = s.pending
-            active[b] = True
-            temps[b] = max(s.req.temperature, 0.0)
-        remaining = max(self.slots[b].req.max_new_tokens
-                        - len(self.slots[b].generated) for b in decoding)
-        headroom = min(self.quest.max_seq_len - int(self._hlens[b])
-                       for b in decoding)
-        K = max(1, min(self.burst, remaining, headroom))
-        act = self._rows(active)
-        tok = self._rows(toks)
-        temps_dev = self._rows(temps) if temps.any() else None
-        outs = []
-        for _ in range(K):
-            if temps_dev is None:
-                tok = self._tok_fn(self.cache, tok, act)
-            else:
-                tok = self._sample_fn(self.cache, tok, self._gen, temps_dev,
-                                      act)
-            tok = tok.clone()               # the step's output is static
-            outs.append(tok)
-        arr = self._gather(torch.stack(outs, dim=1))             # [B, K]
-        for b in decoding:
-            self._hlens[b] += K
-        # Emit in token-time order (step-major) so cross-request finish
-        # order matches the unbatched semantics.
-        events: List[StepEvent] = []
-        done = set()
-        for k in range(K):
-            for b in decoding:
-                if b in done:
-                    continue        # the burst's junk tail is dropped
-                slot = self.slots[b]
-                nxt = int(arr[b, k])
-                slot.generated.append(nxt)
-                slot.pending = nxt
-                ev = self._maybe_finish(b, slot, nxt)
-                events.append(ev)
-                if ev.finished:
-                    done.add(b)
+        with self._span("decode_burst"):
+            with self._span("prepare"):
+                B = self.max_batch
+                toks = np.zeros((B,), np.int32)
+                active = np.zeros((B,), bool)
+                temps = np.zeros((B,), np.float32)
+                for b in decoding:
+                    s = self.slots[b]
+                    toks[b] = s.pending
+                    active[b] = True
+                    temps[b] = max(s.req.temperature, 0.0)
+                remaining = max(self.slots[b].req.max_new_tokens
+                                - len(self.slots[b].generated)
+                                for b in decoding)
+                headroom = min(self.quest.max_seq_len - int(self._hlens[b])
+                               for b in decoding)
+                K = max(1, min(self.burst, remaining, headroom))
+                act = self._rows(active)
+                tok = self._rows(toks)
+                temps_dev = self._rows(temps) if temps.any() else None
+            self._tick_attrs.update(rows=len(decoding), steps=K)
+            with self._span("enqueue"):
+                self._marks.mark()
+                outs = []
+                for _ in range(K):
+                    if temps_dev is None:
+                        tok = self._tok_fn(self.cache, tok, act)
+                    else:
+                        tok = self._sample_fn(self.cache, tok, self._gen,
+                                              temps_dev, act)
+                    tok = tok.clone()       # the step's output is static
+                    outs.append(tok)
+                    self._marks.mark()
+                out = torch.stack(outs, dim=1)                   # [B, K]
+                self._marks.mark()
+                self._marks.settle()
+            arr = self._gather(out)
+
+            with self._span("emit"):
+                for b in decoding:
+                    self._hlens[b] += K
+                # Emit in token-time order (step-major) so cross-request
+                # finish order matches the unbatched semantics.
+                events: List[StepEvent] = []
+                done = set()
+                for k in range(K):
+                    for b in decoding:
+                        if b in done:
+                            continue    # the burst's junk tail is dropped
+                        slot = self.slots[b]
+                        nxt = int(arr[b, k])
+                        slot.generated.append(nxt)
+                        slot.pending = nxt
+                        ev = self._maybe_finish(b, slot, nxt)
+                        events.append(ev)
+                        if ev.finished:
+                            done.add(b)
         return events
 
     def step(self) -> List[StepEvent]:
-        """One scheduler tick; returns per-request token events."""
+        """One scheduler tick; returns per-request token events. The tick
+        is one ``tick`` span of the recorder (utils/trace.py) whose
+        attributes are the tick's kind, rows and steps or prompt tokens,
+        the prefix-hit tokens gained, the queue, each pool group's free
+        blocks, whether work is left, and on the card its device times."""
+        with self._span("tick") as span:
+            self._tick_attrs = span.attrs
+            hits = self.prefix_hit_tokens
+            events = self._run_tick()
+            work_left = self.has_work()
+            span.attrs.update(
+                kind=self.last_tick, hit_tokens=self.prefix_hit_tokens - hits,
+                queue=len(self.queue),
+                free_blocks=[p.free_pages() for p in self.pools],
+                work_left=work_left)
+            self._marks.read(span.attrs)
+            if not work_left:
+                self._marks.settle()
+            self._tick_attrs = {}
+        return events
+
+    def _run_tick(self) -> List[StepEvent]:
         self._admit_slots()
         prefilling = [b for b, s in enumerate(self.slots)
                       if s is not None and s.prefilling]
@@ -474,6 +549,7 @@ class ContinuousBatchingEngine:
                 or (req.eos_token_id is not None
                     and token == req.eos_token_id))
         if done:
+            RECORDER.event("finish", req.uid, self._trace_id)
             self.slots[b] = None
             # Recycle: blocks back to the slot's group allocator, table
             # row to scratch, length to 0. Borrowed prefix blocks drop

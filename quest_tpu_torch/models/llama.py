@@ -15,12 +15,11 @@ estimate -> top-k -> sparse attention, or the fused kernel where
 (its SiLU product one launch of ``ops/silu_mul.py`` on the card). The cache is
 updated in place. Each stage runs inside a trace range named as the JAX
 model's ``jax.named_scope`` (:data:`TRACE_RANGES`), opened only while a
-profiler is active (:func:`trace_range`).
+profiler is active (:func:`quest_tpu_torch.utils.trace.trace_range`).
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, Optional
 
@@ -43,6 +42,7 @@ from quest_tpu_torch.ops.silu_mul import silu_mul
 from quest_tpu_torch.ops.sparse_decode import sparse_decode_attention
 from quest_tpu_torch.ops.topk import select_pages
 from quest_tpu_torch.ops.utils import resolve_device
+from quest_tpu_torch.utils.trace import trace_range
 
 Params = Dict[str, object]
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -52,17 +52,6 @@ TRACE_RANGES = ("qkv_proj", "rope", "append_kv_prefill", "prefill_attn",
                 "append_kv_decode", "quest_fused_decode", "quest_estimate",
                 "quest_topk", "quest_sparse_attn", "dense_decode_attn",
                 "o_proj", "mlp")
-
-
-def trace_range(name: str):
-    """A ``torch.profiler.record_function`` range named ``name`` while a
-    profiler is active, else a ``nullcontext``: a decode step opens ~12
-    ranges a layer, and building them unprofiled would cost host time.
-    The ranges open on the host, so a replayed step has none: read them
-    under ``engine.graphs.eager()``."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

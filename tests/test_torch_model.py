@@ -189,7 +189,6 @@ def test_port_imports_no_jax():
             "quest_tpu_torch.ops.decode_common, "
             "quest_tpu_torch.exp.decode_ablation, "
             "quest_tpu_torch.kv.pool, quest_tpu_torch.engine.scheduler, "
-            "quest_tpu_torch.exp.scheduler_load, "
             "quest_tpu_torch.scripts.bench_kernels, "
             "quest_tpu_torch.scripts.bench_textgen, "
             "quest_tpu_torch.scripts.bench_serving, "

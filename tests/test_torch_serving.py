@@ -15,7 +15,6 @@ allocation blocks so that prompts span several blocks.
 
 import copy
 import dataclasses
-import json
 import os
 import sys
 import types
@@ -173,19 +172,6 @@ def test_kernel_tap_takes_every_batch_kind(jx, eos):
     assert sorted(cases) == ["dense_decode", "prefill", "sparse_decode"]
     assert all(c["max_rel_err"] == 0 for cs in cases.values() for c in cs)
     assert any(len(c["rows"].split(", ")) >= 3 for c in cases["prefill"])
-
-
-def test_scheduler_load_window_on_cpu(capsys):
-    """``python -m quest_tpu_torch.exp.scheduler_load N --cpu``: the busy
-    window's ticks, steps and rates add up."""
-    from quest_tpu_torch.exp import scheduler_load
-    assert scheduler_load.main(["12", "--cpu"]) == 0
-    res = json.loads(capsys.readouterr().out.splitlines()[-1])
-    assert res["window_ticks"] == res["prefill_ticks"] + res["decode_ticks"]
-    assert res["prefill_ticks"] > 0 and res["decode_steps"] >= res[
-        "decode_ticks"] > 0
-    assert 0 < res["live_row_share"] <= 1 and res["generated_tokens"] > 0
-    assert len(res["generated_tokens_per_s_by_third"]) == 3
 
 
 # -- the host page pool ----------------------------------------------------------
