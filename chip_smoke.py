@@ -97,8 +97,8 @@ Phases, each fatal on failure:
      tables and lengths equal; then the same requests on the card with
      a bf16 KV pool, unfused and fused. In every run the scheduler's own
      kernel calls, one of each kind of batch it forms (rows prefilling,
-     riding along with no new token, empty on the scratch block,
-     inactive mid-prompt, aliasing a borrowed prefix), are copied and
+     decode rows empty on the scratch block or inactive mid-prompt,
+     rows aliasing a borrowed prefix), are copied and
      held against the plain versions within 2e-2 (:class:`KernelTap`,
      which wraps the kernels in Python, so its runs are under
      ``engine.graphs.eager()``);
@@ -2999,17 +2999,28 @@ def call_lens(kernel, args):
 def scheduler_tap_rule(eng):
     """:class:`KernelTap`'s choice for a scheduler: a prefill call at the
     last layer, a dense one at the last dense layer and a sparse or
-    fused one at the last layer, labelled by the kinds of rows the tick
-    has (read from the host's slot state while the call runs)."""
+    fused one at the last layer, labelled by the kinds of rows in the
+    call (read from the host's slot state while the call runs). A decode
+    call holds every slot of the rank; a prefill call the prefilling
+    slots the scheduler picks (``_prefill_groups``: under dp, padded with
+    the group's other slots, ride-along or empty)."""
     L, skip = eng.cfg.num_layers, eng.quest.skip_layers
     layer_of = {"prefill": L - 1, "dense_decode": skip - 1,
                 "sparse_decode": L - 1, "fused_decode": L - 1}
+    n = eng._slots_per_group
+
+    def call_slots(kernel):
+        if kernel != "prefill":
+            return range(eng._row0, eng._row0 + n)
+        pf = [b for b, s in enumerate(eng.slots)
+              if s is not None and s.prefilling]
+        return eng._prefill_groups(pf)[eng._group(eng._row0)]
 
     def want(kernel, layer):
         if layer != layer_of[kernel]:
             return None
         kinds = set()
-        for s in eng.slots:
+        for s in (eng.slots[b] for b in call_slots(kernel)):
             if s is None:
                 kinds.add("empty")
             elif kernel != "prefill":
@@ -3042,8 +3053,11 @@ def check_taps(tap, name, need):
 
 
 # Row kinds each scheduler run must have held against the plain versions.
+# A prefill call on one device holds only prefilling rows; the kernel's
+# ride-along (no new token, kv_len > 0) and empty (kv_len 0) rows are held
+# by tests/test_torch_attention.py::test_prefill_kernel_matches_plain.
 PREFILL_KINDS = ("prompt start", "next chunk", "after prefix hit",
-                 "ride-along", "empty", "aliased")
+                 "aliased")
 DECODE_KINDS = ("live", "mid-prompt", "empty", "aliased")
 
 
@@ -4372,13 +4386,16 @@ def rank_tp(rank, world, root):
 
 
 def dp_requests(vocab):
-    """15c's requests: four prompts of 700-2300 tokens."""
+    """15c's requests: four prompts of 700-2300 tokens on the four slots
+    and a fifth that waits for the first slot to free, so its prefill
+    ticks have one prefilling row in one dp group and none in the other
+    (that group's call pads with a decoding slot)."""
     from quest_tpu_torch.engine.scheduler import Request
     rng = np.random.default_rng(15)
     return [Request(uid=i, prompt=rng.integers(1, vocab, size=n).tolist(),
                     max_new_tokens=k)
-            for i, (n, k) in enumerate(zip((1500, 700, 2300, 900),
-                                           (16, 24, 8, 12)))]
+            for i, (n, k) in enumerate(zip((1500, 700, 2300, 900, 1100),
+                                           (16, 24, 8, 12, 10)))]
 
 
 def dp_engine(mesh=None):
@@ -4398,19 +4415,26 @@ def dp_engine(mesh=None):
 
 def rank_dp(rank, world, root):
     """15c's rank: ``ContinuousBatchingEngine(mesh=(2, 1))`` over the
-    requests; writes every request's tokens, each group pool's pages and
-    its launches."""
+    requests; writes every request's tokens, each group pool's pages, its
+    launches and each prefill tick's prefilling slots a dp group."""
     import torch.distributed as dist
     from quest_tpu_torch.parallel import make_mesh
     root = Path(root)
     rank_group(rank, world, root, "dp")
     try:
         cfg, eng = dp_engine(make_mesh(world, 1))
+        tick, per_group = eng._prefill_tick, []
+
+        def prefill_tick(pf):
+            per_group.append([sum(eng._group(b) == g for b in pf)
+                              for g in range(eng.dp)])
+            return tick(pf)
+        eng._prefill_tick = prefill_tick
         outs, launches = counted_launches(kernel_wrappers(),
                                  lambda: eng.run(dp_requests(cfg.vocab_size)))
         (root / f"dp_r{rank}.json").write_text(json.dumps(dict(
             outs={str(k): v for k, v in outs.items()}, launches=launches,
-            pools=pool_pages(eng))))
+            pools=pool_pages(eng), prefill_groups=per_group)))
     finally:
         dist.destroy_process_group()
 
@@ -4498,10 +4522,14 @@ def multi_rank_phase(kernels):
         assert got["outs"] == outs, f"15c rank {r}: tokens differ"
         assert all(f + h == t for f, t, h in got["pools"]), \
             f"15c rank {r}: pools not drained {got['pools']}"
+        assert any(a != b for a, b in got["prefill_groups"]), \
+            f"15c rank {r}: no prefill tick with unequal groups"
     log(f"15c: (dp, tp) = (2, 1) scheduler over gloo, 4 layers f32, "
         f"{len(outs)} requests in {time.time() - t0:.1f} s: every request's "
         f"tokens equal to the unsharded scheduler's, both groups' pools "
-        f"drained (rank launches {got['launches']}, unsharded {want})")
+        f"drained (rank launches {got['launches']}, unsharded {want}; "
+        f"prefilling slots a group each prefill tick "
+        f"{got['prefill_groups']})")
     res["15c"] = dict(requests=len(outs), tokens_equal=True,
                       launches_rank=got["launches"], launches_unsharded=want)
     return res

@@ -11,9 +11,11 @@
     exhausted pool; admission is FIFO and waits while blocks are short.
   * **Chunked prefill**: prompts are written in ``prefill_chunk``-token
     chunks, a prefill tick alternating with a decode burst, so a long
-    prompt never stalls the decoding streams. Every tick runs all
-    ``max_batch`` rows: busy rows ride along with ``new_lens = 0`` (or
-    ``active = False``), and their writes land in the scratch block 0.
+    prompt never stalls the decoding streams. A prefill tick computes
+    only the prefilling slots' rows, through a view of the cache that
+    holds those rows (``PagedKVCache.rows``); a decode burst runs all
+    ``max_batch`` rows, busy rows riding along with ``active = False``
+    and writing into the scratch block 0.
   * **Prefix cache**: the full blocks of a completed prompt are
     published under a blake2b chain of their tokens, LRU-capped; a
     later prompt with the same leading blocks borrows them (refcounted)
@@ -58,7 +60,10 @@ its dp group's rows with its tp shard's heads (``parallel/tp.py``), and
 a tick's results (a prefill's last logits, a burst's tokens) are
 all-gathered over dp before the one host fetch, so every rank takes the
 same decisions and the scheduler stays step for step the single
-device's.
+device's. The gather takes one shape from every group, so a prefill tick
+gives each group as many rows as the group with the most prefilling
+slots; a group with fewer fills its rows with its other slots, which
+ride along with ``new_lens = 0``.
 """
 
 from __future__ import annotations
@@ -235,8 +240,10 @@ class ContinuousBatchingEngine:
         return RECORDER.span(name, self._trace_id, **attrs)
 
     def _gather(self, t: torch.Tensor) -> np.ndarray:
-        """Every dp group's rows of a result, in slot order, on the host
-        (the tick's one blocking fetch)."""
+        """Every dp group's rows of a result on the host, group by group,
+        each in the order its rank passed them (the tick's one blocking
+        fetch). A decode result is then in slot order; a prefill tick maps
+        its rows back to slots (``row_of``)."""
         with self._span("fetch"):
             if self._shard is not None:
                 t = self._shard.gather(t)
@@ -392,45 +399,76 @@ class ContinuousBatchingEngine:
                 pool.pages_release(old)
 
     # ------------------------------------------------------------------
+    def _prefill_groups(self, pf: List[int]) -> List[List[int]]:
+        """Each dp group's slots in a prefill call, in slot order, all of
+        one length R: the group's prefilling slots of ``pf``, and where a
+        group has fewer than R (the dp gather needs one shape), as many of
+        its other slots, which ride along with ``new_lens = 0``: the
+        shortest cached first (empty slots cost no attention), since a
+        padded query row still reads its slot's whole context."""
+        n = self._slots_per_group
+        groups = [[b for b in pf if self._group(b) == g]
+                  for g in range(self.dp)]
+        R = max(map(len, groups))
+        for g, rows in enumerate(groups):
+            rest = sorted((b for b in range(g * n, (g + 1) * n)
+                           if b not in rows), key=lambda b: self._hlens[b])
+            rows += rest[:R - len(rows)]
+            rows.sort()
+        return groups
+
     def _prefill_tick(self, pf: List[int]) -> List[StepEvent]:
-        """Write one prompt chunk for every prefilling slot ``pf``."""
+        """Write one prompt chunk for every prefilling slot ``pf``,
+        computing only their rows (and, under dp, a group's ride-along
+        rows up to the largest group's count)."""
         with self._span("prefill_tick"):
             with self._span("prepare"):
-                B = self.max_batch
                 left = {b: len(self.slots[b].req.prompt)
                         - self.slots[b].prefill_pos for b in pf}
                 chunk = self.prefill_chunk or max(left.values())
                 T = round_up(max(min(chunk, n) for n in left.values()),
                              self.prefill_bucket)
-                toks = np.zeros((B, T), np.int32)
-                new_lens = np.zeros((B,), np.int32)
-                for b in pf:
-                    s = self.slots[b]
-                    n = min(T, left[b])
-                    toks[b, :n] = s.req.prompt[s.prefill_pos:
-                                               s.prefill_pos + n]
-                    new_lens[b] = n
-                toks_dev, lens_dev = self._rows(toks), self._rows(new_lens)
-            self._tick_attrs.update(prompt_tokens=int(new_lens.sum()),
-                                    padded_tokens=B * T)
+                n_new = {b: min(T, n) for b, n in left.items()}
+                groups = self._prefill_groups(pf)
+                rows = groups[self._group(self._row0)]     # this rank's
+                R = len(rows)
+                toks = np.zeros((R, T), np.int32)
+                new_lens = np.zeros((R,), np.int32)
+                for j, b in enumerate(rows):
+                    if b in n_new:
+                        s = self.slots[b]
+                        toks[j, :n_new[b]] = s.req.prompt[
+                            s.prefill_pos:s.prefill_pos + n_new[b]]
+                        new_lens[j] = n_new[b]
+                toks_dev = torch.from_numpy(toks).to(self.device)
+                lens_dev = torch.from_numpy(new_lens).to(self.device)
+                idx = torch.from_numpy(np.asarray(rows, np.int64)
+                                       - self._row0).to(self.device)
+            self._tick_attrs.update(rows=R * self.dp,
+                                    prompt_tokens=sum(n_new.values()),
+                                    padded_tokens=R * self.dp * T)
             with self._span("enqueue"):
                 self._marks.mark()
-                out = self.model.prefill_last(self.cache, toks_dev,
-                                              lens_dev)[:, 0]
+                view = self.cache.rows(idx)
+                out = self.model.prefill_last(view, toks_dev, lens_dev)[:, 0]
+                # In place: the captured decode steps read this tensor.
+                self.cache.seq_lens.index_copy_(0, idx, view.seq_lens)
                 self._marks.mark()
                 self._marks.settle()
-            logits = self._gather(out)
+            logits = self._gather(out)      # [dp * R, V], group by group
+            row_of = {b: i for i, b in enumerate(
+                [b for group in groups for b in group])}
 
             with self._span("emit"):
                 events: List[StepEvent] = []
                 for b in pf:
                     s = self.slots[b]
-                    s.prefill_pos += int(new_lens[b])
-                    self._hlens[b] += int(new_lens[b])
+                    s.prefill_pos += n_new[b]
+                    self._hlens[b] += n_new[b]
                     if not s.prefilling:  # prompt complete -> first token
                         self._publish_prefix(b, s)
-                        first = self._sample(logits[b], s.req.temperature,
-                                             s.rng)
+                        first = self._sample(logits[row_of[b]],
+                                             s.req.temperature, s.rng)
                         s.generated.append(first)
                         s.pending = first
                         RECORDER.event("first_token", s.req.uid,
@@ -505,8 +543,10 @@ class ContinuousBatchingEngine:
     def step(self) -> List[StepEvent]:
         """One scheduler tick; returns per-request token events. The tick
         is one ``tick`` span of the recorder (utils/trace.py) whose
-        attributes are the tick's kind, rows and steps or prompt tokens,
-        the prefix-hit tokens gained, the queue, each pool group's free
+        attributes are the tick's kind, the rows it computed (every dp
+        group's), its steps or its prompt tokens and the tokens it
+        computed (``padded_tokens``: rows x the padded width), the
+        prefix-hit tokens gained, the queue, each pool group's free
         blocks, whether work is left, and on the card its device times."""
         with self._span("tick") as span:
             self._tick_attrs = span.attrs

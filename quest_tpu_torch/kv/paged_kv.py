@@ -99,6 +99,16 @@ class PagedKVCache:
         return LayerKV(kv.transpose(0, 1), kmax.transpose(0, 1),
                        kmin.transpose(0, 1), self.seq_lens)
 
+    def rows(self, idx: torch.Tensor) -> "PagedKVCache":
+        """The cache of slots ``idx`` (int64, on the cache's device), in
+        that order: the same pool and metadata tensors, so appends through
+        it write this cache's pages, and copies of those slots' table rows
+        and lengths. A step through it advances the copies only; the
+        caller writes them back (``seq_lens.index_copy_``)."""
+        return PagedKVCache(self.kv_pages, self.k_max, self.k_min,
+                            self.block_tab.index_select(0, idx),
+                            self.seq_lens.index_select(0, idx))
+
 
 def init_cache(model: ModelConfig, quest: QuestConfig, batch_size: int = 1,
                num_layers: int | None = None,

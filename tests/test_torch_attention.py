@@ -443,7 +443,9 @@ def test_prefill_route_refuses_group():
 # The bf16 kernel's CTA takes 128 rows (128 / G positions x G heads) and
 # 128-token K/V tiles of whole pages: cases at G = 1, 2, 4, 8, page 16 and
 # 32, T and offsets off both tiles, padded rows (kv_len < offset + T),
-# an empty row, and tiles that run past the block table (NB * bpp * page).
+# an empty row (kv_len 0), a row with cached keys and no new token
+# (kv_len == offset > 0), and tiles that run past the block table
+# (NB * bpp * page).
 PREFILL_CARD_CASES = [
     # T, offsets, kv_lens, Hq, Hkv, page, NB, bpp
     (100, [0, 0], [100, 37], 32, 8, 16, 4, 8),
@@ -454,6 +456,7 @@ PREFILL_CARD_CASES = [
     (90, [0, 5], [90, 95], 32, 8, 16, 3, 2),      # 96 tokens in the table
     (40, [0, 8], [40, 48], 8, 8, 16, 3, 1),       # 48 tokens in the table
     (45, [0, 51], [45, 96], 16, 2, 32, 3, 1),     # 96 tokens in the table
+    (96, [0, 250, 0], [96, 250, 0], 16, 4, 16, 4, 8),
 ]
 
 

@@ -345,9 +345,13 @@ def test_scheduler_under_mesh_matches_unsharded(root, world4):
     """ContinuousBatchingEngine(mesh=(2, 2)): two dp groups of two slots,
     each with its own pool; every rank takes the same decisions, every
     request's tokens equal the unsharded port scheduler's, and every
-    group's pool is drained at the end."""
+    group's pool is drained at the end. A prefill tick whose groups have
+    different prefilling counts occurred (the smaller group's rows are
+    padded with its other slots)."""
     res = scheduler_results(world4, "scheduler")
     assert len(res["pools"]) == 2
+    assert res["prefill_groups"][0] == [2, 2]
+    assert any(a != b for a, b in res["prefill_groups"])
     assert res["outs"] == unsharded_runs(root, "scheduler")
     assert all(free == total for free, total, _ in res["pools"])
 
@@ -359,6 +363,7 @@ def test_prefix_cache_under_mesh(root, world4):
     caching, and each group's pool holds only its registry's blocks."""
     res = scheduler_results(world4, "prefix")
     assert res["hits"] == [[0, 0], [1, 64]]
+    assert all(groups == [1, 0] for groups in res["prefill_groups"])
     assert res["outs"] == unsharded_runs(root, "prefix",
                                          prefix_cache_entries=0,
                                          max_batch=2)

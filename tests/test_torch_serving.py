@@ -30,7 +30,9 @@ from quest_tpu_torch.engine import (ContinuousBatchingEngine, QuestEngine,
 from quest_tpu_torch.kv import paged_kv as tkv
 from quest_tpu_torch.kv.pool import PagePool
 from quest_tpu_torch.models.convert import params_from_numpy
-from quest_tpu_torch.models.llama import QuestModel, sample_tokens
+from quest_tpu_torch.models.llama import (QuestModel, init_params,
+                                          sample_tokens)
+from quest_tpu_torch.utils.trace import RECORDER
 
 REPO = Path(__file__).resolve().parents[1]
 if str(REPO) not in sys.path:
@@ -171,7 +173,197 @@ def test_kernel_tap_takes_every_batch_kind(jx, eos):
     cases = chip_smoke.check_taps(tap, "cpu", chip_smoke.tap_needs(jx.quest))
     assert sorted(cases) == ["dense_decode", "prefill", "sparse_decode"]
     assert all(c["max_rel_err"] == 0 for cs in cases.values() for c in cs)
-    assert any(len(c["rows"].split(", ")) >= 3 for c in cases["prefill"])
+    # A prefill call holds the prefilling rows alone, two or more at once.
+    assert all(set(c["rows"].split(", ")) <= set(chip_smoke.PREFILL_KINDS)
+               for c in cases["prefill"])
+    assert any(c["case"] != "scheduler cpu: B=1" for c in cases["prefill"])
+
+
+# -- prefill ticks over the prefilling rows ------------------------------------
+
+def _rows_engine(seed=7):
+    """4 slots, whole-prompt prefill in 16-token buckets, bursts of 4, the
+    port's own random f32 weights (no JAX)."""
+    cfg = ModelConfig(rope=RopeConfig(), dtype=torch.float32, **MODEL)
+    quest = QuestConfig(kv_dtype=torch.float32, **QUEST)
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device="cpu")
+    return ContinuousBatchingEngine(cfg, quest, params, max_batch=4,
+                                    prefill_bucket=16, burst=4, device="cpu")
+
+
+def _tap_prefill(eng):
+    """Wrap ``eng.model.prefill_last`` as the benchmark's harness does; each
+    call appends (the cache it got, tokens, lengths, logits, a copy of the
+    engine's whole cache as the call found it)."""
+    calls, last = [], eng.model.prefill_last
+
+    def prefill_last(cache, toks, new_lens=None):
+        found = _snapshot(eng.cache)
+        out = last(cache, toks, new_lens)
+        calls.append((cache, toks.clone(), new_lens.clone(), out.clone(),
+                      found))
+        return out
+    eng.model.prefill_last = prefill_last
+    return calls
+
+
+def _snapshot(cache):
+    return tkv.PagedKVCache(*(t.clone() for t in dataclasses.astuple(cache)))
+
+
+# (first requests: prompt lengths and new tokens; later prompt lengths).
+LATE_PREFILL = {
+    # Slots 0 and 1 decoding, a third request admitted into slot 2 while
+    # slot 3 stays empty.
+    "one_row": ([(70, 40), (90, 40)], [37]),
+    # Slots 0 and 2 decoding; slot 1's short request finished, and two
+    # requests are admitted into slots 1 and 3 (rows 0 and 1 of the call).
+    "two_rows": ([(70, 40), (20, 2), (90, 40)], [37, 45]),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(LATE_PREFILL))
+def late_prefill(request):
+    """The prefill tick that writes only the prompts of requests admitted
+    while other slots decode at context, with the cache as its call found
+    it and the tick's calls and events."""
+    first, later = LATE_PREFILL[request.param]
+    eng = _rows_engine()
+    calls = _tap_prefill(eng)
+    for uid, (p, (_, new)) in enumerate(zip(
+            _prompts(11, [n for n, _ in first]), first)):
+        eng.submit(Request(uid, p, new))
+    decoding = [b for b, (_, new) in enumerate(first) if new > 2]
+    while eng.last_tick != "decode" or any(
+            eng.slots[b] is None or eng.slots[b].prefilling
+            for b in decoding) or eng.num_active > len(decoding):
+        eng.step()
+    for uid, p in enumerate(_prompts(12, later), start=len(first)):
+        eng.submit(Request(uid, p, 5))
+    before, n_calls = _snapshot(eng.cache), len(calls)
+    seq_lens = eng.cache.seq_lens
+    events = eng.step()
+    assert eng.last_tick == "prefill" and len(calls) == n_calls + 1
+    pf = [b for b in range(4) if b not in decoding][:len(later)]
+    return types.SimpleNamespace(
+        eng=eng, before=before, call=calls[-1], calls=calls, events=events,
+        later=later, pf=pf, first=first, seq_lens=seq_lens,
+        uids=range(len(first), len(first) + len(later)))
+
+
+def _blocks(tab_row):
+    return sorted({int(x) for x in tab_row if int(x) != 0})
+
+
+def test_prefill_tick_leaves_ride_along_rows_untouched(late_prefill):
+    """The tick computes the prefilling rows alone: ``prefill_last`` gets
+    a batch of their number, and every other slot's table row, length,
+    pool pages and min/max metadata are bit for bit what they were; the
+    new rows' lengths are written back into the cache's own tensor."""
+    eng, before, pf = late_prefill.eng, late_prefill.before, late_prefill.pf
+    cache, toks, new_lens, _, _ = late_prefill.call
+    assert cache is not eng.cache and cache.batch_size == len(pf)
+    assert toks.shape == (len(pf), 48)
+    assert new_lens.tolist() == late_prefill.later
+    assert eng.cache.seq_lens is late_prefill.seq_lens
+    after, bpp = eng.cache, eng.cache.block_pages
+    others = [b for b in range(4) if b not in pf]
+    for b in others:
+        assert torch.equal(after.block_tab[b], before.block_tab[b])
+        assert after.seq_lens[b] == before.seq_lens[b]
+    for b, n in zip(pf, late_prefill.later):
+        assert after.seq_lens[b] == n
+    written = {blk for b in pf for blk in _blocks(after.block_tab[b])}
+    kept = [blk for blk in range(1, after.k_max.shape[2])   # not scratch
+            if blk not in written]
+    held = [blk for b in others for blk in _blocks(before.block_tab[b])]
+    assert held and set(held) <= set(kept)
+    pages = torch.tensor([blk * bpp + i for blk in kept for i in range(bpp)])
+    assert torch.equal(after.kv_pages[:, :, pages],
+                       before.kv_pages[:, :, pages])
+    for name in ("k_max", "k_min"):
+        assert torch.equal(getattr(after, name)[:, :, kept],
+                           getattr(before, name)[:, :, kept])
+
+
+def test_prefill_tick_rows_equal_the_full_batch(late_prefill):
+    """The tick's logits for each of its rows equal a ``prefill_last`` over
+    all 4 slots of a copy of the cache as the call found it (the others
+    at ``new_lens = 0``), as the tick ran before, within f32 round-off,
+    and so do the rows' KV pages; each greedy first token is the one the
+    tick emitted for that row's request."""
+    eng, pf = late_prefill.eng, late_prefill.pf
+    _, toks, new_lens, out, ref = late_prefill.call
+    full_toks = torch.zeros((4, toks.shape[1]), dtype=torch.int32)
+    full_lens = torch.zeros((4,), dtype=torch.int32)
+    full_toks[pf], full_lens[pf] = toks, new_lens
+    full = QuestModel.prefill_last(eng.model, ref, full_toks, full_lens)
+    scale = float(full.abs().max())
+    torch.testing.assert_close(out, full[pf], rtol=1e-5, atol=1e-5 * scale)
+    assert out.argmax(-1).tolist() == full[pf].argmax(-1).tolist()
+    assert sorted((e.uid, e.token) for e in late_prefill.events) == [
+        (uid, int(full[b, 0].argmax()))
+        for uid, b in zip(late_prefill.uids, pf)]
+    assert torch.equal(eng.cache.seq_lens, ref.seq_lens)
+    pages = torch.tensor([blk * eng.cache.block_pages + i for b in pf
+                          for blk in _blocks(ref.block_tab[b])
+                          for i in range(eng.cache.block_pages)])
+    torch.testing.assert_close(eng.cache.kv_pages[:, :, pages],
+                               ref.kv_pages[:, :, pages], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_prefill_tick_records_its_rows_and_computed_tokens(late_prefill):
+    """Each prefill tick span's ``rows`` is the batch ``prefill_last``
+    computed, ``padded_tokens`` rows x the padded width, and
+    ``prompt_tokens`` the real tokens."""
+    eng, calls = late_prefill.eng, late_prefill.calls
+    ticks = [s for s in RECORDER.spans("tick") if s.engine == eng._trace_id
+             and s.attrs["kind"] == "prefill"]
+    assert len(ticks) == len(calls) == 2
+    for t, (_, toks, new_lens, _, _) in zip(ticks, calls):
+        assert t.attrs["rows"] == toks.shape[0]
+        assert t.attrs["padded_tokens"] == toks.shape[0] * toks.shape[1]
+        assert t.attrs["prompt_tokens"] == int(new_lens.sum())
+    assert [t.attrs["rows"] for t in ticks] == [len(late_prefill.first),
+                                                len(late_prefill.pf)]
+    assert ticks[-1].attrs["padded_tokens"] == len(late_prefill.pf) * 48
+
+
+def test_prefill_tick_of_every_slot_computes_every_row():
+    """When every slot prefills, the call is the whole batch, every slot's
+    table row in slot order, and the lengths land in the cache's own
+    tensor."""
+    eng = _rows_engine()
+    calls = _tap_prefill(eng)
+    lens_t = eng.cache.seq_lens
+    for uid, p in enumerate(_prompts(13, (20, 33, 5, 17))):
+        eng.submit(Request(uid, p, 3))
+    eng.step()
+    assert eng.last_tick == "prefill" and len(calls) == 1
+    cache, toks, new_lens, _, _ = calls[0]
+    assert cache.batch_size == 4 and toks.shape == (4, 48)
+    assert torch.equal(cache.block_tab, eng.cache.block_tab)
+    assert new_lens.tolist() == [20, 33, 5, 17]
+    assert eng.cache.seq_lens is lens_t
+    assert eng.cache.seq_lens.tolist() == [20, 33, 5, 17]
+
+
+@pytest.mark.parametrize("pf,groups", [
+    ([0, 1, 4], [[0, 1], [4, 6]]),
+    ([0, 1, 2, 4], [[0, 1, 2], [4, 6, 7]]),
+    ([5], [[2], [5]]),
+])
+def test_prefill_groups_pad_with_the_shortest_slots(pf, groups):
+    """Under dp every group computes the largest group's count of rows; a
+    group with fewer prefilling slots pads with its other slots, empty or
+    shortest cached first (a padded row still reads its whole context),
+    each group's rows in slot order."""
+    stub = types.SimpleNamespace(
+        dp=2, _slots_per_group=4, _group=lambda b: b // 4,
+        _hlens=np.array([60, 900, 30, 500, 0, 900, 0, 40]))
+    assert ContinuousBatchingEngine._prefill_groups(stub, pf) == groups
 
 
 # -- the host page pool ----------------------------------------------------------

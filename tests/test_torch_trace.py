@@ -59,9 +59,9 @@ def _requests():
 class Harness:
     """What ``benchmark/bench/serve.py:Instrument`` reads a tick, by the
     same wrappers around the same names: live decode rows and steps
-    (``_tok_fn.calls``), real prompt tokens (``prefill_pos``), the padded
-    width (``model.prefill_last``'s tokens) and the hit tokens gained
-    (``prefix_hit_tokens``)."""
+    (``_tok_fn.calls``), real prompt tokens (``prefill_pos``), the rows
+    and tokens a prefill computes (``model.prefill_last``'s tokens: rows
+    x padded width) and the hit tokens gained (``prefix_hit_tokens``)."""
 
     def __init__(self, eng):
         self.eng, self.tick = eng, None
@@ -88,8 +88,8 @@ class Harness:
             self.tick["hit_tokens"] = eng.prefix_hit_tokens - hits
 
         def prefill_last(cache, toks, new_lens=None):
-            self.tick["padded_tokens"] = eng.max_batch * int(
-                toks.shape[1])
+            self.tick.update(rows=int(toks.shape[0]),
+                             padded_tokens=int(toks.shape[0] * toks.shape[1]))
             return last(cache, toks, new_lens)
 
         eng._decode_burst, eng._prefill_tick = decode_burst, prefill_tick
@@ -162,6 +162,8 @@ def test_tick_attributes_equal_what_the_harness_reads(served):
         assert len(a["free_blocks"]) == 1 and a["queue"] >= 0
         # No marks on the CPU.
         assert not {"work_ms", "step_ms", "gap_ms"} & set(a)
+    assert any(h["kind"] == "prefill" and h["rows"] < eng.max_batch
+               for h in ticks)
     assert sum(h["hit_tokens"] for h in ticks) == eng.prefix_hit_tokens > 0
     assert [t.attrs["work_left"] for t in tick_spans] == [True] * (
         len(ticks) - 1) + [False]

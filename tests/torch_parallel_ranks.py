@@ -63,15 +63,17 @@ def quest_config(**kw) -> QuestConfig:
 
 
 def sched_requests(kind: str):
-    """The scheduler jobs' requests (the JAX mesh tests' prompts): four
-    requests on four slots, or a shared 80-token prefix with two tails,
-    served one after the other."""
+    """The scheduler jobs' requests (the JAX mesh tests' prompts, and one
+    more): four requests on four slots and a fifth that waits for the
+    first slot to free (its prefill tick has one prefilling row in one dp
+    group and none in the other), or a shared 80-token prefix with two
+    tails, served one after the other."""
     if kind == "scheduler":
         rng = np.random.default_rng(21)
         prompts = [rng.integers(1, 256, size=n).tolist()
-                   for n in (12, 30, 7, 21)]
+                   for n in (12, 30, 7, 21, 18)]
         return [[Request(uid=i, prompt=p, max_new_tokens=k)
-                 for i, (p, k) in enumerate(zip(prompts, [5, 3, 6, 4]))]]
+                 for i, (p, k) in enumerate(zip(prompts, [5, 3, 6, 4, 4]))]]
     rng = np.random.default_rng(33)
     prefix = rng.integers(1, 256, size=80).tolist()
     tails = [rng.integers(1, 256, size=n).tolist() for n in (11, 17)]
@@ -170,13 +172,21 @@ def job_serving(root, rank, mesh, tag):
 
 def job_scheduler(root, rank, mesh, tag, kind):
     """ContinuousBatchingEngine(mesh=...) over the requests: every
-    request's tokens, the prefix hits, and each group pool's free pages
-    (with what the prefix registries hold) after the drain."""
+    request's tokens, the prefix hits, each group pool's free pages
+    (with what the prefix registries hold) after the drain, and each
+    prefill tick's prefilling slots a dp group."""
     cfg = model_config(**SCHED_MODEL)
     quest = quest_config(**(SCHED_QUEST if kind == "scheduler"
                             else PREFIX_QUEST))
     eng = ContinuousBatchingEngine(cfg, quest, load_params(root, "sched"),
                                    max_batch=4, prefill_bucket=16, mesh=mesh)
+    tick, per_group = eng._prefill_tick, []
+
+    def prefill_tick(pf):
+        per_group.append([sum(eng._group(b) == g for b in pf)
+                          for g in range(eng.dp)])
+        return tick(pf)
+    eng._prefill_tick = prefill_tick
     outs, hits = {}, []
     for reqs in sched_requests(kind):
         outs.update(eng.run(reqs))
@@ -185,7 +195,8 @@ def job_scheduler(root, rank, mesh, tag, kind):
             for reg in eng._prefixes]
     res = dict(outs={str(k): v for k, v in outs.items()}, hits=hits,
                pools=[[p.free_pages(), p.total_pages, len(h)]
-                      for p, h in zip(eng.pools, held)])
+                      for p, h in zip(eng.pools, held)],
+               prefill_groups=per_group)
     (root / "out").mkdir(exist_ok=True)
     (root / "out" / f"{kind}_{tag}_r{rank}.json").write_text(json.dumps(res))
 
