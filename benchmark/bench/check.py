@@ -4,8 +4,9 @@ Once the window has closed: a sample, drawn from the seed, of the
 requests due in the window that were answered: the longest of them
 whole, and others over the same document, in an order drawn from the
 seed, each with its first ``head_tokens`` served tokens, while the
-tokens compared stay under ``max_checked_tokens``. The plain
-reference (``benchmark/reference``) runs once over each prompt with its
+tokens compared stay under ``max_checked_tokens``. The plain reference
+of the configuration's family (``families/<model_type>.py:reference``,
+computed in ``benchmark/reference``) runs once over each prompt with its
 served tokens. At each served token's position its gap is how far its
 logit lies below the reference's best there; the number compared is the
 mean gap over the tokens compared. The widest gap is reported beside it,
@@ -21,22 +22,12 @@ of the token the fp8 reference puts first.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from reference.quest_ref import Sequence_, Shape, forward_logits
-
-
-def shape_of(dims: Dict, quest: Dict) -> Shape:
-    return Shape(hidden=dims["hidden_size"], layers=dims["num_hidden_layers"],
-                 heads=dims["num_attention_heads"],
-                 kv_heads=dims["num_key_value_heads"],
-                 head_dim=dims["head_dim"], eps=dims["rms_norm_eps"],
-                 rope_theta=dims["rope_theta"], page=quest["page_size"],
-                 budget_tokens=quest["token_budget"],
-                 skip_layers=quest["skip_layers"])
+from reference.quest_ref import Sequence_
 
 
 def sample(rec, seed: int, max_tokens: int,
@@ -66,24 +57,23 @@ def sample(rec, seed: int, max_tokens: int,
     return doc, picks
 
 
-def compare(weights: Dict, dims: Dict, quest: Dict, prefix: np.ndarray,
-            picks: List, control: bool = False) -> Dict:
+def compare(reference: Callable, weights: Dict, dims: Dict, quest: Dict,
+            prefix: np.ndarray, picks: List, control: bool = False) -> Dict:
     """``mean_gap`` and ``gap`` (the widest): how far the served tokens'
-    logits lie below the reference's best, over ``picks``; ``tokens``:
-    how many were compared; with ``control``, also ``control_mean_gap``
-    and ``control_gap``."""
+    logits lie below the best of ``reference`` (a family's), over
+    ``picks``; ``tokens``: how many were compared; with ``control``, also
+    ``control_mean_gap`` and ``control_gap``."""
     t = time.perf_counter()
-    shape = shape_of(dims, quest)
     pre = torch.from_numpy(np.asarray(prefix, dtype=np.int64))
     seqs = [Sequence_(tail=torch.from_numpy(st.req.tail.astype(np.int64)),
                       served=torch.tensor(toks, dtype=torch.int64))
             for st, toks in picks]
     out = {}
     if control:
-        low = forward_logits(weights, shape, pre, seqs, low_precision=True)
+        low = reference(weights, dims, quest, pre, seqs, low_precision=True)
         for s, r in zip(seqs, low):
             s.extra = r["top"]
-    res = forward_logits(weights, shape, pre, seqs)
+    res = reference(weights, dims, quest, pre, seqs)
     gaps = torch.cat([r["best"] - r["served"] for r in res])
     margin = torch.cat([r["best"] - r["second"] for r in res])
     out.update(gap=float(gaps.max()), mean_gap=float(gaps.mean()),

@@ -1,13 +1,16 @@
 """Find a cell's pieces by name: the manifest (``BENCHMARK.json`` at the
-root of the checkout), the configuration file, the traffic mix
+root of the checkout), the configuration file, its architecture's family
+(``families/<model_type>.py``), the traffic mix
 (``traffic/<traffic>.json``) and its generator (``traffic/<kind>.py``),
 each metric's reader (``metrics/<name>.py``, or ``metrics/<base>.py``
 for ``<base>.<suffix>``) and each kernel group
-(``roofline/<group>.py``). Adding a configuration, a mix, a metric or a
-kernel group is adding files and entries: nothing here names one."""
+(``roofline/<group>.py``). Adding a configuration, an architecture, a
+mix, a metric or a kernel group is adding files and entries: nothing
+here names one."""
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import re
@@ -45,6 +48,23 @@ def cell(man: Dict, workload: str, here: Path = HERE) -> Dict:
 
 def generator(kind: str, here: Path = HERE):
     return load_module(here / "traffic" / f"{kind}.py", "bench_traffic_")
+
+
+def family(model_type: str, here: Path = HERE):
+    """``families/<model_type>.py``: what the harness needs of one
+    architecture (benchmark/README.md). An unknown ``model_type`` stops
+    the run, naming the known families; nothing falls back to another."""
+    return _family(model_type, Path(here))
+
+
+@functools.lru_cache(maxsize=None)
+def _family(model_type: str, here: Path):
+    path = here / "families" / f"{model_type}.py"
+    if not path.is_file():
+        known = sorted(p.stem for p in (here / "families").glob("*.py"))
+        raise SystemExit(f"unknown model_type {model_type!r}; known "
+                         f"families: {known}")
+    return load_module(path, "bench_family_")
 
 
 def metrics_of(man: Dict, workload: str, per_layer: bool) -> List[Dict]:

@@ -77,7 +77,8 @@ def decode_mfu(rec) -> Optional[float]:
     for t in ticks:
         for rows in work.decode_steps_of(t):
             if rows:
-                f, b = work.decode_step(rec.dims, rec.quest, rows, docs)
+                f, b = work.decode_step(rec.dims, rec.quest, rows, docs,
+                                        rec.here)
                 need += max(f / pf, b / pb)
     return 100.0 * need / sum(t.t1 - t.t0 for t in ticks)
 
@@ -87,8 +88,8 @@ def prefill_mfu(rec) -> Optional[float]:
     if not ticks or not rec.peaks:
         return None
     docs = work.doc_tokens_of(rec)
-    flops = sum(work.prefill_tick(rec.dims, rec.quest, t.prefill_rows, docs)
-                for t in ticks)
+    flops = sum(work.prefill_tick(rec.dims, rec.quest, t.prefill_rows, docs,
+                                  rec.here) for t in ticks)
     return 100.0 * flops / (rec.peaks["bf16_flops_per_s"]
                             * sum(t.t1 - t.t0 for t in ticks))
 

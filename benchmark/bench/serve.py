@@ -311,28 +311,16 @@ class Server:
         gc.unfreeze()
 
 
-def build_engine(dims: Dict, quest_cfg: Dict, weights: Dict, eng: Dict,
+def build_engine(cfg, quest_cfg: Dict, weights: Dict, eng: Dict,
                  seed: int, device):
-    """The cell's ``ContinuousBatchingEngine`` over ``weights``."""
-    from quest_tpu_torch.config import ModelConfig, QuestConfig, RopeConfig
+    """The cell's ``ContinuousBatchingEngine`` over ``weights``; ``cfg`` is
+    the port's model configuration (the family's ``model_config``)."""
+    from quest_tpu_torch.config import QuestConfig
     from quest_tpu_torch.engine.scheduler import ContinuousBatchingEngine
 
-    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-              "float8_e4m3fn": torch.float8_e4m3fn}
-    cfg = ModelConfig(
-        vocab_size=dims["vocab_size"], hidden_size=dims["hidden_size"],
-        intermediate_size=dims["intermediate_size"],
-        num_layers=dims["num_hidden_layers"],
-        num_heads=dims["num_attention_heads"],
-        num_kv_heads=dims["num_key_value_heads"], head_dim=dims["head_dim"],
-        rms_norm_eps=dims["rms_norm_eps"],
-        max_position_embeddings=dims["max_position_embeddings"],
-        rope=RopeConfig(theta=dims["rope_theta"]),
-        tie_word_embeddings=dims["tie_word_embeddings"],
-        dtype=dtypes[dims["torch_dtype"]])
     q = dict(quest_cfg)
-    q["kv_dtype"] = dtypes[q["kv_dtype"]]
-    q["meta_dtype"] = dtypes[q["meta_dtype"]]
+    q["kv_dtype"] = getattr(torch, q["kv_dtype"])
+    q["meta_dtype"] = getattr(torch, q["meta_dtype"])
     quest = QuestConfig(**q)
     bpp = min(quest.block_pages, quest.max_pages)
     return ContinuousBatchingEngine(

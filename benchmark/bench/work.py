@@ -16,13 +16,32 @@ step's append, ``doc`` the document it borrows (None: no shared prefix).
 A row that finished earlier in its burst and decodes on only until the
 burst ends (the host drops those tokens) needs nothing either.
 A prefill row is ``(offset, n_new, doc, uid)``.
+
+The counts here are those of a decoder whose every token reads every
+linear weight, with Quest on every layer from ``skip_layers`` on. A
+configuration's family (``families/<model_type>.py``, found from
+``here``, the benchmark's folder) gives ``linear_params``, and its own
+``decode_attention``, ``prefill_attention``, ``decode_step`` or
+``prefill_tick`` where it defines one: the function here then returns
+the family's count.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterable, Tuple
 
+from bench import manifest
+
 BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "float8_e4m3fn": 1}
+
+
+def _family(dims: Dict, here):
+    return manifest.family(dims["model_type"], here or manifest.HERE)
+
+
+def _own(name: str, dims: Dict, here):
+    """The family's function ``name``, or None where it defines none."""
+    return getattr(_family(dims, here), name, None)
 
 
 def _sizes(dims: Dict, quest: Dict):
@@ -34,13 +53,10 @@ def _sizes(dims: Dict, quest: Dict):
             BYTES[quest["kv_dtype"]], BYTES[quest["meta_dtype"]])
 
 
-def linear_params(dims: Dict) -> Tuple[int, int]:
-    """(parameters of every layer's linears, of the head)."""
-    hid, inter = dims["hidden_size"], dims["intermediate_size"]
-    H, Hkv, D = (dims["num_attention_heads"], dims["num_key_value_heads"],
-                 dims["head_dim"])
-    per = hid * H * D + 2 * hid * Hkv * D + H * D * hid + 3 * hid * inter
-    return dims["num_hidden_layers"] * per, hid * dims["vocab_size"]
+def linear_params(dims: Dict, here=None) -> Tuple[int, int]:
+    """(parameters of every layer's linears, of the head): the family's
+    count."""
+    return _family(dims, here).linear_params(dims)
 
 
 def doc_tokens_of(rec) -> Dict:
@@ -51,9 +67,12 @@ def doc_tokens_of(rec) -> Dict:
 
 
 def decode_attention(dims: Dict, quest: Dict, rows: Iterable[tuple],
-                     doc_len: Dict) -> Tuple[float, float]:
+                     doc_len: Dict, here=None) -> Tuple[float, float]:
     """(FLOPs, bytes) of one decode step's attention (estimate, top-k,
     sparse and dense decode) over ``rows``."""
+    own = _own("decode_attention", dims, here)
+    if own is not None:
+        return own(dims, quest, rows, doc_len)
     H, Hkv, D, L, skip, page, K, kvb, mb = _sizes(dims, quest)
     tok_kv = Hkv * D * 2 * kvb          # one token's K and V, one layer
     page_meta = Hkv * D * 2 * mb        # one page's min and max, one layer
@@ -79,9 +98,12 @@ def decode_attention(dims: Dict, quest: Dict, rows: Iterable[tuple],
 
 
 def prefill_attention(dims: Dict, quest: Dict, rows: Iterable[tuple],
-                      doc_len: Dict) -> Tuple[float, float]:
+                      doc_len: Dict, here=None) -> Tuple[float, float]:
     """(FLOPs, bytes) of one prefill tick's causal attention: each row's
     ``n_new`` queries at positions ``offset ..`` over every earlier key."""
+    own = _own("prefill_attention", dims, here)
+    if own is not None:
+        return own(dims, quest, rows, doc_len)
     H, Hkv, D, L, _, _, _, kvb, _ = _sizes(dims, quest)
     tok_kv = Hkv * D * 2 * kvb
     flops = byt = 0.0
@@ -102,17 +124,20 @@ def prefill_attention(dims: Dict, quest: Dict, rows: Iterable[tuple],
     return flops, byt
 
 
-def decode_step(dims: Dict, quest: Dict, rows, doc_len: Dict
+def decode_step(dims: Dict, quest: Dict, rows, doc_len: Dict, here=None
                 ) -> Tuple[float, float]:
     """(FLOPs, bytes) of one whole decode step over ``rows``: every linear
     weight and the head read once, the attention's needs, each live row's
     appended K, V and page metadata, its embedding row, its logits."""
+    own = _own("decode_step", dims, here)
+    if own is not None:
+        return own(dims, quest, rows, doc_len)
     rows = list(rows)
     H, Hkv, D, L, _, _, _, kvb, mb = _sizes(dims, quest)
     wb = BYTES[dims["torch_dtype"]]
     hid, V = dims["hidden_size"], dims["vocab_size"]
-    lin, head = linear_params(dims)
-    f_att, b_att = decode_attention(dims, quest, rows, doc_len)
+    lin, head = linear_params(dims, here)
+    f_att, b_att = decode_attention(dims, quest, rows, doc_len, here)
     B = len(rows)
     flops = 2.0 * (lin + head) * B + f_att
     byt = ((lin + head) * wb + (2 * L + 1) * hid * wb + b_att
@@ -120,13 +145,17 @@ def decode_step(dims: Dict, quest: Dict, rows, doc_len: Dict
     return flops, byt
 
 
-def prefill_tick(dims: Dict, quest: Dict, rows, doc_len: Dict) -> float:
+def prefill_tick(dims: Dict, quest: Dict, rows, doc_len: Dict,
+                 here=None) -> float:
     """Model FLOPs of a prefill tick's real tokens: the linears of every
     real token, causal attention over each row's context, and the head of
     each row's last token."""
-    lin, head = linear_params(dims)
+    own = _own("prefill_tick", dims, here)
+    if own is not None:
+        return own(dims, quest, rows, doc_len)
+    lin, head = linear_params(dims, here)
     real = sum(max(0, r[1]) for r in rows)
-    f_att, _ = prefill_attention(dims, quest, rows, doc_len)
+    f_att, _ = prefill_attention(dims, quest, rows, doc_len, here)
     return 2.0 * lin * real + 2.0 * head * sum(1 for r in rows if r[1] > 0) \
         + f_att
 

@@ -27,6 +27,12 @@ precision below bf16, fp8 e4m3: every weight matrix rounded with one
 scale per output column (the embedding one per row), every matrix
 product's activations with one scale per row, and every key and value
 rounded as a cache would store them.
+
+This is the ``mistral`` family's reference (``families/mistral.py``).
+Quest's plain pieces here (``_rope_tables``, ``_rope``, ``_attend``,
+``_page_meta``, ``_page_select``, ``fp8_round``, ``Sequence_``) are
+another family's too: its reference adds its own block and takes Quest's
+selection from here.
 """
 
 from __future__ import annotations

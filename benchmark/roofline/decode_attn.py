@@ -17,6 +17,6 @@ def work(rec, tick):
     docs = doc_tokens_of(rec)
     f = b = 0.0
     for rows in decode_steps_of(tick):
-        df, db = decode_attention(rec.dims, rec.quest, rows, docs)
+        df, db = decode_attention(rec.dims, rec.quest, rows, docs, rec.here)
         f, b = f + df, b + db
     return f, b

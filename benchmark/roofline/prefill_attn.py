@@ -12,4 +12,4 @@ def work(rec, tick):
     if tick.kind != "prefill":
         return 0.0, 0.0
     return prefill_attention(rec.dims, rec.quest, tick.prefill_rows,
-                             doc_tokens_of(rec))
+                             doc_tokens_of(rec), rec.here)

@@ -65,20 +65,21 @@ class Cell:
     def __init__(self, workload: str, seed: int, seconds: float,
                  device: str = "cuda", here: Path = HERE):
         from bench import manifest, serve
-        from bench.weights import make_weights
 
         self.man = manifest.manifest(here)
         c = self.c = manifest.cell(self.man, workload, here)
         self.dims, self.mix = c["config"], c["traffic"]
         self.quest = self.dims["quest"]
+        self.fam = manifest.family(self.dims["model_type"], here)
         if device == "cuda":
             from quest_tpu_torch.ops import _build
             _build.build()
         self.gen = manifest.generator(self.mix["kind"], here)
         self.traffic = self.gen.make(self.mix, self.dims["vocab_size"], seed,
                                      seconds)
-        self.weights = make_weights(self.dims, seed, device)
-        self.eng = serve.build_engine(self.dims, self.quest, self.weights,
+        self.weights = self.fam.weights(self.dims, seed, device)
+        self.eng = serve.build_engine(self.fam.model_config(self.dims),
+                                      self.quest, self.weights,
                                       self.traffic.engine, seed, device)
         self.rec = serve.Record(cell=c["workload"], dims=self.dims,
                                 quest=self.quest, engine=self.traffic.engine,
@@ -98,7 +99,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
     t0 = T0 if t0 is None else t0
     cell = Cell(workload, seed, seconds, device, here)
-    man, c, dims, quest = cell.man, cell.c, cell.dims, cell.quest
+    man, c, dims, quest, fam = (cell.man, cell.c, cell.dims, cell.quest,
+                                cell.fam)
     traffic, weights, eng = cell.traffic, cell.weights, cell.eng
     rec, server = cell.rec, cell.server
     del cell
@@ -112,8 +114,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     rec.setup_s = time.perf_counter() - t0
     server.window(seconds, tracer)
     if tracer is not None:
-        from quest_tpu_torch.models.llama import TRACE_RANGES
-        rec.device = tracer.summary(extra_skip=TRACE_RANGES)
+        rec.device = tracer.summary(extra_skip=fam.trace_ranges)
     peak = (torch.cuda.max_memory_allocated() if device == "cuda" else 0)
 
     metrics = {}
@@ -146,8 +147,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    cmp = (check.compare(weights, dims, quest, traffic.docs[doc], picks,
-                         control=control) if picks else
+    cmp = (check.compare(fam.reference, weights, dims, quest,
+                         traffic.docs[doc], picks, control=control) if picks
+           else
            dict(gap=float("inf"), mean_gap=float("inf"), tokens=0,
                 seconds=0.0))
     info.update(reference_s=cmp["seconds"], widest_gap=cmp["gap"],

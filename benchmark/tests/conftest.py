@@ -1,7 +1,10 @@
 """Shared pieces of the benchmark's CPU tests: ``benchmark/`` on the path
 (the harness imports ``bench`` and ``reference`` from there, and the
 port from the checkout), and a copy of the benchmark with a tiny
-configuration and tiny mixes, for whole runs on the CPU's plain path."""
+configuration and tiny mixes, for whole runs on the CPU's plain path.
+The copy also holds a family of its own, ``mistral_theta``, and a tiny
+configuration of that family: added files the harness finds by the
+configuration's ``model_type``."""
 
 from __future__ import annotations
 
@@ -33,6 +36,24 @@ TINY_CONFIG = {
               "fused_decode": False, "block_pages": 4},
     "reduced": [], "assumed": {}, "deployment": "a CPU test",
 }
+# ``mistral`` with a reference at another rope theta: a family that
+# exists only in the copy, whose check must fail.
+THETA_FAMILY = '''"""mistral; its reference rotates at 4x the rope theta."""
+from pathlib import Path
+
+from bench import manifest
+
+_m = manifest.family("mistral", Path(__file__).resolve().parents[1])
+weights, model_config = _m.weights, _m.model_config
+trace_ranges, linear_params = _m.trace_ranges, _m.linear_params
+
+
+def reference(w, dims, quest, prefix, seqs, low_precision=False):
+    return _m.reference(w, dict(dims, rope_theta=4 * dims["rope_theta"]),
+                        quest, prefix, seqs, low_precision)
+'''
+TINY_THETA_CONFIG = dict(TINY_CONFIG, name="tiny-theta",
+                         model_type="mistral_theta")
 ENGINE = {"max_batch": 4, "burst": 4, "prefill_bucket": 8,
           "prefill_chunk": 32, "prefix_cache_entries": 64,
           "pool_blocks": 64}
@@ -56,20 +77,23 @@ def tiny_manifest(real: dict) -> dict:
     """The real manifest with two tiny cells on the tiny configuration,
     which report the real metrics."""
     man = json.loads(json.dumps(real))
-    man["configs"].append({"name": "tiny", "source": "test",
-                           "file": "benchmark/configs/tiny.json",
-                           "reduced": [], "why": "CPU test"})
+    for name in ("tiny", "tiny-theta"):
+        man["configs"].append({"name": name, "source": "test",
+                               "file": f"benchmark/configs/{name}.json",
+                               "reduced": [], "why": "CPU test"})
     real_cells = [w["name"] for w in man["workloads"]]
     man["workloads"] += [
         {"name": "tiny-closed", "config": "tiny", "traffic": "tiny-closed",
          "chips": 1, "why": "CPU test"},
         {"name": "tiny-open", "config": "tiny", "traffic": "tiny-open",
-         "chips": 1, "why": "CPU test"}]
+         "chips": 1, "why": "CPU test"},
+        {"name": "tiny-theta-closed", "config": "tiny-theta",
+         "traffic": "tiny-closed", "chips": 1, "why": "CPU test"}]
     for m in man["end_to_end"] + man["per_layer"]:
         if "workloads" in m:
             wl = m["workloads"]
             if real_cells[0] in wl:
-                wl.append("tiny-closed")
+                wl += ["tiny-closed", "tiny-theta-closed"]
             if real_cells[1] in wl:
                 wl.append("tiny-open")
     return man
@@ -78,8 +102,8 @@ def tiny_manifest(real: dict) -> dict:
 @pytest.fixture(scope="session")
 def tiny_bench(tmp_path_factory) -> Path:
     """A copy of ``benchmark/`` (with its manifest) plus the tiny
-    configuration and mixes, added as files; returns the copy's
-    ``benchmark/`` folder."""
+    configurations, the ``mistral_theta`` family and the tiny mixes,
+    added as files; returns the copy's ``benchmark/`` folder."""
     root = tmp_path_factory.mktemp("bench_root")
     here = root / "benchmark"
     shutil.copytree(HERE, here, ignore=shutil.ignore_patterns(
@@ -87,6 +111,9 @@ def tiny_bench(tmp_path_factory) -> Path:
     man = tiny_manifest(json.loads((ROOT / "BENCHMARK.json").read_text()))
     (root / "BENCHMARK.json").write_text(json.dumps(man))
     (here / "configs" / "tiny.json").write_text(json.dumps(TINY_CONFIG))
+    (here / "configs" / "tiny-theta.json").write_text(
+        json.dumps(TINY_THETA_CONFIG))
+    (here / "families" / "mistral_theta.py").write_text(THETA_FAMILY)
     (here / "traffic" / "tiny-closed.json").write_text(json.dumps(TINY_CLOSED))
     (here / "traffic" / "tiny-open.json").write_text(json.dumps(TINY_OPEN))
     return here

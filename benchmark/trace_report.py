@@ -117,13 +117,13 @@ def gap_split(gaps, children) -> dict:
                                      for k, v in after.items()})
 
 
-def idle_by_span(events) -> dict:
+def idle_by_span(events, trace_ranges) -> dict:
     """bench/trace.py's idle split with the program's spans standing in for
-    the harness's."""
+    the harness's; ``trace_ranges``: the family's model ranges, skipped as
+    the run's own summary skips them."""
     from torch.autograd import DeviceType
 
     from bench import trace as tracing
-    from quest_tpu_torch.models.llama import TRACE_RANGES
 
     class Ev:
         def __init__(self, e, name):
@@ -141,7 +141,7 @@ def idle_by_span(events) -> dict:
                 evs.append(Ev(e, tracing.SPAN_PREFIX + e.name[len(prefix):]))
             continue
         evs.append(e)
-    d = tracing.summarize(evs, TRACE_RANGES)
+    d = tracing.summarize(evs, trace_ranges)
     if d is None:
         return {}
     return dict(window_s=d["window_s"], busy_s=d["busy_s"],
@@ -239,7 +239,7 @@ def recorder_cost(device, reps=500, steps=16) -> dict:
                 serial_us_a_tick=1e6 * statistics.median(serial))
 
 
-def report(rec, events, result) -> dict:
+def report(rec, events, trace_ranges, result) -> dict:
     from bench import program_trace
     rcd = program_trace.recorder()
     ticks = program_trace.window_ticks(rec, rcd) or []
@@ -265,7 +265,8 @@ def report(rec, events, result) -> dict:
                        program_trace.prefill_tick_device_ms(rec, rcd))),
         clocks=clocks(ticks, children, gaps) if ticks else None,
         gaps=gap_split(gaps, children),
-        idle_by_span=idle_by_span(events) if events else None,
+        idle_by_span=(idle_by_span(events, trace_ranges) if events
+                      else None),
         tick_ranges=tick_ranges(events, ticks) if events else None,
         requests=requests(rec, rcd),
         pool=dict(least_free_blocks=min(free, default=None),
@@ -299,13 +300,14 @@ def main(argv=None) -> int:
     summarize = tracing.summarize
 
     def keep_events(events, extra_skip=()):
-        kept["events"] = list(events)
+        kept["events"], kept["ranges"] = list(events), extra_skip
         return summarize(events, extra_skip)
 
     run.Cell, tracing.summarize = KeptCell, keep_events
     result, compared, info = run.run_cell(args.workload, args.seed,
                                           args.seconds, True, args.device)
-    rep = report(kept["rec"], kept.get("events"), result)
+    rep = report(kept["rec"], kept.get("events"), kept.get("ranges", ()),
+                 result)
     rep["cost"] = recorder_cost(args.device)
     print(json.dumps(dict(trace_report=rep)), flush=True)
     print(json.dumps(dict(info=info)), flush=True)
