@@ -175,6 +175,22 @@ Phases, each fatal on failure:
      too), ticks and launches equal to phase 8's eager run; phase 14's
      bench_textgen runs (32K, the control, fused, fp8 at page 32) each
      also under ``eager()``.
+ 17. Mellum2-12B-A2.5B's kernels at its widths (hidden 2304, 64 experts
+     of width 896, 8 a token; 32 query heads, 4 KV heads, page 16,
+     64-page blocks, a 1024-token window): the router at 1, 8 and a
+     chunk's 512 rows, ids equal to ``moe_route_plain``'s; the experts'
+     kernels at 1 and 8 rows and the grouped products at 512 rows
+     against ``moe_experts_plain`` (a per-expert loop), with idle rows
+     and the count of experts read; decode and prefill attention with
+     the window against their plain versions, on tables that map only
+     the blocks a window layer holds (the rest point at a poisoned
+     block), random queries and a case whose planted keys at the
+     window's edge move the output by 4 if the edge is one key off;
+     then a 4-layer Mellum2 (three window layers, one full) through
+     ``ContinuousBatchingEngine`` under ``eager()``: one prefill tick
+     and one decode burst, the launches of each kernel and the experts
+     read against their counts. ``python3 chip_smoke.py mellum`` runs
+     phases 1, 2 and 17 alone.
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this script, it exits non-zero and prints
@@ -198,6 +214,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 REL_TOL = 2e-2                   # bf16 kernel vs plain, max|d| / max|plain|
 F32_TOL = 2e-3                   # f32 4-layer logits, card vs CPU
+MELLUM_TOL = 5e-3                # Mellum2's kernels vs plain (phase 17)
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"  # logs
 
 
@@ -4692,6 +4709,245 @@ def tool_launches(tools, kname):
                if n.startswith("bench_kernels_") and kname in r["detail"])
 
 
+# Phase 17: Mellum2-12B-A2.5B's kernels and one engine tick.
+
+def moe_case(gen, rows, H=2304, E=64, I=896, k=8):
+    """The router and the experts' path that ``models/llama.py`` takes
+    for ``rows`` rows, against the plain versions; every third row idle
+    (row 1 when there are fewer than three)."""
+    from quest_tpu_torch.ops.moe import (KERNEL_ROWS, moe_experts,
+                                         moe_experts_grouped,
+                                         moe_experts_plain, moe_route,
+                                         moe_route_plain)
+    h = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+    wr = (torch.randn(H, E, generator=gen, device="cuda")
+          / H ** 0.5).bfloat16()
+    wg, wu = ((torch.randn(E, H, I, generator=gen, device="cuda")
+               / H ** 0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn(E, I, H, generator=gen, device="cuda")
+          / I ** 0.5).bfloat16()
+    ids, wts = moe_route(h, wr, k)
+    pids, pwts = moe_route_plain(h, wr, k)
+    # Rows whose k-th and next logits lie within 1e-4 may pick either:
+    # the kernel sums the logits in another order.
+    top = (h.float() @ wr.float()).topk(k + 1).values
+    clear = top[:, k - 1] - top[:, k] > 1e-4
+    ids_equal = bool(torch.equal(ids.sort(-1).values[clear],
+                                 pids.sort(-1).values[clear]))
+    wts_err = float((wts.sort(-1).values - pwts.sort(-1).values)[clear]
+                    .abs().max())
+    idx = torch.arange(rows, device="cuda")
+    active = idx % 3 != 1 if rows > 2 else idx != 1
+    path = moe_experts if rows <= KERNEL_ROWS else moe_experts_grouped
+    c1 = torch.zeros(1, dtype=torch.int32, device="cuda")
+    c2 = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = path(h, ids, wts, wg, wu, wd, active, c1)
+    want = moe_experts_plain(h, ids, wts, wg, wu, wd, active, c2)
+    torch.cuda.synchronize()
+    read = len(set(ids[active].flatten().tolist()))
+    case = dict(rows=rows, path=path.__name__, ids_equal=ids_equal,
+                near_ties=int((~clear).sum()), wts_max_abs_err=wts_err, rel_err=rel_err(got, want),
+                experts_read=int(c1), plain_read=int(c2), expected_read=read,
+                idle_zero=not bool(got[~active].any()))
+    log(f"  moe {rows} rows ({path.__name__}): {case}")
+    ok = (ids_equal and wts_err <= 1e-5 and case["rel_err"] <= MELLUM_TOL
+          and int(c1) == int(c2) == read and case["idle_zero"])
+    if not ok:
+        raise AssertionError(f"phase 17 moe at {rows} rows: {case}")
+    return case
+
+
+POISON_V = 100.0                 # values of the block unmapped entries name
+
+
+def window_cache(gen, lens, low, W=1024, Hkv=4, D=128, page=16, bpp=64):
+    """A one-layer pool [1, Hkv, pages, 2, page, D] (bf16) and a block
+    table that maps, for each row, only the blocks holding its tokens
+    from ``low[b]`` to ``lens[b]``, as a window layer's table does; the
+    others name block 0, whose keys are 2.0 and values POISON_V, so a
+    kernel that reads it strays by tens."""
+    bt = bpp * page
+    NB = (max(lens) + bt - 1) // bt
+    tab = torch.zeros(len(lens), NB, dtype=torch.int32)
+    nxt = 1
+    for b, (lo, n) in enumerate(zip(low, lens)):
+        for blk in range(lo // bt, (n + bt - 1) // bt):
+            tab[b, blk] = nxt
+            nxt += 1
+    kv = torch.randn(1, Hkv, nxt * bpp, 2, page, D, generator=gen,
+                     device="cuda").bfloat16()
+    kv[0, :, :bpp, 0] = 2.0
+    kv[0, :, :bpp, 1] = POISON_V
+    return kv, tab.to(kv.device)
+
+
+def plant(kv, tab, b, t, v, bpp=64):
+    """Token ``t`` of row ``b``: keys 2.0 (a score of 22.6 against a query
+    of ones at head 128), values ``v``."""
+    page = kv.shape[-2]
+    blk, off = divmod(t, bpp * page)
+    pg = int(tab[b, blk]) * bpp + off // page
+    kv[0, :, pg, 0, off % page] = 2.0
+    kv[0, :, pg, 1, off % page] = v
+
+
+def window_cases(gen, W=1024, Hq=32, Hkv=4, D=128, bpp=64):
+    """Decode and prefill attention with the window against their plain
+    versions, with random queries and with the edge planted: for decode,
+    at each row's first key in the window (value +4) and the key before
+    it (value -4), under a query of ones, the output is 4 where the edge
+    is right and 0 where it is one key off either way; for prefill, the
+    same two keys below one query row, which rows around it see in turn
+    (-4, 0, +4, then neither)."""
+    from quest_tpu_torch.ops.dense_decode import (
+        dense_decode_attention, dense_decode_attention_plain)
+    from quest_tpu_torch.ops.prefill import (prefill_attention,
+                                             prefill_attention_plain)
+    out = []
+    lens = [1, 1023, 1024, 1025, 2049, 4100, 131072, 60001]
+    low = [max(0, n - W - 1) for n in lens]
+    kv, tab = window_cache(gen, lens, low, W, Hkv, D, bpp=bpp)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kw = dict(sm_scale=D ** -0.5, layer=0, block_tab=tab, block_pages=bpp,
+              window=W)
+    q = torch.randn(len(lens), Hq, D, generator=gen, device="cuda").bfloat16()
+    for b, n in enumerate(lens):
+        if n > W:
+            plant(kv, tab, b, n - W, 4.0, bpp)
+            plant(kv, tab, b, n - W - 1, -4.0, bpp)
+    for label, qq in (("random", q), ("edge", torch.ones_like(q))):
+        got = dense_decode_attention(qq, kv, lens_t, **kw)
+        want = dense_decode_attention_plain(qq, kv, lens_t, **kw)
+        case = dict(kernel="dense_decode", case=label, rel_err=rel_err(
+            got, want), max_abs_err=float((got - want).abs().max()))
+        if label == "edge":
+            edge = [float(want[b].mean()) for b, n in enumerate(lens)
+                    if n > W]
+            case["edge_out"] = edge
+            if min(edge) < 3.9:
+                raise AssertionError(f"phase 17: the plain decode edge "
+                                     f"reads {edge}")
+        log(f"  window decode {case}")
+        out.append(case)
+        if case["rel_err"] > MELLUM_TOL:
+            raise AssertionError(f"phase 17 window decode: {case}")
+    # Prefill: two rows' chunks, the second past its first block, which a
+    # window layer no longer holds.
+    T = 1200
+    offs, news = [0, 3000], [1200, 900]
+    kv_lens = [o + n for o, n in zip(offs, news)]
+    low = [max(0, o - W) for o in offs]
+    kv, tab = window_cache(gen, kv_lens, low, W, Hkv, D, bpp=bpp)
+    # Row 0: the edge of query 1100 (keys 77 and 76); row 1: of 3500.
+    for b, p0 in ((0, 1100), (1, 3500)):
+        plant(kv, tab, b, p0 - W + 1, 4.0, bpp)
+        plant(kv, tab, b, p0 - W, -4.0, bpp)
+    offs_t = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    kvl_t = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    kw = dict(sm_scale=D ** -0.5, layer=0, block_tab=tab, block_pages=bpp,
+              window=W)
+    real = (torch.arange(T, device="cuda")[None]
+            < torch.tensor(news, device="cuda")[:, None])
+    qp = torch.randn(2, T, Hq, D, generator=gen, device="cuda").bfloat16()
+    for label, qq in (("random", qp), ("edge", torch.ones_like(qp))):
+        got = prefill_attention(qq, kv, offs_t, kvl_t, **kw)
+        want = prefill_attention_plain(qq, kv, offs_t, kvl_t, **kw)
+        case = dict(kernel="prefill", case=label,
+                    rel_err=rel_err(got[real], want[real]),
+                    max_abs_err=float((got - want)[real].abs().max()))
+        if label == "edge":
+            # Row 0's queries 75-77 and 1099-1101: -4 (key 76 alone),
+            # 0 (both), ..., 0, +4 (key 77 alone), then neither.
+            m = want[0].mean(dim=(1, 2))
+            case["edge_out"] = [round(float(m[i]), 3)
+                                for i in (76, 77, 1099, 1100, 1101)]
+            e = case["edge_out"]
+            if not (e[0] < -3.9 and abs(e[1]) < 0.1 and abs(e[2]) < 0.1
+                    and e[3] > 3.9 and abs(e[4]) < 1.0):
+                raise AssertionError(f"phase 17: the plain prefill edge "
+                                     f"reads {e}")
+        log(f"  window prefill {case}")
+        out.append(case)
+        if case["rel_err"] > MELLUM_TOL:
+            raise AssertionError(f"phase 17 window prefill: {case}")
+    return out
+
+
+def mellum_engine_case(layers=4, steps=16):
+    """A Mellum2 of ``layers`` layers at its widths through
+    ``ContinuousBatchingEngine`` under ``eager()``: two prompts that
+    cross the window in one prefill tick, then one burst of ``steps``
+    decode steps; each kernel's launches and the experts read."""
+    from quest_tpu_torch.config import (QuestConfig, WINDOW,
+                                        mellum2_12b_a2_5b)
+    from quest_tpu_torch.engine import ContinuousBatchingEngine, Request
+    from quest_tpu_torch.engine.graphs import eager, launch_counters
+    from quest_tpu_torch.models.llama import init_params
+    from quest_tpu_torch.utils.trace import RECORDER
+    full = mellum2_12b_a2_5b()
+    cfg = dataclasses.replace(full, num_layers=layers,
+                              layer_types=full.layer_types[:layers])
+    quest = QuestConfig(page_size=16, token_budget=2048, max_seq_len=8192,
+                        skip_layers=2, block_pages=64,
+                        kv_dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+    Lw = sum(t == WINDOW for t in cfg.layer_types)
+    counters = {k.__name__: k for k in launch_counters()}
+    rng = np.random.default_rng(17)
+    reqs = [Request(i, rng.integers(1, cfg.vocab_size, n).tolist(), 64)
+            for i, n in enumerate((1500, 1100))]
+    with eager():
+        eng = ContinuousBatchingEngine(cfg, quest, params, max_batch=2,
+                                       prefill_bucket=256, burst=steps,
+                                       prefill_chunk=4096, device="cuda")
+        for r in reqs:
+            eng.submit(r)
+        ticks = []
+        for kind in ("prefill", "decode"):
+            for k in counters.values():
+                k.launches = 0
+            eng.step()
+            torch.cuda.synchronize()
+            tick = RECORDER.spans("tick")[-1].attrs
+            got = {n: k.launches for n, k in counters.items() if k.launches}
+            ticks.append(dict(kind=tick.get("kind"), steps=tick.get("steps"),
+                              experts_read=tick.get("experts_read"),
+                              window_blocks=tick.get("window_blocks"),
+                              launches=got))
+    log(f"  mellum engine ({layers} layers, {Lw} window): {ticks}")
+    pre, dec = ticks
+    n = dec["steps"]
+    want_pre = dict(moe_route=layers, prefill_attention=layers)
+    want_dec = dict(moe_route=layers * n, moe_experts=layers * n)
+    bad = [(name, t["launches"].get(name, 0), v)
+           for t, w in ((pre, want_pre), (dec, want_dec))
+           for name, v in w.items() if t["launches"].get(name, 0) != v]
+    if pre["kind"] != "prefill" or dec["kind"] != "decode" or not n:
+        bad.append(("ticks", pre["kind"], dec["kind"], n))
+    if pre["launches"].get("moe_experts") or (
+            dec["launches"].get("dense_decode_attention", 0) < Lw * n):
+        bad.append(("paths", pre["launches"], dec["launches"]))
+    # Each step reads at least one expert a layer and at most all of them.
+    if not layers * n <= (dec["experts_read"] or 0) <= layers * n * 64:
+        bad.append(("experts_read", dec["experts_read"]))
+    if bad:
+        raise AssertionError(f"phase 17 engine: {bad}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return ticks
+
+
+def mellum_phase():
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    res = dict(moe=[moe_case(gen, r) for r in (1, 8, 512)],
+               window=window_cases(gen),
+               engine=mellum_engine_case())
+    log(f"phase 17 (Mellum2) took {time.time() - t0:.1f} s")
+    return res
+
+
 def kernel_wrappers():
     """Each kernel's wrapper, which counts its launches."""
     from quest_tpu_torch.kv.paged_kv import (append_decode_at,
@@ -4734,6 +4990,9 @@ def main():
 
     name, smi = device_phase()
     logs = build_phase()
+    if sys.argv[1:] == ["mellum"]:
+        print(json.dumps({"mellum": mellum_phase()}))
+        return 0
     ptxas = ptxas_kernels(logs.get("qgemv", ""))
     torch.manual_seed(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4810,6 +5069,7 @@ def main():
     torch.cuda.empty_cache()
     serving["multi_gpu"].update(multi_rank_phase(kernel_wrappers()))
     log(f"phase 15 took {time.time() - t15:.1f} s")
+    serving["mellum"] = mellum_phase()
 
     kernels = []
     for kname, (src, rep, path) in KERNEL_META.items():

@@ -12,7 +12,7 @@ kernel has no such pipeline, and passing them raises ``TypeError``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,9 +36,15 @@ class RopeConfig:
     mscale: float = 1.0
 
 
+FULL, WINDOW = "full_attention", "sliding_attention"
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture of a Llama/Mistral-family decoder-only transformer."""
+    """Architecture of a Llama/Mistral-family decoder-only transformer:
+    every layer full attention at ``rope`` and a SwiGLU MLP of
+    ``intermediate_size`` (:class:`SparseWindowConfig` adds window layers
+    and experts; here they are absent)."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -52,11 +58,65 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     max_position_embeddings: int = 32768
     dtype: torch.dtype = torch.bfloat16
+    # Not fields here: SparseWindowConfig's, read by the model and cache.
+    layer_types = None
+    sliding_window = None
+    window_rope = None
+    num_experts = 0
+    num_experts_per_tok = 0
+    moe_intermediate_size = 0
 
     @property
     def num_groups(self) -> int:
         assert self.num_heads % self.num_kv_heads == 0
         return self.num_heads // self.num_kv_heads
+
+    def is_window(self, layer: int) -> bool:
+        return (self.layer_types is not None
+                and self.layer_types[layer] == WINDOW)
+
+    @property
+    def full_layers(self) -> Tuple[int, ...]:
+        return tuple(l for l in range(self.num_layers)
+                     if not self.is_window(l))
+
+    @property
+    def window_layers(self) -> Tuple[int, ...]:
+        return tuple(l for l in range(self.num_layers) if self.is_window(l))
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseWindowConfig(ModelConfig):
+    """A decoder whose layers may attend through a window and whose MLPs
+    may be sparse experts. ``layer_types`` (one of :data:`FULL`,
+    :data:`WINDOW` a layer; None: every layer full) makes some layers
+    attend only to their last ``sliding_window`` keys, rotated by
+    ``window_rope`` (None: ``rope``). ``num_experts > 0`` replaces every
+    MLP by that many SwiGLU experts of ``moe_intermediate_size``, of
+    which each token takes the ``num_experts_per_tok`` with the largest
+    softmax router weight, renormalised to sum 1."""
+
+    layer_types: Optional[Tuple[str, ...]] = None
+    sliding_window: Optional[int] = None
+    window_rope: Optional[RopeConfig] = None
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+
+    def __post_init__(self):
+        if self.layer_types is not None:
+            if len(self.layer_types) != self.num_layers or any(
+                    t not in (FULL, WINDOW) for t in self.layer_types):
+                raise ValueError(f"layer_types must give {FULL!r} or "
+                                 f"{WINDOW!r} for each of the "
+                                 f"{self.num_layers} layers")
+            if WINDOW in self.layer_types and not self.sliding_window:
+                raise ValueError("window layers need a sliding_window")
+        if self.num_experts and not (
+                0 < self.num_experts_per_tok <= self.num_experts
+                and self.moe_intermediate_size > 0):
+            raise ValueError("experts need 0 < num_experts_per_tok <= "
+                             "num_experts and a moe_intermediate_size")
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -191,6 +251,21 @@ def mistral_7b_v03() -> ModelConfig:
         rms_norm_eps=1e-5, max_position_embeddings=32768,
         rope=RopeConfig(theta=1000000.0),
     )
+
+
+def mellum2_12b_a2_5b() -> SparseWindowConfig:
+    """JetBrains Mellum2-12B-A2.5B: three 1024-token window layers then one
+    full layer, seven times; 64 experts of width 896, 8 a token."""
+    return SparseWindowConfig(
+        vocab_size=98304, hidden_size=2304, intermediate_size=7168,
+        num_layers=28, num_heads=32, num_kv_heads=4, head_dim=128,
+        rms_norm_eps=1e-6, max_position_embeddings=131072,
+        rope=RopeConfig(theta=500000.0, scaling="yarn", factor=16.0,
+                        original_max_position_embeddings=8192,
+                        beta_fast=32.0, beta_slow=1.0),
+        layer_types=(WINDOW, WINDOW, WINDOW, FULL) * 7, sliding_window=1024,
+        window_rope=RopeConfig(theta=500000.0), num_experts=64,
+        num_experts_per_tok=8, moe_intermediate_size=896)
 
 
 def tiny_test_model(num_kv_heads: int = 4) -> ModelConfig:

@@ -78,6 +78,7 @@ struct DecodeArgs {
   float sm_scale;
   int q_bf16;            // q dtype: 1 = bf16, 0 = f32
   int G, nsub;           // query heads a selection head; its sub-groups
+  int window;            // dense: > 0 attends only the last `window` keys
 };
 
 // Where a CTA's sub-group lies: blockIdx.y = hsel * nsub + sub.
@@ -97,11 +98,28 @@ struct DecodeUnit {
   }
 };
 
-// Pages (dense) or valid selection slots (sparse) of batch row b.
+// Dense: the first logical page a row attends (that of its first key
+// inside the window; 0 without one). Item i of a dense row is page
+// first_page + i.
+template <bool kSparse>
+__device__ __forceinline__ int first_page(const DecodeArgs& a, int b) {
+  return kSparse || a.window <= 0
+             ? 0 : max(0, a.seq_lens[b] - a.window) / a.page;
+}
+
+// The first key position a row attends (dense, inside its window).
+template <bool kSparse>
+__device__ __forceinline__ int first_key(const DecodeArgs& a, int b) {
+  return kSparse || a.window <= 0 ? 0 : a.seq_lens[b] - a.window;
+}
+
+// Pages (dense, from first_page) or valid selection slots (sparse) of
+// batch row b.
 template <bool kSparse>
 __device__ __forceinline__ int decode_items(const DecodeArgs& a, int b) {
   return kSparse ? max(0, min(a.num_valid[b], a.S))
-                 : min((a.seq_lens[b] + a.page - 1) / a.page, a.NB * a.bpp);
+                 : min((a.seq_lens[b] + a.page - 1) / a.page, a.NB * a.bpp) -
+                       first_page<kSparse>(a, b);
 }
 
 // f32 pools. One CTA = (split, selection head, batch row). A split covers
@@ -134,6 +152,7 @@ decode_partial(DecodeArgs a) {  // G: the padded sub-group GP
   const int seq_len = a.seq_lens[b];
   const int h_kv = hsel / a.kvdiv;
   const int n_items = decode_items<kSparse>(a, b);
+  const int lp0 = first_page<kSparse>(a, b), lo = first_key<kSparse>(a, b);
   const int first = split * a.per_split;
   const int ntok = max(0, min(first + a.per_split, n_items) - first) * page;
 
@@ -165,10 +184,10 @@ decode_partial(DecodeArgs a) {  // G: the padded sub-group GP
         const int item = first + t / page, e = t % page;
         const int lp = kSparse
             ? a.indices[(static_cast<int64_t>(b) * a.Hsel + hsel) * a.S + item]
-            : item;
+            : lp0 + item;
         off = kv_row(h_kv, phys_page(a.tab, b, a.NB, a.bpp, lp), e, a.NP,
                      page, kD);
-        valid = lp * page + e < seq_len;
+        valid = lp * page + e < seq_len && lp * page + e >= lo;
       }
       rowoff[tid] = off;
       valid_s[tid] = valid;
@@ -408,14 +427,16 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
   int* it_lp = reinterpret_cast<int*>(wbuf + kConsumers * R::kWarpBytes);
   int* it_pg = it_lp + a.per_split;  // h_kv * NP + physical page
   const int n_items = decode_items<kSparse>(a, b);
+  const int lp0 = first_page<kSparse>(a, b);
   if (warp == kConsumers) {
     // The producer warp resolves the split's pages while the row's length
     // is on its way (sparse: every slot of the split, junk slots being in
     // range; dense: the table's pages).
     const int h_kv = hsel / a.kvdiv;
     const int cap = kSparse ? a.S : a.NB * a.bpp;
-    for (int i = lane; i < min(cap - first, a.per_split); i += 32) {
-      const int lp = kSparse ? a.indices[grp * a.S + first + i] : first + i;
+    for (int i = lane; i < min(cap - lp0 - first, a.per_split); i += 32) {
+      const int lp =
+          kSparse ? a.indices[grp * a.S + first + i] : lp0 + first + i;
       it_lp[i] = lp;
       it_pg[i] = h_kv * a.NP + phys_page(a.tab, b, a.NB, a.bpp, lp);
     }
@@ -423,7 +444,7 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
   // Split 0 always runs (a row with nothing to attend writes zeros).
   const int active = max(1, (n_items + a.per_split - 1) / a.per_split);
   if (split >= active) return;
-  const int seq_len = a.seq_lens[b];
+  const int seq_len = a.seq_lens[b], lo = first_key<kSparse>(a, b);
   const StageMap<R> sm(page, max(0, min(n_items - first, a.per_split)));
   const int nst = sm.stages();
 
@@ -539,7 +560,8 @@ decode_ring(const DecodeArgs a, const __grid_constant__ CUtensorMap tmap) {
       const int rows = page <= kChunk ? min(sm.spg, sm.nit - i0) * page
                                       : min(kChunk, page - e0);
       const bool ok =
-          lane < rows && it_lp[i0 + lq] * page + e0 + lr < seq_len;
+          lane < rows && it_lp[i0 + lq] * page + e0 + lr < seq_len &&
+          it_lp[i0 + lq] * page + e0 + lr >= lo;
       const unsigned valid = __ballot_sync(0xffffffffu, ok);
       if constexpr (R::kTma) {
         // The products read the stage where TMA put it; the token rows a

@@ -16,6 +16,10 @@
 // ops/decode_common.py:decode_plan, three CTAs an SM for a full table);
 // splits past a row's pages exit at once.
 //
+// Window layers (window > 0) attend only the last `window` keys of a
+// row: its pages start at that of key seq_len - window, the keys below it
+// are masked, and the plan's splits cover the window's pages alone.
+//
 // Bound on the H100: bytes. Every K and V row of the slot is read once
 // per KV head: 8 heads x 32768 tokens x 512 bytes = 134 MB for one
 // 32K-token row of Llama-3.1-8B in bf16 (half that from an fp8 e4m3
@@ -28,10 +32,12 @@ extern "C" int dense_decode_launch(
     const void* q, const void* kv, const int* tab, const int* seq_lens,
     float* part_o, float* part_ml, int* tickets, float* out, int B, int Hkv,
     int G, int NP, int page, int NB, int bpp, int nsplit, int per_split,
-    int kv_dtype, float sm_scale, int q_bf16, const void* tmap, void* stream) {
+    int kv_dtype, float sm_scale, int q_bf16, int window, const void* tmap,
+    void* stream) {
   qt::DecodeArgs a{q,       kv,      tab,     seq_lens, nullptr, nullptr,
                    part_o,  part_ml, tickets, out,      Hkv,     1,
                    NP,      page,    NB,      bpp,      0,       nsplit,
-                   per_split, sm_scale, q_bf16, G,      sub_groups(G)};
+                   per_split, sm_scale, q_bf16, G,      sub_groups(G),
+                   window};
   return qt::dispatch_decode<false>(a, tmap, B, kv_dtype, stream);
 }

@@ -8,7 +8,9 @@
 // prefill is q_offset > 0. Padded query rows (i past the real chunk)
 // have q_offset + i >= kv_len and see every cached token, so their
 // softmax sum is positive whenever kv_len > 0; a row with no key at
-// all (kv_len == 0, an empty row of a batch) writes zeros.
+// all (kv_len == 0, an empty row of a batch) writes zeros. A window
+// layer (window > 0) masks the keys k <= q_offset + i - window as well,
+// and a CTA skips the tiles below its first row's window.
 //
 // Bound on the H100: operations. Causal attention of T = 2048 fresh
 // queries of Llama-3.1-8B (32 query heads, D = 128) is about
@@ -61,6 +63,7 @@
 // dividing 128; the wrapper chooses by shape) take the same kernel on
 // their element type: q and p rounded to bf16 as in the TMA kernel, fp8
 // read by the upcast_fp8 recipe, the products in f32.
+#include <limits.h>
 #include <string.h>
 
 #include "common.cuh"
@@ -114,6 +117,7 @@ struct TmaArgs {
   float sm_scale;
   int q_bf16;
   int GP, nsub;              // padded sub-group; sub-groups a KV head
+  int window;                // > 0: keys above position - window only
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -245,7 +249,10 @@ prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
   // Keys past the block table do not exist (as in the plain version).
   const int kv_len = min(a.kv_lens[b], a.NB * a.bpp * a.page);
   const int hi = min(offset + i0 + P, kv_len);  // keys this CTA can see
-  const int n_tiles = hi > 0 ? (hi + kBK - 1) / kBK : 0;
+  // With a window, the tiles below its first row's window are skipped:
+  // the CTA reads tiles j0 .. j0 + n_tiles - 1.
+  const int j0 = a.window > 0 ? max(0, offset + i0 - a.window + 1) / kBK : 0;
+  const int n_tiles = hi > 0 ? max(0, (hi + kBK - 1) / kBK - j0) : 0;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
 
@@ -267,7 +274,7 @@ prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
     // `page` rows later), or a.rows (past the map: zeros) where the page
     // is past the CTA's keys or the block table.
     auto page_row = [&](int j) -> int {
-      const int lp = j * ppt + lane;
+      const int lp = (j0 + j) * ppt + lane;
       if (lane >= ppt || lp * a.page >= hi || lp >= a.NB * a.bpp) return a.rows;
       return (h_kv * a.NP + phys_page(a.tab, b, a.NB, a.bpp, lp)) * 2 * a.page;
     };
@@ -379,13 +386,15 @@ prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
                         offset + i0 + (r0 + 8) / a.GP};
     const int wg_lo = offset + i0 + (wg * 64) / a.GP;       // first position
     const int wg_hi = offset + i0 + (wg * 64 + 63) / a.GP;  // last position
+    // Keys below every row's window (none without one).
+    const int wg_win = a.window > 0 ? wg_lo - a.window + 1 : INT_MIN;
     const uint32_t q_base = smem_u32(qw);
 
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % kStages;
-      const int t0 = j * kBK;
+      const int t0 = (j0 + j) * kBK;
       bar_wait(&full[s], (j / kStages) & 1);
-      if (t0 <= wg_hi) {                        // a key some row can see
+      if (t0 <= wg_hi && t0 + kBK - 1 >= wg_win) {  // a key some row sees
         const uint32_t kb = smem_u32(ring + s * kStage), vb = kb + kTile;
         float sc[64];
         wgmma_fence();
@@ -400,13 +409,17 @@ prefill_tma_kernel(const __grid_constant__ CUtensorMap tmap, const TmaArgs a) {
         wgmma_wait_all();
 
         // Causal and length mask where a key may be past a row's position
-        // or past kv_len; masked scores hold exactly the mask value.
-        const bool masked = t0 + kBK - 1 > wg_lo || t0 + kBK > kv_len;
+        // or past kv_len (or below a row's window); masked scores hold
+        // exactly the mask value.
+        const bool masked = t0 + kBK - 1 > wg_lo || t0 + kBK > kv_len ||
+                            (a.window > 0 && t0 <= wg_hi - a.window);
         if (masked) {
 #pragma unroll
           for (int n = 0; n < 64; ++n) {
             const int k_pos = t0 + 8 * (n / 4) + 2 * (lane % 4) + (n & 1);
-            const bool ok = k_pos <= pos[(n >> 1) & 1] && k_pos < kv_len;
+            const int p = pos[(n >> 1) & 1];
+            const bool ok = k_pos <= p && k_pos < kv_len &&
+                            (a.window <= 0 || k_pos > p - a.window);
             sc[n] = ok ? sc[n] : QT_MASK_VALUE;
           }
         }
@@ -499,7 +512,7 @@ prefill_fma_kernel(const void* __restrict__ q, const KV* __restrict__ kv,
                    const int* __restrict__ q_offsets,
                    const int* __restrict__ kv_lens, float* __restrict__ out,
                    int T, int Hq, int G, int NP, int page, int NB, int bpp,
-                   float sm_scale, int q_bf16) {
+                   float sm_scale, int q_bf16, int window) {
   __shared__ __align__(16) float qs[kRF][kD];
   __shared__ __align__(16) float ks[kTF][kKStrF];
   __shared__ __align__(16) float vs[kTF][kD];
@@ -535,7 +548,8 @@ prefill_fma_kernel(const void* __restrict__ q, const KV* __restrict__ kv,
   for (int r = 0; r < kRF; ++r) acc[r] = 0.f;
   __syncthreads();
 
-  for (int t0 = 0; t0 < hi; t0 += kTF) {
+  const int lo = window > 0 ? max(0, offset + i0 - window + 1) : 0;
+  for (int t0 = lo / kTF * kTF; t0 < hi; t0 += kTF) {
     // K and V rows, 16 bytes of the pool a thread and step, widened to
     // f32; rows past hi are zeros.
     constexpr int CH = Elem<KV>::kPerChunk;
@@ -576,7 +590,8 @@ prefill_fma_kernel(const void* __restrict__ q, const KV* __restrict__ kv,
         s = fmaf(q4.w, k4.w, s);
       }
       const int k_pos = t0 + j;
-      const bool ok = k_pos <= offset + i0 + r && k_pos < kv_len;
+      const bool ok = k_pos <= offset + i0 + r && k_pos < kv_len &&
+                      (window <= 0 || k_pos > offset + i0 + r - window);
       ps[r][j] = ok ? s : QT_MASK_VALUE;
     }
     __syncthreads();
@@ -673,7 +688,7 @@ extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
                               float* out, int B, int T, int Hq, int Hkv,
                               int NP, int page, int NB, int bpp, int kv_dtype,
                               int fma, float sm_scale, int q_bf16,
-                              const void* tmap, void* stream) {
+                              int window, const void* tmap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == 0 || fma) {
     dim3 grid((T + kRF - 1) / kRF, Hq, B);
@@ -681,7 +696,7 @@ extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
       using E = decltype(t);
       prefill_fma_kernel<E><<<grid, kThreads, 0, s>>>(
           q, static_cast<const E*>(kv), tab, q_offsets, kv_lens, out, T, Hq,
-          Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16);
+          Hq / Hkv, NP, page, NB, bpp, sm_scale, q_bf16, window);
       return cudaGetLastError();
     }));
   }
@@ -692,7 +707,7 @@ extern "C" int prefill_launch(const void* q, const void* kv, const int* tab,
   const TmaArgs a{q,    tab, q_offsets, kv_lens, out,
                   T,    Hq,  G,         NP,      page,
                   NB,   bpp, Hkv * NP * 2 * page, sm_scale, q_bf16,
-                  padded_group(G), sub_groups(G)};
+                  padded_group(G), sub_groups(G), window};
   return static_cast<int>(kv_dtype == 2 ? launch_tma<true>(tmap, a, B, Hkv, s)
                                         : launch_tma<false>(tmap, a, B, Hkv, s));
 }

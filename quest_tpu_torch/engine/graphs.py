@@ -95,6 +95,7 @@ def launch_counters() -> tuple:
     from quest_tpu_torch.ops.fused_decode import (exact_topk_select,
                                                   fused_sparse_decode)
     from quest_tpu_torch.ops.head_gemv import head_gemv
+    from quest_tpu_torch.ops.moe import moe_experts, moe_route
     from quest_tpu_torch.ops.prefill import prefill_attention
     from quest_tpu_torch.ops.qdot import dequant, qgemv
     from quest_tpu_torch.ops.rms_norm import rms_norm
@@ -107,7 +108,7 @@ def launch_counters() -> tuple:
             page_scores_physical, exact_topk_select, qgemv, dequant,
             copy_probe, select_pieces, append_decode_at, rotate_qk,
             rope_append_decode_at, rms_norm, head_gemv, append_prefill_at,
-            silu_mul)
+            silu_mul, moe_route, moe_experts)
 
 
 class CudaGraph:

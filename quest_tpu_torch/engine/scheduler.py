@@ -23,6 +23,16 @@
     physical block, so borrowing is host bookkeeping only.
   * Finished slots release their blocks and reset their table row to
     scratch and their length to 0.
+  * **Window layers** (``SparseWindowConfig.layer_types``) keep a
+    second cache (``cache.window``, kv/paged_kv.py) with a block pool of
+    its own: a slot holds only the window blocks that its next tick's
+    queries can see, mapped before the tick as the slot reaches them and
+    released once its window has passed them, so a slot holds a bounded
+    number of them whatever its length. A published prompt's entry for
+    its last full block also keeps the window blocks that end there
+    (LRU-capped apart from the registry); a later prompt borrows a prefix
+    only at a boundary with that state, backing off to the longest one
+    that has it, and aliases those window blocks into its window table.
 
 Decoding runs in **bursts**: ``burst`` chained steps on the device (the
 greedy step's argmax, or the sampled step's draw from a ``torch.
@@ -49,7 +59,13 @@ to the host; ``emit``: first tokens, prefix publication, events); request
 events ``submit``, ``admit``, ``first_token`` and ``finish``; and on the
 card device marks before the tick's first launch, after each decode step
 and after its last launch, read into the tick's attributes after its
-fetch (the steps' while the next tick's work runs).
+fetch (the steps' while the next tick's work runs). A model with experts
+adds the tick's ``experts_read`` (distinct experts read, summed over its
+steps and layers, counted on the device and copied back behind the
+tick's work, so the tick's one fetch brings it), and a model with
+window layers its ``window_blocks`` (window blocks held, slots' and
+registry's) and, on the ``admit`` span, ``window_tokens`` (window
+tokens restored from prefix hits).
 
 Under a ``(dp, tp)`` mesh (``parallel/mesh.py``; one process a rank)
 the slots split into ``dp`` groups of ``max_batch / dp``, each with its
@@ -137,6 +153,11 @@ class ContinuousBatchingEngine:
     Each dp group owns an independent slice of the physical pool with
     its own allocator, and ``total_pages`` counts usable pages PER DP
     GROUP. ``max_batch`` must be a multiple of dp.
+
+    With window layers, the registry keeps the window state of the
+    ``2 * max_batch`` prompts published last; the window blocks' pool
+    holds theirs and every slot's most (the blocks covering a prefill
+    chunk or a burst and the window before it).
     """
 
     def __init__(self, cfg: ModelConfig, quest: QuestConfig, params: Params,
@@ -154,16 +175,26 @@ class ContinuousBatchingEngine:
         self.mesh = mesh
         bpp = min(quest.block_pages, quest.max_pages)
         self.block_tokens = bpp * quest.page_size
+        self._window = cfg.sliding_window if cfg.window_layers else 0
         if mesh is None:
             dp, self._shard = 1, None
             self.device = resolve_device(device)
             self.model = QuestModel(cfg, quest, params).to(self.device)
             if total_pages is None:
                 total_pages = max_batch * quest.max_pages
+            window_pages = None
+            if self._window:
+                self._wstate_cap = 2 * max_batch
+                window_pages = bpp * (1 + self._window_pool_blocks(
+                    max_batch, quest))
             self.cache = init_cache(cfg, quest, max_batch,
                                     total_pages=bpp + total_pages,
-                                    device=self.device)
+                                    device=self.device,
+                                    window_pages=window_pages)
         else:
+            if self._window or cfg.num_experts:
+                raise NotImplementedError("window layers and experts run on "
+                                          "one device")
             dp = mesh.size(mesh.mesh_dim_names.index(DP_AXIS))
             assert max_batch % dp == 0, (max_batch, dp)
             self.device = rank_device(mesh)
@@ -177,6 +208,23 @@ class ContinuousBatchingEngine:
         # All table rows start at scratch; the allocators own the rest.
         self.cache.block_tab.zero_()
         self.dp = dp
+        if self._window:
+            # The window blocks' pool, its table's host mirror (0: scratch,
+            # else 1 + the pool's block) and the registry's window state,
+            # chain key -> the window blocks that end at that boundary.
+            self.cache.window.block_tab.zero_()
+            self.wpool = PagePool(
+                self.cache.window.kv_pages.shape[2] // bpp - 1,
+                self.block_tokens, max_seqs=1)
+            self._wtab = np.zeros(tuple(self.cache.window.block_tab.shape),
+                                  np.int32)
+            self._wtab_dirty = False
+            self._wstate: OrderedDict = OrderedDict()
+        self._experts_host = None
+        if cfg.num_experts:
+            self._experts_host = torch.zeros(
+                1, dtype=torch.int32,
+                pin_memory=self.device.type == "cuda")
         self._slots_per_group = max_batch // dp
         # Slots [row0, row0 + slots_per_group) are this rank's cache rows.
         self._row0 = (0 if mesh is None else self._shard.dp_rank
@@ -215,6 +263,61 @@ class ContinuousBatchingEngine:
         self._tick_attrs: dict = {}
 
     # ------------------------------------------------------------------
+    def _window_pool_blocks(self, max_batch: int, quest: QuestConfig) -> int:
+        """Window blocks the pool needs: each slot's most at once (the
+        blocks of a tick's new tokens, a prefill chunk or a burst, and of
+        the window before them) and the registry's window state."""
+        bt, W = self.block_tokens, self._window
+        chunk = (round_up(self.prefill_chunk, self.prefill_bucket)
+                 if self.prefill_chunk else quest.max_seq_len)
+        nb = quest.max_pages // min(quest.block_pages, quest.max_pages)
+        per_slot = min(nb, -(-(max(chunk, self.burst) + W - 1) // bt) + 1)
+        return max_batch * per_slot + self._wstate_cap * self._state_blocks()
+
+    def _state_blocks(self) -> int:
+        """Window blocks that end at a block boundary and hold the window
+        of the position there."""
+        return -(-(self._window - 1) // self.block_tokens)
+
+    def _map_window(self, b: int, lo: int, hi: int) -> None:
+        """Slot b about to write positions [lo, hi): its window blocks
+        wholly below the window of position lo go back to the pool, and
+        those of [lo - W + 1, hi) are mapped (the table's device copy is
+        written once a tick, :meth:`_sync_window`)."""
+        bt, row = self.block_tokens, self._wtab[b]
+        first = max(0, lo - self._window + 1) // bt
+        gone = [int(p) - 1 for p in row[:first] if p]
+        if gone:
+            self.wpool.pages_release(gone)
+            row[:first] = 0
+            self._wtab_dirty = True
+        need = [i for i in range(first, (hi - 1) // bt + 1) if not row[i]]
+        if need:
+            row[need] = np.asarray(self.wpool.pages_alloc(len(need))) + 1
+            self._wtab_dirty = True
+
+    def _sync_window(self) -> None:
+        if self._window and self._wtab_dirty:
+            self.cache.window.block_tab.copy_(torch.from_numpy(self._wtab))
+            self._wtab_dirty = False
+
+    def _drop_window_state(self, key: bytes) -> None:
+        blocks = self._wstate.pop(key, None)
+        if blocks:
+            self.wpool.pages_release(blocks)
+
+    def _count_experts(self, start: bool) -> None:
+        """Zero the model's ``experts_read`` before a tick's first launch
+        (``start``), or copy it behind its last one, to be read once the
+        tick's fetch returns."""
+        if self._experts_host is None:
+            return
+        if start:
+            self.model.experts_read.zero_()
+        else:
+            self._experts_host.copy_(self.model.experts_read,
+                                     non_blocking=True)
+
     def _blocks_needed(self, req: Request) -> int:
         return -(-(len(req.prompt) + req.max_new_tokens)
                  // self.block_tokens)
@@ -290,11 +393,12 @@ class ContinuousBatchingEngine:
 
     def _prefix_lookup(self, g: int, keys: List[bytes]):
         """(n_shared_blocks, blocks) of group g's longest registered
-        prefix."""
+        prefix (with window layers: the longest that has window state)."""
         reg = self._prefixes[g]
         for i in range(len(keys), 0, -1):
             ent = reg.get(keys[i - 1])
-            if ent is not None:
+            if ent is not None and (not self._window
+                                    or keys[i - 1] in self._wstate):
                 reg.move_to_end(keys[i - 1])
                 return i, ent
         return 0, []
@@ -308,6 +412,8 @@ class ContinuousBatchingEngine:
         only the rest is reserved and written."""
         with self._span("admit") as span:
             admitted = span.attrs["admitted"] = []   # (uid, hit tokens)
+            if self._window:
+                span.attrs["window_tokens"] = 0
             free = [b for b, s in enumerate(self.slots) if s is None]
             while free and self.queue:
                 req = self.queue[0]
@@ -334,8 +440,10 @@ class ContinuousBatchingEngine:
                     for b in free:
                         reg = self._prefixes[self._group(b)]
                         if reg:
-                            _, old = reg.popitem(last=False)
+                            key, old = reg.popitem(last=False)
                             self.pools[self._group(b)].pages_release(old)
+                            if self._window:
+                                self._drop_window_state(key)
                             evicted = True
                     if not evicted:
                         break
@@ -352,6 +460,17 @@ class ContinuousBatchingEngine:
                     pool.pages_retain(shared)   # slot hold until finish
                     self.prefix_hits += 1
                     self.prefix_hit_tokens += sh_tokens
+                    if self._window:
+                        # The window blocks ending at the boundary, aliased
+                        # into the slot's window table (a hold each).
+                        wst = self._wstate[keys[n_sh - 1]]
+                        self._wstate.move_to_end(keys[n_sh - 1])
+                        self.wpool.pages_retain(wst)
+                        self._wtab[b, n_sh - len(wst):n_sh] = (
+                            np.asarray(wst) + 1)
+                        self._wtab_dirty = True
+                        span.attrs["window_tokens"] += min(
+                            sh_tokens, self._window - 1)
                 admitted.append((req.uid, sh_tokens))
                 RECORDER.event("admit", req.uid, self._trace_id)
                 sid = pool.seq_create()
@@ -395,8 +514,28 @@ class ContinuousBatchingEngine:
             pool.pages_retain(ent)
             reg[key] = ent
             while len(reg) > self._prefix_cap:
-                _, old = reg.popitem(last=False)
+                old_key, old = reg.popitem(last=False)
                 pool.pages_release(old)
+                if self._window:
+                    self._drop_window_state(old_key)
+        if self._window and keys[-1] in reg:
+            self._publish_window(b, len(keys), keys[-1])
+
+    def _publish_window(self, b: int, m: int, key: bytes) -> None:
+        """Keep slot b's window blocks that end at its prompt's m-th block
+        boundary under ``key`` (a hold each), unless kept already or the
+        slot no longer holds them; the oldest state beyond the cap goes."""
+        if key in self._wstate:
+            self._wstate.move_to_end(key)
+            return
+        row = self._wtab[b, max(0, m - self._state_blocks()):m]
+        if not row.all():
+            return
+        blocks = [int(p) - 1 for p in row]
+        self.wpool.pages_retain(blocks)
+        self._wstate[key] = blocks
+        while len(self._wstate) > self._wstate_cap:
+            self._drop_window_state(next(iter(self._wstate)))
 
     # ------------------------------------------------------------------
     def _prefill_groups(self, pf: List[int]) -> List[List[int]]:
@@ -429,6 +568,11 @@ class ContinuousBatchingEngine:
                 T = round_up(max(min(chunk, n) for n in left.values()),
                              self.prefill_bucket)
                 n_new = {b: min(T, n) for b, n in left.items()}
+                if self._window:
+                    for b in pf:
+                        self._map_window(b, int(self._hlens[b]),
+                                         int(self._hlens[b]) + n_new[b])
+                    self._sync_window()
                 groups = self._prefill_groups(pf)
                 rows = groups[self._group(self._row0)]     # this rank's
                 R = len(rows)
@@ -449,10 +593,12 @@ class ContinuousBatchingEngine:
                                     padded_tokens=R * self.dp * T)
             with self._span("enqueue"):
                 self._marks.mark()
+                self._count_experts(True)
                 view = self.cache.rows(idx)
                 out = self.model.prefill_last(view, toks_dev, lens_dev)[:, 0]
                 # In place: the captured decode steps read this tensor.
                 self.cache.seq_lens.index_copy_(0, idx, view.seq_lens)
+                self._count_experts(False)
                 self._marks.mark()
                 self._marks.settle()
             logits = self._gather(out)      # [dp * R, V], group by group
@@ -498,12 +644,18 @@ class ContinuousBatchingEngine:
                 headroom = min(self.quest.max_seq_len - int(self._hlens[b])
                                for b in decoding)
                 K = max(1, min(self.burst, remaining, headroom))
+                if self._window:
+                    for b in decoding:
+                        self._map_window(b, int(self._hlens[b]),
+                                         int(self._hlens[b]) + K)
+                    self._sync_window()
                 act = self._rows(active)
                 tok = self._rows(toks)
                 temps_dev = self._rows(temps) if temps.any() else None
             self._tick_attrs.update(rows=len(decoding), steps=K)
             with self._span("enqueue"):
                 self._marks.mark()
+                self._count_experts(True)
                 outs = []
                 for _ in range(K):
                     if temps_dev is None:
@@ -515,6 +667,7 @@ class ContinuousBatchingEngine:
                     outs.append(tok)
                     self._marks.mark()
                 out = torch.stack(outs, dim=1)                   # [B, K]
+                self._count_experts(False)
                 self._marks.mark()
                 self._marks.settle()
             arr = self._gather(out)
@@ -558,6 +711,11 @@ class ContinuousBatchingEngine:
                 queue=len(self.queue),
                 free_blocks=[p.free_pages() for p in self.pools],
                 work_left=work_left)
+            if self._experts_host is not None and self.last_tick:
+                span.attrs["experts_read"] = int(self._experts_host[0])
+            if self._window:
+                span.attrs["window_blocks"] = (self.wpool.total_pages
+                                               - self.wpool.free_pages())
             self._marks.read(span.attrs)
             if not work_left:
                 self._marks.settle()
@@ -598,6 +756,12 @@ class ContinuousBatchingEngine:
             if slot.shared_blocks:
                 pool.pages_release(slot.shared_blocks)
             pool.seq_release(slot.sid)
+            if self._window:
+                held = [int(p) - 1 for p in self._wtab[b] if p]
+                if held:
+                    self.wpool.pages_release(held)
+                self._wtab[b] = 0
+                self._wtab_dirty = True
             self._chains.pop(req.uid, None)
             self._hlens[b] = 0
             self._set_row(b, 0, 0)

@@ -13,6 +13,15 @@ Layouts are the JAX package's:
     land there and never touch another sequence's pages;
   * ``seq_lens [B]`` — tokens stored per slot.
 
+A model with window layers (``SparseWindowConfig.layer_types``) keeps
+two such caches: the full layers' (``kv_pages`` etc., indexed in the
+full layers' order) and, in ``window``, the window layers', with a pool
+and block table of its own and the same ``seq_lens`` tensor. A window layer reads
+only a slot's last ``sliding_window`` keys, so its table needs only the
+blocks that hold them: the scheduler maps a window block as a slot
+reaches it and returns it to its own pool once the slot's window has
+passed it (``engine/scheduler.py``); unmapped entries are scratch.
+
 Unlike JAX, which rebuilt the arrays functionally (in place only under
 buffer donation), the port updates the cache IN PLACE: every append
 writes the touched pool rows and metadata rows of the existing tensors
@@ -65,6 +74,9 @@ class PagedKVCache:
     k_min: torch.Tensor      # [L, Hkv, NPB, bpp, D]
     block_tab: torch.Tensor  # [B, NB] int32
     seq_lens: torch.Tensor   # [B] int32
+    # The window layers' cache (its seq_lens is this one's), or None: an
+    # attribute, not a field, so the fields stay the JAX cache's.
+    window = None
 
     @property
     def page_size(self) -> int:
@@ -104,17 +116,31 @@ class PagedKVCache:
         that order: the same pool and metadata tensors, so appends through
         it write this cache's pages, and copies of those slots' table rows
         and lengths. A step through it advances the copies only; the
-        caller writes them back (``seq_lens.index_copy_``)."""
-        return PagedKVCache(self.kv_pages, self.k_max, self.k_min,
+        caller writes them back (``seq_lens.index_copy_``). The window
+        layers' cache, where there is one, is viewed the same way over the
+        view's lengths."""
+        view = PagedKVCache(self.kv_pages, self.k_max, self.k_min,
                             self.block_tab.index_select(0, idx),
                             self.seq_lens.index_select(0, idx))
+        w = self.window
+        if w is not None:
+            view.window = PagedKVCache(w.kv_pages, w.k_max, w.k_min,
+                                       w.block_tab.index_select(0, idx),
+                                       view.seq_lens)
+        return view
 
 
 def init_cache(model: ModelConfig, quest: QuestConfig, batch_size: int = 1,
                num_layers: int | None = None,
                total_pages: int | None = None,
-               device="cuda", dp: int = 1) -> PagedKVCache:
+               device="cuda", dp: int = 1,
+               window_pages: int | None = None) -> PagedKVCache:
     """Allocate the zeroed pool up front on ``device``.
+
+    A model with window layers gets the full layers' cache with the
+    window layers' in its ``window`` (module docstring), whose pool has
+    ``window_pages`` pages (default: the same layout as the full
+    layers', every slot's table mapped).
 
     ``total_pages``: physical pool size (default: one scratch block plus
     ``batch_size * max_pages``). The default block table gives slot b
@@ -129,6 +155,15 @@ def init_cache(model: ModelConfig, quest: QuestConfig, batch_size: int = 1,
     SHARD.
     """
     dev = resolve_device(device)
+    if model.window_layers and num_layers is None:
+        cache = init_cache(model, quest, batch_size,
+                           len(model.full_layers), total_pages, dev, dp)
+        win = init_cache(model, quest, batch_size, len(model.window_layers),
+                         window_pages if window_pages is not None
+                         else total_pages, dev, dp)
+        win.seq_lens = cache.seq_lens
+        cache.window = win
+        return cache
     L = num_layers if num_layers is not None else model.num_layers
     B, H, D = batch_size, model.num_kv_heads, model.head_dim
     P, page = quest.max_pages, quest.page_size

@@ -53,6 +53,16 @@ class PagePool:
         self._drop(s["pages"])
         self._next_ids.append(seq_id)
 
+    def pages_alloc(self, n: int) -> List[int]:
+        """``n`` free pages, each with one count held by the caller (no
+        sequence owns them; :meth:`pages_release` returns them). Raises
+        ``MemoryError`` (allocating nothing) when the pool is short."""
+        if n > len(self._free):
+            raise MemoryError("page pool exhausted")
+        out = [self._free.pop() for _ in range(n)]
+        self._refs[out] = 1
+        return out
+
     def pages_retain(self, pages: Sequence[int]) -> None:
         """Take a refcount hold on owned pages — a shared-prefix hold
         that survives the owning sequence's release. Nothing changes if

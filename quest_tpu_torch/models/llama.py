@@ -16,6 +16,14 @@ estimate -> top-k -> sparse attention, or the fused kernel where
 updated in place. Each stage runs inside a trace range named as the JAX
 model's ``jax.named_scope`` (:data:`TRACE_RANGES`), opened only while a
 profiler is active (:func:`quest_tpu_torch.utils.trace.trace_range`).
+
+Where ``SparseWindowConfig.layer_types`` makes a layer a window layer, it
+rotates by the window rope, appends to the window layers' cache
+(``cache.window``) and attends to its last ``sliding_window`` keys alone
+(``prefill_attention`` and ``dense_decode_attention`` with ``window``);
+it never selects. With ``num_experts`` every MLP is the router and the
+experts of ``ops/moe.py``. Those stages run in the ranges of
+:data:`MOE_WINDOW_RANGES`; the dense Llama layer runs as before.
 """
 
 from __future__ import annotations
@@ -34,6 +42,9 @@ from quest_tpu_torch.models.quantize import (QuantizedLinear, qdot,
 from quest_tpu_torch.ops.dense_decode import dense_decode_attention
 from quest_tpu_torch.ops.estimate import page_scores_physical
 from quest_tpu_torch.ops.fused_decode import fused_sparse_decode
+from quest_tpu_torch.ops.moe import (KERNEL_ROWS, moe_experts,
+                                     moe_experts_grouped, moe_experts_plain,
+                                     moe_route)
 from quest_tpu_torch.ops.prefill import prefill_attention
 from quest_tpu_torch.ops.rms_norm import rms_norm
 from quest_tpu_torch.ops.rope import (compute_rope_params, rope_cos_sin,
@@ -47,11 +58,21 @@ from quest_tpu_torch.utils.trace import trace_range
 Params = Dict[str, object]
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "ln_attn", "ln_mlp")
+# A layer with experts: the router [hid, E] and the experts' stacked
+# w_gate, w_up [E, hid, I] and w_down [E, I, hid].
+MOE_LAYER_KEYS = LAYER_KEYS + ("w_router",)
 # The layer's trace ranges, the JAX model's ``jax.named_scope`` names.
 TRACE_RANGES = ("qkv_proj", "rope", "append_kv_prefill", "prefill_attn",
                 "append_kv_decode", "quest_fused_decode", "quest_estimate",
                 "quest_topk", "quest_sparse_attn", "dense_decode_attn",
                 "o_proj", "mlp")
+# The ranges of the window layers' attention and of the experts.
+MOE_WINDOW_RANGES = ("moe_router", "moe_experts", "window_decode_attn",
+                     "window_prefill_attn")
+
+
+def layer_keys(cfg: ModelConfig) -> tuple:
+    return MOE_LAYER_KEYS if cfg.num_experts else LAYER_KEYS
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -69,6 +90,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     stacked; the draws do not depend on it."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
+    if cfg.num_experts and linear_wrap is not None:
+        raise NotImplementedError("quantized experts")
     L, H, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     hid, inter, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     lw = linear_wrap or (lambda name, w: w)
@@ -87,19 +110,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             out[l] = normal(per_shape, fan_in)
         return out
 
+    # The embedding is drawn first, so a seed gives a dense model the
+    # weights it gave before layers could hold experts.
+    embed = normal((V, hid), 1.0, 0.02)
+    layers = {
+        "wq": stacked("wq", (hid, H * D), hid),
+        "wk": stacked("wk", (hid, Hkv * D), hid),
+        "wv": stacked("wv", (hid, Hkv * D), hid),
+        "wo": stacked("wo", (H * D, hid), H * D),
+    }
+    if cfg.num_experts:
+        E, I = cfg.num_experts, cfg.moe_intermediate_size
+        layers.update(w_router=stacked("w_router", (hid, E), hid),
+                      w_gate=stacked("w_gate", (E, hid, I), hid),
+                      w_up=stacked("w_up", (E, hid, I), hid),
+                      w_down=stacked("w_down", (E, I, hid), I))
+    else:
+        layers.update(w_gate=stacked("w_gate", (hid, inter), hid),
+                      w_up=stacked("w_up", (hid, inter), hid),
+                      w_down=stacked("w_down", (inter, hid), inter))
     return {
-        "embed": normal((V, hid), 1.0, 0.02),
-        "layers": {
-            "wq": stacked("wq", (hid, H * D), hid),
-            "wk": stacked("wk", (hid, Hkv * D), hid),
-            "wv": stacked("wv", (hid, Hkv * D), hid),
-            "wo": stacked("wo", (H * D, hid), H * D),
-            "w_gate": stacked("w_gate", (hid, inter), hid),
-            "w_up": stacked("w_up", (hid, inter), hid),
-            "w_down": stacked("w_down", (inter, hid), inter),
-            "ln_attn": torch.ones((L, hid), dtype=dtype, device=dev),
-            "ln_mlp": torch.ones((L, hid), dtype=dtype, device=dev),
-        },
+        "embed": embed,
+        "layers": dict(
+            layers,
+            ln_attn=torch.ones((L, hid), dtype=dtype, device=dev),
+            ln_mlp=torch.ones((L, hid), dtype=dtype, device=dev)),
         "final_norm": torch.ones((hid,), dtype=dtype, device=dev),
         "lm_head": lw("lm_head", normal((hid, V), hid)),
     }
@@ -169,13 +204,32 @@ class QuestModel(nn.Module):
         if params["embed"].is_cuda:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.register_buffer("embed", params["embed"])
-        for k in LAYER_KEYS:
+        for k in layer_keys(cfg):
             self._register_weight(k, params["layers"][k])
         self.register_buffer("final_norm", params["final_norm"])
         self._register_weight("lm_head", params["lm_head"])
         inv_freq, self._pos_scale, self._attn_scale = compute_rope_params(
             cfg.rope, cfg.head_dim)
         self.register_buffer("inv_freq", inv_freq.to(self.embed.device))
+        # Each layer's kind and its index in its cache: the full layers'
+        # (cache) or the window layers' (cache.window).
+        full, win = cfg.full_layers, cfg.window_layers
+        self._slot = [(False, full.index(l)) if l in full
+                      else (True, win.index(l)) for l in range(cfg.num_layers)]
+        if win:
+            winv, self._wpos_scale, self._wattn_scale = compute_rope_params(
+                cfg.window_rope or cfg.rope, cfg.head_dim)
+            self.register_buffer("inv_freq_window",
+                                 winv.to(self.embed.device))
+        if cfg.num_experts:
+            if self._bits or tp_group is not None:
+                raise NotImplementedError("experts take bf16 or f32 weights "
+                                          "on one device")
+            # Distinct experts read, summed over the layers and steps since
+            # the caller last zeroed it (ops/moe.py).
+            self.register_buffer("experts_read", torch.zeros(
+                1, dtype=torch.int32, device=self.embed.device),
+                persistent=False)
 
     def _register_weight(self, name: str, w) -> None:
         if isinstance(w, QuantizedLinear):
@@ -235,8 +289,8 @@ class QuestModel(nn.Module):
     # ------------------------------------------------------------------
     def _attn_decode(self, q, cache: PagedKVCache, layer: int,
                      use_sparse: bool, seq_lens):
-        """q: [B, Hq, D]; reads layer ``layer`` of the pool. Returns
-        [B, Hq, D] f32."""
+        """q: [B, Hq, D]; reads layer ``layer`` of the pool (the cache's
+        own index of a full layer). Returns [B, Hq, D] f32."""
         cfg, quest = self.cfg, self.quest
         sm = 1.0 / math.sqrt(cfg.head_dim)
         if use_sparse and fused_gate(quest, cache.max_pages,
@@ -269,15 +323,24 @@ class QuestModel(nn.Module):
                 block_tab=cache.block_tab, block_pages=cache.block_pages)
 
     def _layer(self, x, pending, l: int, cache: PagedKVCache,
-               use_sparse: bool, rope, is_prefill: bool, new_lens, active):
+               use_sparse: bool, rope, is_prefill: bool, new_lens, active,
+               real=None):
         """One transformer layer; x: [B, T, hid], the residual stream
         without ``pending``, the previous layer's MLP output not yet added
         (None for the first layer), which the layer's first norm adds
         (:meth:`_norm`); rope: the (cos, sin) pair of this pass's
-        positions; active: a decode step's rows with a new token
-        (``new_lens > 0``, made once a step). Returns the stream and this
-        layer's MLP output, pending."""
+        positions for the layer's kind; active: a decode step's rows with
+        a new token (``new_lens > 0``, made once a step); real: the [B * T]
+        tokens that are not padding, which alone read experts. A window
+        layer works on ``cache.window`` and attends each query's last
+        ``sliding_window`` keys. Returns the stream and this layer's MLP
+        output, pending."""
         cfg = self.cfg
+        window, li = self._slot[l]
+        if window:
+            cache, W = cache.window, cfg.sliding_window
+        else:
+            W = 0
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         sm = 1.0 / math.sqrt(D)
@@ -291,31 +354,59 @@ class QuestModel(nn.Module):
             with trace_range("rope"):
                 q, k = rotate_qk(q, k, *rope)
             with trace_range("append_kv_prefill"):
-                append_prefill_at(cache, l, k, v, new_lens=new_lens)
-            with trace_range("prefill_attn"):
+                append_prefill_at(cache, li, k, v, new_lens=new_lens)
+            with trace_range("window_prefill_attn" if window
+                             else "prefill_attn"):
                 attn = prefill_attention(
                     q, cache.kv_pages, cache.seq_lens,
-                    cache.seq_lens + new_lens, sm_scale=sm, layer=l,
-                    block_tab=cache.block_tab, block_pages=cache.block_pages)
+                    cache.seq_lens + new_lens, sm_scale=sm, layer=li,
+                    block_tab=cache.block_tab, block_pages=cache.block_pages,
+                    window=W)
         else:
             with trace_range("append_kv_decode"):
                 # The rope of q and k and the append in one launch.
                 # Inactive slots (new_lens == 0) must not fold their
                 # garbage key into the page metadata.
-                q = rope_append_decode_at(cache, l, q[:, 0], k[:, 0],
+                q = rope_append_decode_at(cache, li, q[:, 0], k[:, 0],
                                           v[:, 0], *rope, active=active)
-            attn = self._attn_decode(q, cache, l, use_sparse,
-                                     cache.seq_lens + 1)[:, None]
+            if window:
+                with trace_range("window_decode_attn"):
+                    attn = dense_decode_attention(
+                        q, cache.kv_pages, cache.seq_lens + 1, sm_scale=sm,
+                        layer=li, block_tab=cache.block_tab,
+                        block_pages=cache.block_pages, window=W)
+            else:
+                attn = self._attn_decode(q, cache, li, use_sparse,
+                                         cache.seq_lens + 1)
+            attn = attn[:, None]
 
         with trace_range("o_proj"):
             attn = attn.to(x.dtype).reshape(B, T, H * D)
             o = self._maybe_all_reduce(self._linear(attn, "wo", l))
+        if cfg.num_experts:
+            x, h2 = self._norm(x, o, self.ln_mlp[l])
+            return x, self._moe(h2, l, real)
         with trace_range("mlp"):
             x, h2 = self._norm(x, o, self.ln_mlp[l])
             mlp = self._linear(silu_mul(self._linear(h2, "w_gate", l),
                                         self._linear(h2, "w_up", l)),
                                "w_down", l)
         return x, self._maybe_all_reduce(mlp)
+
+    def _moe(self, h2, l: int, real):
+        """The router and the experts of layer ``l`` over h2 [B, T, hid];
+        tokens not ``real`` read no expert."""
+        cfg = self.cfg
+        h = h2.reshape(-1, h2.shape[-1])
+        with trace_range("moe_router"):
+            ids, wts = moe_route(h, self.w_router[l], cfg.num_experts_per_tok)
+        experts = (moe_experts_plain if not h.is_cuda else
+                   moe_experts_grouped if h.shape[0] > KERNEL_ROWS else
+                   moe_experts)
+        with trace_range("moe_experts"):
+            out = experts(h, ids, wts, self.w_gate[l], self.w_up[l],
+                          self.w_down[l], real, self.experts_read)
+        return out.reshape(h2.shape)
 
     @torch.no_grad()
     def _forward(self, cache: PagedKVCache, tokens: torch.Tensor,
@@ -333,11 +424,23 @@ class QuestModel(nn.Module):
         rope = rope_cos_sin(positions, self.inv_freq, self._pos_scale,
                             self._attn_scale)
         active = None if is_prefill else new_lens > 0
+        real = None
+        if cfg.num_experts:
+            real = active if not is_prefill else (
+                torch.arange(T, device=dev)[None, :]
+                < new_lens[:, None]).reshape(-1)
         pending = None
-        for l in range(cache.kv_pages.shape[0]):
+        if cache.window is None:
+            n_layers, wrope = cache.kv_pages.shape[0], None
+        else:
+            n_layers = cfg.num_layers
+            wrope = rope_cos_sin(positions, self.inv_freq_window,
+                                 self._wpos_scale, self._wattn_scale)
+        for l in range(n_layers):
             x, pending = self._layer(x, pending, l, cache,
-                                     l >= quest.skip_layers, rope,
-                                     is_prefill, new_lens, active)
+                                     l >= quest.skip_layers,
+                                     wrope if self._slot[l][0] else rope,
+                                     is_prefill, new_lens, active, real)
         _, x = self._norm(x, pending, self.final_norm)
         if last_only:
             last = (new_lens.long() - 1).clamp(min=0)

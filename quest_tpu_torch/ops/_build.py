@@ -38,8 +38,9 @@ SIGNATURES = {
     "sparse_decode": ("sparse_decode_launch",
                       [_P] * 10 + [_I] * 12 + [_F, _I, _P, _P]),
     "dense_decode": ("dense_decode_launch",
-                     [_P] * 8 + [_I] * 10 + [_F, _I, _P, _P]),
-    "prefill": ("prefill_launch", [_P] * 6 + [_I] * 10 + [_F, _I, _P, _P]),
+                     [_P] * 8 + [_I] * 10 + [_F, _I, _I, _P, _P]),
+    "prefill": ("prefill_launch",
+                [_P] * 6 + [_I] * 10 + [_F, _I, _I, _P, _P]),
     # The library's other entry points, estimate_physical_launch and
     # estimate_physical_plan, are bound by ops/estimate.py.
     "estimate": ("estimate_launch", [_P] * 4 + [_I] * 7 + [_P]),
@@ -57,6 +58,9 @@ SIGNATURES = {
     "rms_norm": ("rms_norm_launch", [_P] * 6 + [_I] * 2 + [_F, _I, _P]),
     "head_gemv": ("head_gemv_launch", [_P] * 5 + [_I] * 5 + [_P]),
     "silu_mul": ("silu_mul_launch", [_P] * 3 + [_L, _I, _P]),
+    # The library's second entry point, moe_experts_launch, is bound by
+    # ops/moe.py.
+    "moe": ("moe_route_launch", [_P] * 4 + [_I] * 4 + [_P]),
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -28,9 +28,11 @@ MIN_SPLIT_TOKENS = 512
 
 
 def dense_decode_attention_plain(q, kv_pages, seq_lens, *, sm_scale: float,
-                                 layer: int, block_tab, block_pages: int):
+                                 layer: int, block_tab, block_pages: int,
+                                 window: int = 0):
     """Eager version: gather every logical page of each slot through the
-    block table, mask tokens >= seq_len, one-pass softmax in f32, p
+    block table, mask tokens >= seq_len (and, with a window, tokens <
+    seq_len - window), one-pass softmax in f32, p
     rounded to the compute dtype (the pool's, bf16 for an fp8 pool) before
     PV; fp8 pages are read through ``upcast_fp8``. q [B, Hq, D] ->
     [B, Hq, D] f32."""
@@ -48,8 +50,11 @@ def dense_decode_attention_plain(q, kv_pages, seq_lens, *, sm_scale: float,
     k = sel[:, :, :, 0].reshape(Hkv, B, P * page, D).transpose(0, 1)
     v = sel[:, :, :, 1].reshape(Hkv, B, P * page, D).transpose(0, 1)
     s = torch.einsum("bkgd,bktd->bkgt", qs, to_f32(k))
-    valid = (torch.arange(P * page, device=dev)[None, :]
-             < seq_lens.long()[:, None])[:, None, None, :]
+    tok = torch.arange(P * page, device=dev)[None, :]
+    valid = tok < seq_lens.long()[:, None]
+    if window:
+        valid &= tok >= seq_lens.long()[:, None] - window
+    valid = valid[:, None, None, :]
     s = torch.where(valid, s, torch.full_like(s, MASK_VALUE))
     p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)),
                     torch.zeros_like(s))
@@ -61,8 +66,12 @@ def dense_decode_attention_plain(q, kv_pages, seq_lens, *, sm_scale: float,
 
 
 def dense_decode_attention(q, kv_pages, seq_lens, *, sm_scale: float,
-                           layer: int, block_tab, block_pages: int):
-    """Decode attention over every cached token of each slot.
+                           layer: int, block_tab, block_pages: int,
+                           window: int = 0):
+    """Decode attention over every cached token of each slot, or with
+    ``window > 0`` over its last ``window`` tokens (a window layer: the
+    table's pages below the window are never read, so they may be
+    unmapped).
 
     q: [B, Hq, D] un-scaled query; kv_pages: the whole-model shared pool
     [L, Hkv, NP, 2, page, D] (f32, bf16 or fp8 e4m3), read at ``layer``;
@@ -74,7 +83,7 @@ def dense_decode_attention(q, kv_pages, seq_lens, *, sm_scale: float,
     if not q.is_cuda:
         return dense_decode_attention_plain(
             q, kv_pages, seq_lens, sm_scale=sm_scale, layer=layer,
-            block_tab=block_tab, block_pages=block_pages)
+            block_tab=block_tab, block_pages=block_pages, window=window)
     B, Hq, D = q.shape
     _, Hkv, NP, _, page, Dk = kv_pages.shape
     G = Hq // Hkv
@@ -89,8 +98,12 @@ def dense_decode_attention(q, kv_pages, seq_lens, *, sm_scale: float,
     if not kv_pages.is_contiguous():
         raise ValueError("kv_pages must be contiguous")
     NB = block_tab.shape[1]
-    # Sized from the table's capacity, not from seq_lens (no host read).
-    plan = decode_plan(B, Hkv, G, page, NB * block_pages, MIN_SPLIT_TOKENS,
+    # Sized from the table's capacity (a window's pages: the first may be
+    # partial), not from seq_lens (no host read).
+    items = NB * block_pages
+    if window:
+        items = min(items, -(-window // page) + 1)
+    plan = decode_plan(B, Hkv, G, page, items, MIN_SPLIT_TOKENS,
                        CTAS_PER_SM * sm_count(q.device))
     qk = kernel_query(q)
     tab = block_tab.to(torch.int32).contiguous()
@@ -105,7 +118,8 @@ def dense_decode_attention(q, kv_pages, seq_lens, *, sm_scale: float,
         _build.ptr(lens), _build.ptr(part_o), _build.ptr(part_ml),
         _build.ptr(tickets), _build.ptr(out), B, Hkv, G, NP, page, NB,
         block_pages, plan.nsplit, plan.per_split, kv_code, sm_scale,
-        int(qk.dtype == torch.bfloat16), tmap, _build.stream_of(q))
+        int(qk.dtype == torch.bfloat16), int(window), tmap,
+        _build.stream_of(q))
     _build.check(lib, code, "dense_decode")
     dense_decode_attention.launches += 1
     return out

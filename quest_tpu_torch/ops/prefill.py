@@ -22,9 +22,10 @@ from quest_tpu_torch.ops.utils import (MASK_VALUE, check_pool_dtype,
 
 def prefill_attention_plain(q, kv_pages, q_offsets, kv_lens, *,
                             sm_scale: float, layer: int, block_tab,
-                            block_pages: int):
+                            block_pages: int, window: int = 0):
     """Eager version: every logical token of the slot through the block
-    table, causal and length mask, one-pass softmax in f32, p rounded to
+    table, causal and length mask (and with a window, keys above the
+    query's position less ``window``), one-pass softmax in f32, p rounded to
     the compute dtype (the pool's, bf16 for an fp8 pool) before PV, fp8
     pages read through ``upcast_fp8``; one KV head at a time to bound
     memory.
@@ -43,6 +44,8 @@ def prefill_attention_plain(q, kv_pages, q_offsets, kv_lens, *,
     tok = torch.arange(P * page, device=dev)
     valid = ((tok[None, None, :] <= q_pos[:, :, None])
              & (tok[None, None, :] < kv_lens.long()[:, None, None]))
+    if window:
+        valid &= tok[None, None, :] > q_pos[:, :, None] - window
     valid = valid[:, None]                                     # [B,1,T,Tkv]
     out = torch.empty((B, T, Hq, D), dtype=torch.float32, device=dev)
     for h in range(Hkv):
@@ -104,8 +107,12 @@ def _tensor_map(lib, kvl, kv_code):
 
 
 def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
-                      layer: int, block_tab, block_pages: int):
-    """Causal attention of T fresh queries over the paged cache.
+                      layer: int, block_tab, block_pages: int,
+                      window: int = 0):
+    """Causal attention of T fresh queries over the paged cache; with
+    ``window > 0`` the query at position p sees only the keys p - window +
+    1 .. p (a window layer: pages below every query's window are not
+    read, so they may be unmapped).
 
     q: [B, T, Hq, D] (rope applied, un-scaled); kv_pages: the shared
     pool [L, Hkv, NP, 2, page, D] with the new tokens already appended,
@@ -117,7 +124,7 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
     if not q.is_cuda:
         return prefill_attention_plain(
             q, kv_pages, q_offsets, kv_lens, sm_scale=sm_scale, layer=layer,
-            block_tab=block_tab, block_pages=block_pages)
+            block_tab=block_tab, block_pages=block_pages, window=window)
     B, T, Hq, D = q.shape
     _, Hkv, NP, _, page, Dk = kv_pages.shape
     if D != 128 or Dk != 128:
@@ -143,7 +150,8 @@ def prefill_attention(q, kv_pages, q_offsets, kv_lens, *, sm_scale: float,
         _build.ptr(offs), _build.ptr(lens), _build.ptr(out), B, T, Hq, Hkv,
         NP, page, tab.shape[1], block_pages,
         kv_code, int(route == "fma"), sm_scale,
-        int(qk.dtype == torch.bfloat16), tmap, _build.stream_of(q))
+        int(qk.dtype == torch.bfloat16), int(window), tmap,
+        _build.stream_of(q))
     _build.check(lib, code, "prefill")
     prefill_attention.launches += 1
     return out
